@@ -1,0 +1,80 @@
+// Block-wide helpers shared by the kernels.  Every helper must be called
+// by all threads of the block (they synchronise), with blockDim.x a
+// multiple of 32.
+#pragma once
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define KAT_BIG 3.0e38f  // the reference's BIG: +inf for f32 mins
+#define KAT_EPS 10.0f    // the reference's device-unit epsilon
+
+// Exclusive prefix of v over the block in thread order; *total gets the
+// block sum.  Integer adds, so the result is exact in any order.
+__device__ __forceinline__ int kat_block_excl_scan(int v, int* total) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  const int base = warp > 0 ? warp_sums[warp - 1] : 0;
+  *total = warp_sums[nwarps - 1];
+  __syncthreads();  // warp_sums may be reused by the next call
+  return base + x - v;
+}
+
+__device__ __forceinline__ float kat_block_min_f32(float v) {
+  __shared__ float red[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < nwarps ? red[lane] : INFINITY;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) w = fminf(w, __shfl_xor_sync(0xffffffffu, w, o));
+    if (lane == 0) red[0] = w;
+  }
+  __syncthreads();
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+__device__ __forceinline__ int kat_block_min_i32(int v) {
+  __shared__ int red[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? red[lane] : 0x7fffffff;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) w = min(w, __shfl_xor_sync(0xffffffffu, w, o));
+    if (lane == 0) red[0] = w;
+  }
+  __syncthreads();
+  const int r = red[0];
+  __syncthreads();
+  return r;
+}
