@@ -6,18 +6,30 @@
 Needs a CUDA card and nvcc; imports nothing of JAX.  Phases (any failure
 exits non-zero):
 
-1. kernels — builds K1-K4 from kube_arbitrator_tpu_torch/ops/kernels/csrc
+1. kernels — builds K1-K8 from kube_arbitrator_tpu_torch/ops/kernels/csrc
    (one nvcc per source, in parallel) and holds each against its plain
-   PyTorch version on seeded inputs at the main path's shapes (100k tasks,
-   10k nodes, 1k groups, 8-slot chunks), requiring equality; times the
-   kernel, the plain version and, for K4, ``Tensor.index_add_``.
-2. parity — a 1000 x 100 world decided on the card and on the CPU by the
-   port's ``schedule_cycle``: every CycleDecisions field must be equal.
-3. full width — the ``python -m kube_arbitrator_tpu_torch`` path on four
-   100k-task x 10k-node worlds (seeds 42, 43, 44 and one capacity-tight
-   world): invariants hold and the integer decisions equal the port's CPU
-   run of the same world.  Launch counts are taken over the first world
-   (the main path), with every count set to 0 just before it.
+   PyTorch version, requiring equality: K1-K4 on seeded inputs at the
+   allocate path's shapes (100k tasks, 10k nodes, 1k groups, 8-slot
+   chunks), K5-K8 on the inputs the evictive path gives them in the
+   50k-task x 5k-node world (its preempt victim panel, its first preempt
+   turn, its first claiming reclaim turn).  Times the kernel, the plain
+   version and, where one PyTorch call computes the same function
+   (K4's and K7's sums: ``Tensor.index_add_``), that call.
+2. parity — worlds decided on the card and on the CPU by the port's
+   ``schedule_cycle``, every CycleDecisions field equal: 1000 x 100
+   (allocate, backfill), and 5k x 500 and 20k x 2k under the evictive conf
+   (reclaim, allocate, backfill, preempt).
+3. allocate at full width — the ``python -m kube_arbitrator_tpu_torch``
+   path on four 100k-task x 10k-node worlds (seeds 42, 43, 44 and one
+   capacity-tight world): invariants hold and the integer decisions equal
+   the port's CPU run of the same world.
+4. the evictive cycle at full width — 50k tasks x 5k nodes, 8 queues,
+   half the jobs running, seeds 42 and 43, on the card only: stage times,
+   rounds, binds and evictions by phase; invariants; seed 42's counts and
+   decision digest equal the JAX package's (EVICT_WORLD_42).
+
+Each path's launch counts are taken over its first world (seed 42), with
+every count set to 0 just before it.
 
 Prints the card's name and power limit, a JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``; the
@@ -26,6 +38,7 @@ compiler's register and spill report goes to stderr.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -50,6 +63,17 @@ WORLDS = (
     dict(seed=44, running_fraction=0.0, fit_fraction=1.2),
     dict(seed=45, running_fraction=0.3, fit_fraction=0.9),
 )
+EVICT_ACTIONS = ("reclaim", "allocate", "backfill", "preempt")
+EVICT_FULL = dict(tasks=50_000, nodes=5_000, queues=8, tasks_per_job=100,
+                  running_fraction=0.5, fit_fraction=1.2)
+EVICT_PARITY = (
+    dict(tasks=5_000, nodes=500, queues=8, tasks_per_job=100, seed=42, running_fraction=0.5),
+    dict(tasks=20_000, nodes=2_000, queues=4, tasks_per_job=100, seed=42, running_fraction=0.7),
+)
+# The 50k x 5k seed-42 world under EVICT_ACTIONS as the JAX package
+# decides it, from tests/test_torch_evict_fullwidth.py (the port's CPU run
+# equals it in every CycleDecisions field); the digest is decision_digest's.
+EVICT_WORLD_42 = dict(binds=23_937, evicts_by_phase=[0, 1139, 0, 426], digest="ef1edee61d169ef5")
 
 
 class SmokeFailure(Exception):
@@ -85,6 +109,27 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2, setup=None) -> float:
 def bound_ms(nbytes: float, nops: float) -> tuple:
     tb, to = nbytes / MEM_BW * 1e3, nops / F32_PEAK * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def decision_digest(bind_mask, evict_mask) -> str:
+    """sha256[:16] of the bound and evicted task ordinals (the same
+    function as tests/test_torch_evict_fullwidth.py's)."""
+    h = hashlib.sha256(np.nonzero(bind_mask)[0].astype(np.int32).tobytes())
+    h.update(b"|")
+    h.update(np.nonzero(evict_mask)[0].astype(np.int32).tobytes())
+    return h.hexdigest()[:16]
+
+
+def to_cpu(x):
+    """A copy of ``x`` on the CPU: tensors, tuples and dataclasses of them."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        return tuple(to_cpu(v) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return x
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -312,7 +357,213 @@ def k1_case(dev):
                 shape=f"N={N}, R={R}, W={W}, {ns} slots")
 
 
-# ---------------------------------------------------------------- phases 2-3
+# ---- K5-K8: the evictive path's own inputs in the 50k x 5k world
+
+
+def evict_fixture(dev):
+    """The 50k x 5k seed-42 world on the card and on the CPU: the reclaim
+    entry state (after open_session) and the preempt entry state (after
+    reclaim, allocate and backfill), with preempt's victim panel."""
+    from kube_arbitrator_tpu_torch.api.types import TaskStatus
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops import allocate, cycle, preempt
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+
+    w = EVICT_FULL
+    arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"], w["tasks_per_job"], 42,
+                                       running_fraction=w["running_fraction"],
+                                       fit_fraction=w["fit_fraction"])
+    st = from_numpy(arrays, dev)
+    sess, state0 = cycle.open_session(st, tiers)
+    state = preempt.reclaim_action(st, sess, state0, tiers)
+    state = allocate.allocate_action(st, sess, state, tiers)
+    state = allocate.backfill_action(st, sess, state, tiers)
+    T = st.num_tasks
+    running0 = (state.task_status == int(TaskStatus.RUNNING)) & st.task_valid & (state.task_node >= 0)
+    qualify = preempt._entry_qualify(st, sess, state, running0)
+    count = int(qualify.sum())
+    P = T // 8 if count <= T // 8 else (T // 4 if count <= T // 4 else T)
+    view = preempt._build_view(st, state, qualify if P < T else running0, P)
+    return types.SimpleNamespace(st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess, tiers=tiers,
+                                 state0=state0, state=state, view=view)
+
+
+def k5_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import seg_scan as k5
+
+    view = fx.view
+    P, R = view.resreq.shape
+    rng = np.random.default_rng(5)
+    mask = view.running(fx.state.task_status) & torch.from_numpy(rng.random(P) < 0.7).to(dev)
+    err = 0.0
+    for name in ("by_job", "by_queue", "by_node_queue"):
+        lay = getattr(view.layouts, name)
+        got = lay.rank_and_cum(mask)
+        want = k5.seg_scan_plain(mask.cpu(), lay.order.cpu(), lay.seg_start.cpu(), lay.res_sorted.cpu())
+        for a, b in zip(got, want):
+            err = max(err, max_err(a, b))
+            expect(torch.equal(a.cpu(), b), f"K5 {name} differs from its plain version")
+    lay = view.layouts.by_node_queue
+    ms = cuda_ms(lambda: lay.rank_and_cum(mask))
+    plain_ms = cuda_ms(lambda: k5.seg_scan_plain(mask, lay.order, lay.seg_start, lay.res_sorted), reps=3)
+    # mask, order, seg_start and resreq read once; rank and cum written once
+    b, by = bound_ms(P * (1 + 4 + 1 + 4 * R) + P * (4 + 4 * R), P * (R + 1))
+    return dict(name="seg_scan", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None,
+                shape=f"panel P={P}, R={R} (by_node_queue; by_job and by_queue held too)")
+
+
+def k6_inputs(fx):
+    """The first preempt turn of the preempt entry state: the first
+    queue in the round's order, its claimant and its verdict."""
+    from kube_arbitrator_tpu_torch.ops import allocate, preempt
+
+    st, sess, state, view, tiers = fx.st, fx.sess, fx.state, fx.view, fx.tiers
+    q_active = preempt._round_gate(st, sess, state, "preempt", view)
+    _, perm = preempt._queue_perm(st, sess, state, tiers, q_active)
+    q = perm[:1]
+    shared = allocate._selection_shared(st, sess, state, tiers, None)
+    j, g, has_grp, req, budget = allocate.select_turns(st, sess, state, tiers, 4096, "preempt",
+                                                       shared, q, st.queue_valid[q] & q_active[q])
+    was_ready = shared[3][j]
+    need = (sess.min_avail[j] - state.job_ready_cnt[j]).clamp(min=0)
+    budget = preempt._phase_budget("preempt", budget, was_ready, need, has_grp, shared[0][g], 4096)
+    P = view.idx.shape[0]
+    scope = view.running(state.task_status) & (view.job != j) & (view.queue == q)
+    victims = preempt._victim_verdict(st, state, sess, tiers, scope, j.expand(P),
+                                      req.expand(P, req.shape[1]), view) & has_grp
+    node_rank, node_cum = view.layouts.by_node_queue.rank_and_cum(victims)
+    return (*preempt.claim_aggregates(st, view, victims), state.node_ports, state.node_num_tasks,
+            victims, view.node, view.resreq, node_rank, node_cum, g, req[0].contiguous(), budget,
+            has_grp, was_ready, need, 4096, True, True)
+
+
+def k6_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import claim_nodes as k6
+
+    args = k6_inputs(fx)
+    got = k6.claim_nodes(fx.st, *args)
+    want = k6.claim_nodes_plain(fx.st_cpu, *to_cpu(args))
+    err = 0.0
+    for a, b in zip(got, want):
+        err = max(err, max_err(a, b))
+        expect(torch.equal(a.cpu(), b), "K6 differs from its plain version")
+    expect(int(got[3].sum()) > 0 and int(got[2][0]) > 0, "K6 inputs evicted or placed nothing")
+    ms = cuda_ms(lambda: k6.claim_nodes(fx.st, *args))
+    plain_ms = cuda_ms(lambda: k6.claim_nodes_plain(fx.st, *args), reps=5)
+    N, R = args[1].shape
+    W = args[4].shape[1]
+    P = args[6].shape[0]
+    # node aggregates, ports, counts and static flags read once; the
+    # panel's victims, nodes, resreq, ranks and cumulatives read once;
+    # p, cum and evict written
+    nbytes = N * (4 + 12 * R + 4 * W + 4 + 4 + 4 + 2) + P * (1 + 4 + 4 * R + 4 + 4 * R) \
+        + N * 8 + P
+    b, by = bound_ms(nbytes, N * 12 * R + P * 3 * R)
+    return dict(name="claim_nodes", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, shape=f"N={N}, R={R}, panel P={P}")
+
+
+def canon_inputs(fx):
+    """The reclaim entry state and the first turn that claims."""
+    from kube_arbitrator_tpu_torch.ops import allocate, preempt
+    from kube_arbitrator_tpu_torch.ops.kernels.canon_pick import canon_pick
+
+    st, sess, tiers = fx.st, fx.sess, fx.tiers
+    state = allocate._copy(fx.state0)
+    state.progress = torch.zeros((), dtype=torch.bool, device=st.device)
+    state.rounds = 0
+    ctx = preempt._canon_ctx(st, sess)
+    carry = preempt._canon_seed(st, state, ctx)
+    nq, perm = preempt._canon_round_order(st, sess, tiers, state, carry)
+    for qi in range(int(nq)):
+        q = perm[qi:qi + 1]
+        shared = preempt._reclaim_shared(st, sess, state, tiers, carry.job_consumed)
+        j, g, has_grp, req, pop, burn = preempt._reclaim_pop(st, sess, state, tiers, shared, q,
+                                                             carry.q_entries[q])
+        i32 = torch.int32
+        pick_args = (ctx, carry.cand, carry.rank_nj, carry.cum_nq, state.job_ready_cnt,
+                     sess.min_avail, state.queue_alloc, state.node_ports, state.node_num_tasks,
+                     q.to(i32), g.to(i32), has_grp, pop, req, True, False, True)
+        commit_turn = (q.to(i32), j.to(i32), g.to(i32), has_grp, pop, burn, req, True, False)
+        if int(canon_pick(st, *pick_args)) < st.num_nodes:
+            return ctx, state, carry, pick_args, commit_turn
+    raise SmokeFailure("no reclaim turn of the first round claims")
+
+
+def k7_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import canon_pick as k7
+
+    ctx, state, carry, pick_args, _ = canon_inputs(fx)
+    got = k7.canon_pick(fx.st, *pick_args)
+    want = k7.canon_pick_plain(fx.st_cpu, *to_cpu(pick_args))
+    expect(torch.equal(got.cpu(), want), f"K7 differs: {int(got)} vs {int(want)}")
+    ms = cuda_ms(lambda: k7.canon_pick(fx.st, *pick_args))
+    plain_ms = cuda_ms(lambda: k7.canon_pick_plain(fx.st, *pick_args), reps=5)
+    N = fx.st.num_nodes
+    Vp, R = ctx.cres.shape
+    F = carry.cum_nq.shape[1]
+    mask_v = carry.cand
+    stat = torch.cat([mask_v.float()[:, None], torch.where(mask_v[:, None], ctx.cres, 0.0)], 1)
+    idx = ctx.cnode.clamp(max=N - 1).long()
+    acc = torch.zeros((N, R + 1), device=dev)
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, idx, stat))
+    W = fx.st.node_ports.shape[1]
+    nbytes = Vp * (1 + 4 + 4 * F + 4 + 4 + 4 * F + 4 * R) + N * (4 + 4 * W + 4 + 4 + 4 + 3) + 4
+    b, by = bound_ms(nbytes, Vp * (2 * F + R + 3) + N * (R + 4))
+    return dict(name="canon_pick", max_abs_err=float(abs(int(got) - int(want))), ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms,
+                shape=f"Vp={Vp}, N={N}, R={R}")
+
+
+def k8_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops import allocate
+    from kube_arbitrator_tpu_torch.ops.kernels import canon_commit as k8
+    from kube_arbitrator_tpu_torch.ops.kernels.canon_pick import canon_pick
+
+    ctx, state, carry, pick_args, turn = canon_inputs(fx)
+    pick = canon_pick(fx.st, *pick_args)
+    s_gpu, c_gpu = allocate._copy(state), dataclasses.replace(carry, **{
+        f.name: getattr(carry, f.name).clone() for f in dataclasses.fields(carry)})
+    s_cpu, c_cpu = to_cpu(state), to_cpu(carry)
+    k8.canon_commit(fx.st, ctx, s_gpu, c_gpu, pick, *turn)
+    k8.canon_commit_plain(fx.st_cpu, to_cpu(ctx), s_cpu, c_cpu, pick.cpu(), *to_cpu(turn))
+    err = 0.0
+    for obj_g, obj_c in ((s_gpu, s_cpu), (c_gpu, c_cpu)):
+        for f in dataclasses.fields(obj_c):
+            a, b = getattr(obj_g, f.name), getattr(obj_c, f.name)
+            if isinstance(b, torch.Tensor):
+                err = max(err, max_err(a, b))
+                expect(torch.equal(a.cpu().reshape(b.shape), b), f"K8 {f.name} differs from its plain version")
+    expect(int(c_gpu.evicted_c.sum()) > 0, "K8 inputs evicted nothing")
+    work_s, work_c = allocate._copy(state), dataclasses.replace(carry, **{
+        f.name: getattr(carry, f.name).clone() for f in dataclasses.fields(carry)})
+
+    def setup():
+        for obj, src in ((work_s, state), (work_c, carry)):
+            for f in dataclasses.fields(src):
+                v = getattr(src, f.name)
+                if isinstance(v, torch.Tensor):
+                    getattr(obj, f.name).copy_(v)
+
+    ms = cuda_ms(lambda: k8.canon_commit(fx.st, ctx, work_s, work_c, pick, *turn), setup=setup)
+    plain_ms = cuda_ms(lambda: k8.canon_commit_plain(fx.st, ctx, work_s, work_c, pick, *turn),
+                       reps=5, setup=setup)
+    W, R = fx.st.rv_window, ctx.cres.shape[1]
+    F = carry.cum_nq.shape[1]
+    # the window's canon slots read once and its flags / scans written;
+    # the touched job, queue and node rows read and written; the evicted
+    # tasks' three audit fields written
+    n_ev = int(c_gpu.evicted_c.sum())
+    nbytes = W * (1 + 4 + 4 * F + 4 + 4 + 4 * F + 4 * R + 1 + 1 + 4) + W * (1 + 1 + 4 + 4 * F) \
+        + 2 * (n_ev + 1) * 2 * (4 * R + 4) + 12 * n_ev + 64
+    b, by = bound_ms(nbytes, W * (3 * R + 2 * F + 4))
+    return dict(name="canon_commit", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, shape=f"window W={W}, R={R}, {n_ev} evicted")
+
+
+# ---------------------------------------------------------------- phases 2-4
 
 
 def compare(a, b, fields) -> dict:
@@ -341,6 +592,32 @@ def invariants(st, dec, binds) -> None:
     expect(len(binds) == int(dec.bind_count), "decoded bind count disagrees")
 
 
+def evict_invariants(st, dec) -> None:
+    """Every committed eviction was a RUNNING task at the snapshot, has a
+    claimant, and is of another queue (reclaim), another job of the same
+    queue (preempt phase 1) or the claimant's own job (phase 2); no node
+    holds more pods than its limit."""
+    from kube_arbitrator_tpu_torch.api.types import TaskStatus
+
+    ev = dec.evict_mask.cpu()
+    running = int(TaskStatus.RUNNING)
+    expect(bool((st.task_status.cpu()[ev] == running).all()), "an eviction of a task that was not RUNNING")
+    claimant = dec.evict_claimant.cpu()[ev].long()
+    phase = dec.evict_phase.cpu()[ev]
+    expect(bool((claimant >= 0).all()), "a committed eviction without a claimant")
+    tj = st.task_job.cpu()[ev].long()
+    jq = st.job_queue.cpu().long()
+    expect(bool(((phase >= 1) & (phase <= 3)).all()), "an eviction without a phase")
+    rec, pre, intra = phase == 3, phase == 1, phase == 2
+    expect(bool((jq[tj][rec] != jq[claimant][rec]).all()), "a reclaim eviction within its own queue")
+    expect(bool(((tj[pre] != claimant[pre]) & (jq[tj][pre] == jq[claimant][pre])).all()),
+           "a preempt eviction outside the claimant's queue or of its own job")
+    expect(bool((tj[intra] == claimant[intra]).all()), "an intra-job eviction of another job")
+    valid = st.node_valid.cpu()
+    expect(bool((dec.node_num_tasks.cpu()[valid] <= st.node_max_tasks.cpu()[valid]).all()),
+           "a node over its pod limit")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -367,12 +644,14 @@ def main() -> int:
         print(f"== ptxas {k}\n{v[1][-2000:]}", file=sys.stderr)
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s", flush=True)
     rows = {}
-    for case in (k1_case, k2_case, k3_case, k4_case):
-        r = case(dev)
+    fx = evict_fixture(dev)
+    for case in (k1_case, k2_case, k3_case, k4_case, k5_case, k6_case, k7_case, k8_case):
+        r = case(dev, fx) if case in (k5_case, k6_case, k7_case, k8_case) else case(dev)
         rows[r["name"]] = r
         print(f"kernel {r['name']}: equal to plain; {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library {r['library_ms']}) "
               f"at {r['shape']}", flush=True)
+    del fx
 
     # ---- phase 2: whole-cycle parity, card vs CPU, at a size whose
     # totals stay under 2^24
@@ -388,6 +667,19 @@ def main() -> int:
     expect(all(eq.values()), f"card vs CPU cycle differs: {[f for f, ok in eq.items() if not ok]}")
     print(f"parity 1000x100: all {len(fields)} CycleDecisions fields equal (card vs CPU), "
           f"{len(gpu['binds'])} binds", flush=True)
+    for w in EVICT_PARITY:
+        gpu = decide_world(device=dev, actions=EVICT_ACTIONS, **w)
+        cpu = decide_world(device="cpu", actions=EVICT_ACTIONS, **w)
+        eq = compare(gpu["decisions"], cpu["decisions"], fields)
+        expect(all(eq.values()),
+               f"evictive {w}: card vs CPU differs: {[f for f, ok in eq.items() if not ok]}")
+        expect(gpu["rounds"] == cpu["rounds"], f"evictive {w}: rounds {gpu['rounds']} vs {cpu['rounds']}")
+        n_ev = int(gpu["decisions"].evict_count)
+        expect(n_ev > 0, f"evictive {w}: no evictions")
+        print(f"parity evictive {w['tasks']}x{w['nodes']} q{w['queues']} running "
+              f"{w['running_fraction']}: all {len(fields)} fields equal (card vs CPU), "
+              f"{len(gpu['binds'])} binds, {n_ev} evicts, rounds {gpu['rounds']} "
+              f"(card {gpu['cycle_ms']:.0f} ms, CPU {cpu['cycle_ms']:.0f} ms)", flush=True)
 
     # ---- phase 3: the main path at full width
     counts = peak = None
@@ -412,10 +704,41 @@ def main() -> int:
               f"(dense fallback {g['binds'].overflowed}), rounds {g['rounds']}, card cycle "
               f"{g['cycle_ms']:.1f} ms {stages}, decode {g['decode_ms']:.1f} ms (CPU cycle "
               f"{c['cycle_ms']:.0f} ms); integer decisions equal, f32 {eq_f32}", flush=True)
-    print(f"launches on the main path (world seed 42): {counts}; peak device memory "
+    print(f"launches on the allocate path (world seed 42): {counts}; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    for k, n in counts.items():
-        expect(n > 0, f"kernel {k} was not launched on the main path")
+    for k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):
+        expect(counts[k] > 0, f"kernel {k} was not launched on the allocate path")
+
+    # ---- phase 4: the evictive cycle at full width, card only
+    evict_counts = None
+    for seed in (42, 43):
+        torch.cuda.synchronize()
+        if seed == 42:
+            kernels.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+        g = decide_world(device=dev, actions=EVICT_ACTIONS, seed=seed, **EVICT_FULL)
+        if seed == 42:
+            evict_counts = kernels.counts()
+            epeak = torch.cuda.max_memory_allocated()
+        dec = g["decisions"]
+        invariants(g["pack"], dec, g["binds"])
+        evict_invariants(g["pack"], dec)
+        bind, ev = dec.bind_mask.cpu().numpy(), dec.evict_mask.cpu().numpy()
+        phases = np.bincount(dec.evict_phase.cpu().numpy()[ev], minlength=4).tolist()
+        digest = decision_digest(bind, ev)
+        stages = {k[3:]: round(v, 1) for k, v in g["stats"].items() if k.startswith("ms.")}
+        print(f"evictive full width {EVICT_FULL['tasks']}x{EVICT_FULL['nodes']} seed {seed}: "
+              f"{int(bind.sum())} binds, evicts by phase {phases}, digest {digest}, rounds "
+              f"{g['rounds']}, card cycle {g['cycle_ms']:.1f} ms {stages}", flush=True)
+        expect(phases[1] > 0 and phases[3] > 0, f"seed {seed}: reclaim or preempt evicted nothing")
+        if seed == 42:
+            want = EVICT_WORLD_42
+            got = dict(binds=int(bind.sum()), evicts_by_phase=phases, digest=digest)
+            expect(got == want, f"seed 42 differs from the JAX package's decisions: {got} vs {want}")
+    print(f"launches on the evictive path (50k x 5k, seed 42): {evict_counts}; peak device "
+          f"memory {epeak / 2**30:.2f} GiB", flush=True)
+    for k, n in evict_counts.items():
+        expect(n > 0, f"kernel {k} was not launched on the evictive path")
 
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
@@ -426,12 +749,21 @@ def main() -> int:
                             "kube_arbitrator_tpu/ops/allocate.py:1059"),
         "segment_sum": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/segment_sum.cu",
                         "kube_arbitrator_tpu/ops/cycle.py:233"),
+        "seg_scan": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/seg_scan.cu",
+                     "kube_arbitrator_tpu/ops/preempt.py:129"),
+        "claim_nodes": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/claim_nodes.cu",
+                        "kube_arbitrator_tpu/ops/preempt.py:439"),
+        "canon_pick": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/canon_pick.cu",
+                       "kube_arbitrator_tpu/ops/preempt.py:2035"),
+        "canon_commit": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/canon_commit.cu",
+                         "kube_arbitrator_tpu/ops/preempt.py:2080"),
     }
     kline = []
-    for k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):
-        r = rows[k]
+    for k, r in rows.items():
+        n = counts[k] if k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum") \
+            else evict_counts[k]
         kline.append(dict(name=k, route="cuda", source=replaces[k][0], replaces=replaces[k][1],
-                          launches=counts[k], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                          launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
                           plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"]))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

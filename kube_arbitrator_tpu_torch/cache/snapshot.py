@@ -1,10 +1,11 @@
 """The pack: one cycle's dense state as torch tensors.
 
 A copy of the fields of the reference's ``cache/snapshot.SnapshotTensors``
-that allocate and backfill read (kube_arbitrator_tpu/cache/snapshot.py:
-145-274), in the same dtypes (i32 / f32 / bool).  The pod-affinity term
-axes are kept only so that :func:`from_numpy` can refuse packs that use
-them; the reclaim canon fields (``rv_*``) are left out.
+that the ported actions read (kube_arbitrator_tpu/cache/snapshot.py:
+145-274), in the same dtypes (i32 / f32 / bool), with the reclaim canon
+pack (``rv_*``, built by :func:`build_reclaim_pack`).  The pod-affinity
+term axes are kept only so that :func:`from_numpy` can refuse packs that
+use them.
 
 Device resource units are ``[milli-cpu, MiB, milli-gpu, attach x100]``,
 in which the reference's epsilon slack is uniformly ``10.0``.
@@ -88,11 +89,15 @@ SCHEMA: Dict[str, tuple] = {
     "group_anti_terms": (np.int32, 2),
     "symm_ok": (np.bool_, 2),
     "others_used": (np.float32, 1),
+    "rv_idx": (np.int32, 1),
+    "rv_valid": (np.bool_, 1),
+    "rv_nj_start": (np.bool_, 1),
+    "rv_nq_start": (np.bool_, 1),
+    "rv_block_start": (np.int32, 1),
 }
 
-# Reference pack fields this slice does not read: the reclaim canon pack
-# and the pod-affinity tables (which only matter when terms exist, and
-# packs with terms are refused).
+# Reference pack fields the port does not read: the pod-affinity tables
+# (which only matter when terms exist, and packs with terms are refused).
 IGNORED_FIELDS = frozenset({
     "task_pa_class", "group_pa_class", "node_dom", "aff_key", "anti_key",
     "aff_static", "anti_static", "aff_static_total", "aff_match",
@@ -147,6 +152,15 @@ class SnapshotTensors:
     group_anti_terms: torch.Tensor  # i32[G, MB] (MB == 0)
     symm_ok: torch.Tensor          # bool[CS, N] (CS == 0)
     others_used: torch.Tensor      # f32[R]
+    # reclaim canon pack: RUNNING tasks sorted by (node, queue, job,
+    # priority, uid), so node blocks and (node, job) / (node, queue)
+    # segments are contiguous; empty when the pack has none
+    rv_idx: torch.Tensor           # i32[Vp] task index
+    rv_valid: torch.Tensor         # bool[Vp]
+    rv_nj_start: torch.Tensor      # bool[Vp] (node, job) segment start
+    rv_nq_start: torch.Tensor      # bool[Vp] (node, queue) segment start
+    rv_block_start: torch.Tensor   # i32[N+1] canon position of node blocks
+    rv_window: int = 0             # max node-block length (bucketed)
 
     @property
     def device(self) -> torch.device:
@@ -189,13 +203,13 @@ def from_numpy(
     """The reference pack's fields (a mapping of numpy arrays, e.g.
     ``dataclasses.asdict`` of its SnapshotTensors) -> a port pack on
     ``device``.  Dtypes and ranks are checked against :data:`SCHEMA`;
-    ``rv_*`` and the pod-affinity tables are ignored.  Packs with
-    pod-affinity terms raise NotImplementedError (a later slice ports
-    the immediate path they need)."""
+    ``rv_window`` is a plain int and the pod-affinity tables are ignored.
+    Packs with pod-affinity terms raise NotImplementedError (a later
+    slice ports the immediate path they need)."""
     dev = resolve_device(device)
     unknown = sorted(
         k for k in arrays
-        if k not in SCHEMA and k not in IGNORED_FIELDS and not k.startswith("rv_")
+        if k not in SCHEMA and k not in IGNORED_FIELDS and k != "rv_window"
     )
     if unknown:
         raise ValueError(f"unknown pack fields: {unknown}")
@@ -210,13 +224,88 @@ def from_numpy(
                 f"want {np.dtype(dtype)}[{ndim}d]"
             )
         out[name] = torch.from_numpy(np.array(a)).to(dev)  # a copy the port owns
-    st = SnapshotTensors(**out)
+    st = SnapshotTensors(**out, rv_window=int(arrays.get("rv_window", 0)))
     if pa_enabled(st):
         raise NotImplementedError(
             "pod-affinity packs need the immediate allocate path "
-            "(port slice 4: ops/podaffinity.py)"
+            "(port slice 3: ops/podaffinity.py)"
         )
     return st
+
+
+def build_reclaim_pack(
+    task_status: np.ndarray,
+    task_node: np.ndarray,
+    task_valid: np.ndarray,
+    task_job: np.ndarray,
+    task_priority: np.ndarray,
+    task_uid_rank: np.ndarray,
+    job_queue: np.ndarray,
+    num_nodes: int,
+) -> Dict[str, Any]:
+    """Host-side canon ordering of reclaim victim candidates (a copy of
+    the reference's cache/snapshot.py:277-365).
+
+    Candidates are the RUNNING tasks on a node, sorted by (node, queue,
+    job, priority, uid) so that node blocks, (node, queue) segments and
+    (node, job) segments are contiguous.  ``rv_window`` (the longest node
+    block, bucketed) bounds the per-claim eviction window; the arrays
+    carry at least that much padding past the last block, so a window
+    never runs off the end.  The buckets are the reference's geometric
+    ones without its process-level sticky memo (which only damps jit
+    recompiles under churn; decisions do not depend on padding)."""
+    from ..api.types import TaskStatus
+
+    running = (
+        (np.asarray(task_status) == int(TaskStatus.RUNNING))
+        & np.asarray(task_valid)
+        & (np.asarray(task_node) >= 0)
+    )
+    idx = np.nonzero(running)[0].astype(np.int32)
+    tj = np.asarray(task_job)[idx]
+    tq = np.asarray(job_queue)[tj]
+    order = np.lexsort((
+        np.asarray(task_uid_rank)[idx],
+        np.asarray(task_priority)[idx],
+        tj,
+        tq,
+        np.asarray(task_node)[idx],
+    ))
+    idx = idx[order]
+    V = len(idx)
+    counts0 = np.bincount(np.asarray(task_node)[idx], minlength=num_nodes)[:num_nodes]
+    window = int(counts0.max()) if V else 0
+    window = _bucket(window, 32, 32)
+    Vp = _bucket(V + window, 1024, 1024)
+    rv_idx = np.zeros(Vp, np.int32)
+    rv_idx[:V] = idx
+    rv_valid = np.zeros(Vp, bool)
+    rv_valid[:V] = True
+
+    node_s = np.full(Vp, num_nodes, np.int32)
+    node_s[:V] = np.asarray(task_node)[idx]
+    job_s = np.full(Vp, -1, np.int32)
+    job_s[:V] = np.asarray(task_job)[idx]
+    queue_s = np.full(Vp, -1, np.int32)
+    queue_s[:V] = np.asarray(job_queue)[job_s[:V]]
+
+    def seg_start(*keys):
+        s = np.zeros(Vp, bool)
+        s[0] = True
+        for k in keys:
+            s[1:] |= k[1:] != k[:-1]
+        return s
+
+    rv_block_start = np.zeros(num_nodes + 1, np.int32)
+    rv_block_start[1:] = np.cumsum(counts0).astype(np.int32)
+    return dict(
+        rv_idx=rv_idx,
+        rv_valid=rv_valid,
+        rv_nj_start=seg_start(node_s, job_s),
+        rv_nq_start=seg_start(node_s, queue_s),
+        rv_block_start=rv_block_start,
+        rv_window=window,
+    )
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
 """O(T) vectorized synthetic world generator (the port's own copy of the
-reference's cache/synth.py:77-261, without the reclaim pack).
+reference's cache/synth.py:77-261).
 
 One predicate class, no ports, no pod affinity; jobs with drawn resource
 profiles across Q queues, a gang fraction, and a running fraction
@@ -17,7 +17,9 @@ import numpy as np
 from ..api import resource as res
 from ..api.types import TaskStatus
 from ..device import DeviceLike
-from .snapshot import MAX_PORT_WORDS, Snapshot, _bucket, from_numpy, to_device_units
+from .snapshot import (
+    MAX_PORT_WORDS, Snapshot, _bucket, build_reclaim_pack, from_numpy, to_device_units,
+)
 
 # (cpu milli, memory bytes, gpu milli) request profiles
 _PROFILES = np.array(
@@ -215,6 +217,10 @@ def build_synthetic_arrays(
         group_anti_terms=np.full((G, 0), -1, dtype=np.int32),
         symm_ok=np.zeros((0, N), dtype=bool),
         others_used=np.zeros(R, dtype=np.float32),
+        **build_reclaim_pack(
+            task_status, task_node, task_valid, task_job,
+            np.zeros(T, dtype=np.int32), task_uid_rank, job_queue, N,
+        ),
     )
     return arrays, SynthIndex(T_real, N_real)
 

@@ -2,12 +2,15 @@
 
     python -m kube_arbitrator_tpu_torch --tasks 100000 --nodes 10000 \\
         --queues 8 --tasks-per-job 100 --cycles 3 --seed 42 [--device cpu] [--json]
+    python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 \\
+        --running-fraction 0.5 --actions reclaim,allocate,backfill,preempt
 
 Each cycle decides a fresh world (seed, seed+1, ...) with the default
-tiers and actions (allocate, backfill), decodes its binds into
-(task uid, node name) pairs, and prints the bind count, the rounds per
-action and the wall time.  Building the world and copying it to the
-device is set-up and is timed apart from the cycle.
+tiers and the ``--actions`` list (default allocate, backfill), decodes
+its binds into (task uid, node name) pairs, and prints the bind and
+evict counts, the rounds per action and the wall time.  Building the
+world and copying it to the device is set-up and is timed apart from the
+cycle.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import argparse
 import json
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -24,6 +27,7 @@ from .cache.synth import build_synthetic_arrays
 from .cache.snapshot import from_numpy
 from .device import resolve_device
 from .ops.cycle import schedule_cycle
+from .ops.ordering import DEFAULT_ACTIONS
 
 
 def _sync(device: torch.device) -> None:
@@ -40,10 +44,11 @@ def decide_world(
     running_fraction: float = 0.0,
     fit_fraction: float = 1.2,
     device=None,
+    actions: Tuple[str, ...] = DEFAULT_ACTIONS,
 ) -> Dict:
-    """Build one synthetic world, decide it on ``device`` and decode its
-    binds.  Returns the decisions, the decoded bind column, the rounds and
-    stage times (``stats``) and timings."""
+    """Build one synthetic world, decide it on ``device`` with ``actions``
+    and decode its binds.  Returns the decisions, the decoded bind column,
+    the rounds and stage times (``stats``) and timings."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     arrays, index = build_synthetic_arrays(
@@ -54,7 +59,7 @@ def decide_world(
     _sync(dev)
     t1 = time.perf_counter()
     stats: Dict[str, float] = {}
-    dec = schedule_cycle(st, stats=stats)
+    dec = schedule_cycle(st, actions=tuple(actions), stats=stats)
     _sync(dev)
     t2 = time.perf_counter()
     binds = decode_binds(index, dec)
@@ -62,7 +67,7 @@ def decide_world(
     t3 = time.perf_counter()
     return dict(
         pack=st, decisions=dec, binds=binds, pairs=pairs, stats=stats,
-        rounds={k: v for k, v in stats.items() if k.startswith("rounds.")},
+        rounds={k: v for k, v in stats.items() if k.startswith(("rounds.", "rounds_gated."))},
         setup_ms=(t1 - t0) * 1e3, cycle_ms=(t2 - t1) * 1e3, decode_ms=(t3 - t2) * 1e3,
     )
 
@@ -75,15 +80,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--tasks-per-job", type=int, default=100)
     ap.add_argument("--cycles", type=int, default=3)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--running-fraction", type=float, default=0.0,
+                    help="fraction of jobs pre-placed RUNNING (the evictive actions' victims)")
+    ap.add_argument("--actions", default=",".join(DEFAULT_ACTIONS),
+                    help="comma list of actions, e.g. reclaim,allocate,backfill,preempt")
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the GPU)")
     ap.add_argument("--json", action="store_true", help="one JSON object per cycle")
     a = ap.parse_args(argv)
+    actions = tuple(x.strip() for x in a.actions.split(",") if x.strip())
     dev = resolve_device(a.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     for c in range(a.cycles):
-        r = decide_world(a.tasks, a.nodes, a.queues, a.tasks_per_job, a.seed + c, device=dev)
+        r = decide_world(a.tasks, a.nodes, a.queues, a.tasks_per_job, a.seed + c,
+                         running_fraction=a.running_fraction, device=dev, actions=actions)
         row = dict(
             cycle=c, seed=a.seed + c, device=name, binds=len(r["binds"]),
+            evicts=int(r["decisions"].evict_count),
             dense_fallback=r["binds"].overflowed, rounds=r["rounds"],
             stages_ms={k[3:]: v for k, v in r["stats"].items() if k.startswith("ms.")},
             cycle_ms=r["cycle_ms"], decode_ms=r["decode_ms"], setup_ms=r["setup_ms"],
@@ -93,6 +105,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             print(
                 f"cycle {c} seed {a.seed + c} on {name}: {row['binds']} binds, "
+                f"{row['evicts']} evicts, "
                 f"rounds {r['rounds']}, cycle {r['cycle_ms']:.1f} ms, "
                 f"decode {r['decode_ms']:.1f} ms", flush=True,
             )

@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from ..cache.snapshot import SnapshotTensors, pa_enabled
-from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, plugin_on, safe_share, to_i32
+from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, lexsort, plugin_on, safe_share, to_i32
 from .fairness import drf_shares, overused, queue_shares
 from .kernels.admit_chunk import admit_chunk
 from .kernels.decode_deferred import decode_deferred
@@ -35,8 +35,19 @@ from .ordering import Tiers, group_order_keys, job_order_keys, node_order_policy
 
 IMMEDIATE_PATH = (
     "the immediate allocate path (binpack/spread node order, pod affinity, "
-    "turn_batch=False, or more than DEFER_MAX_CELLS cells) is port slice 4"
+    "turn_batch=False, or more than DEFER_MAX_CELLS cells) is port slice 3"
 )
+
+# Eviction-phase codes carried by AllocState.evict_phase (the reference's
+# ops/allocate.py:69-72; stable wire values of the audit records)
+EVICT_PHASE_NONE = 0
+EVICT_PHASE_PREEMPT = 1        # preempt phase 1: inter-job, same queue
+EVICT_PHASE_PREEMPT_INTRA = 2  # preempt phase 2: within the claimant job
+EVICT_PHASE_RECLAIM = 3        # cross-queue reclaim
+
+# Turn-selection modes (the reference's SELECT_MODES): allocate's two
+# passes and preempt's two phases
+SELECT_MODES = ("allocate", "backfill", "preempt", "preempt_intra")
 
 
 @dataclasses.dataclass
@@ -56,19 +67,24 @@ class AllocState:
     job_ready_cnt: torch.Tensor    # i32[J]
     group_placed: torch.Tensor     # i32[G] pending tasks placed this cycle
     group_unfit: torch.Tensor      # bool[G] proven unplaceable this action
-    # eviction attribution; allocate and backfill evict nothing
+    # eviction attribution (ops/preempt.py): -1 not evicted; >= 0 the
+    # claimant job whose gang readiness commits it; -2 unconditional
     evicted_for: torch.Tensor      # i32[T]
+    # decision-audit aux: claimant job, EVICT_PHASE_*, round of each eviction
     evict_claimant: torch.Tensor   # i32[T]
     evict_phase: torch.Tensor      # i32[T]
     evict_round: torch.Tensor      # i32[T]
     progress: torch.Tensor         # bool scalar: placements this round
     rounds: int = 0
+    rounds_gated: int = 0          # preempt rounds served by the round gate
+    claim_conflicts: int = 0       # the optimistic reclaim engine's count
 
 
 def _copy(state: AllocState) -> AllocState:
     return dataclasses.replace(state, **{
         f.name: getattr(state, f.name).clone()
-        for f in dataclasses.fields(state) if f.name != "rounds"
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)
     })
 
 
@@ -96,40 +112,71 @@ def _drf_before_gang(tiers: Tiers) -> bool:
     return False
 
 
+def _scatter_count(index: torch.Tensor, values: torch.Tensor, size: int) -> torch.Tensor:
+    """i32[size]: out[i] = sum(values[index == i]) for bool or int32
+    ``values`` (integer adds: exact in any order); out-of-range indices
+    are dropped, as the reference's ``mode="drop"``."""
+    idx = index.to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < size), idx, size)
+    hits = torch.zeros(size + 1, dtype=torch.int32, device=values.device)
+    hits.scatter_add_(0, idx, values.to(torch.int32))
+    return hits[:size]
+
+
 def _scatter_any(index: torch.Tensor, values: torch.Tensor, size: int) -> torch.Tensor:
     """bool[size]: out[i] = any(values[index == i]) (the reference's
     ``.at[index].max`` of bools)."""
-    hits = torch.zeros(size, dtype=torch.int32, device=values.device)
-    hits.index_put_((index.to(torch.int64),), values.to(torch.int32), accumulate=True)
-    return hits > 0
+    return _scatter_count(index, values, size) > 0
 
 
-def group_live_mask(st, sess, group_placed, group_unfit, best_effort_pass: bool):
+def group_live_mask(st, sess, group_placed, group_unfit, best_effort_pass=None):
     """Eligible-group mask shared by the per-turn selection and the
     round-level active-queue bound (one definition, so the bound cannot
-    drift from per-turn eligibility)."""
-    return (
+    drift from per-turn eligibility).  ``best_effort_pass=None`` keeps
+    resource-requesting groups only (the evictive actions);
+    ``group_unfit`` may be None for actions that retire no groups."""
+    m = (
         st.group_valid
         & (st.group_size - group_placed > 0)
         & sess.job_sched_valid[st.group_job.to(torch.int64)]
-        & (st.group_best_effort == best_effort_pass)
-        & ~group_unfit
     )
+    if best_effort_pass is None:
+        m = m & ~st.group_best_effort
+    else:
+        m = m & (st.group_best_effort == best_effort_pass)
+    if group_unfit is not None:
+        m = m & ~group_unfit
+    return m
 
 
-def queue_has_live_job(st, grp_live):
-    """bool[Q]: queues owning at least one valid job with a live group."""
+def queue_has_live_job(st, grp_live, job_extra=None):
+    """bool[Q]: queues owning at least one valid job with a live group
+    (and ``job_extra``, when given)."""
     job_live = _scatter_any(st.group_job, grp_live, st.num_jobs) & st.job_valid
+    if job_extra is not None:
+        job_live = job_live & job_extra
     return _scatter_any(st.job_queue, job_live, st.num_queues)
 
 
-def turn_budget(st, sess, tiers, j, q, req, job_share, job_ready, jmask, state, s_max):
+def queue_perm(tiers, q_active, queue_alloc, deserved, queue_uid_rank):
+    """(nq, perm): the active-queue count (a device scalar) and a round's
+    queue order — active queues first, by the tiered queue keys."""
+    q_share = queue_shares(queue_alloc, deserved)
+    keys = [torch.where(q_active, k, BIG) for k in queue_order_keys(tiers, q_share, queue_uid_rank)]
+    keys.insert(0, torch.where(q_active, 0.0, 1.0))
+    return q_active.sum(dtype=torch.int32), lexsort(keys[::-1])
+
+
+def turn_budget(st, sess, tiers, j, q, req, job_share, job_ready, jmask, state, s_max,
+                mode: str = "allocate"):
     """How many tasks the sequential loop would grant job ``j`` before the
     ordering switches away from it — min(gang, DRF share crossing or the
     equilibrium quota, proportion's first deserved boundary) — for every
     slot of a chunk at once: ``j``/``q`` are i64[S], ``req`` f32[S, R],
-    ``jmask`` bool[S, J].  (The reference's preempt mode, which drops the
-    queue clamp, is ported with the evictive actions.)"""
+    ``jmask`` bool[S, J].  ``mode`` "allocate" applies proportion's queue
+    clamp; "preempt" has none (preempt pops queues unconditionally)."""
+    if mode not in ("allocate", "preempt"):
+        raise ValueError(f"turn_budget mode {mode!r}")
     J = st.num_jobs
     ready_j = job_ready[j]
     b_gang = torch.where(
@@ -150,17 +197,20 @@ def turn_budget(st, sess, tiers, j, q, req, job_share, job_ready, jmask, state, 
         s_max,
         ceil_div_pos((s2 - job_share[j]).clamp(min=0.0), delta) + 1,
     )
-    # proportion's check-before-pop: stop at the queue's first
-    # yet-uncrossed deserved boundary
-    d_minus_a = fair(sess.deserved[q]) - fair(state.queue_alloc[q])
-    req_f = fair(req)
-    steps = torch.floor((d_minus_a - EPS) / req_f.clamp(min=1e-30))
-    under = (req_f > 0) & (d_minus_a >= EPS)
-    b_first = torch.where(under, steps + 1.0, BIG).amin(dim=-1)
-    f_r = torch.where(req_f > 0, steps, torch.where(d_minus_a >= EPS, BIG, -1.0))
-    t_max = f_r.amax(dim=-1) + 1.0
-    b_rest = torch.where(t_max >= BIG / 2, float(s_max), t_max.clamp(min=1.0))
-    b_queue = to_i32(torch.where(b_first >= BIG / 2, b_rest, b_first.clamp(min=1.0)))
+    if mode == "allocate":
+        # proportion's check-before-pop: stop at the queue's first
+        # yet-uncrossed deserved boundary
+        d_minus_a = fair(sess.deserved[q]) - fair(state.queue_alloc[q])
+        req_f = fair(req)
+        steps = torch.floor((d_minus_a - EPS) / req_f.clamp(min=1e-30))
+        under = (req_f > 0) & (d_minus_a >= EPS)
+        b_first = torch.where(under, steps + 1.0, BIG).amin(dim=-1)
+        f_r = torch.where(req_f > 0, steps, torch.where(d_minus_a >= EPS, BIG, -1.0))
+        t_max = f_r.amax(dim=-1) + 1.0
+        b_rest = torch.where(t_max >= BIG / 2, float(s_max), t_max.clamp(min=1.0))
+        b_queue = to_i32(torch.where(b_first >= BIG / 2, b_rest, b_first.clamp(min=1.0)))
+    else:
+        b_queue = torch.full_like(j, s_max, dtype=torch.int32)
     # equilibrium floor for gang-ready jobs
     b_quota = to_i32(torch.floor((sess.drf_level[j] - job_share[j]) / delta.clamp(min=1e-9)))
     b_not_ready = torch.minimum(b_gang, b_drf) if _drf_before_gang(tiers) else b_gang
@@ -257,11 +307,14 @@ def _selection_shared(st, sess, state, tiers, best_effort_pass):
     return grp_remaining, grp_elig, job_has_pending, job_ready, job_share, jkeys, gkeys
 
 
-def select_turns(st, sess, state, tiers, s_max, best_effort_pass, shared, q_ids, q_ok):
+def select_turns(st, sess, state, tiers, s_max, mode, shared, q_ids, q_ok):
     """Every slot's (job, group, has_grp, req, budget) at once: the
     reference's vmapped ``_select_turn`` with the slot axis written out.
-    ``q_ids`` i64[S], ``q_ok`` bool[S].  The two argmins go through K2;
-    backfill grants up to ``s_max`` per turn."""
+    ``mode`` is one of :data:`SELECT_MODES`; ``q_ids`` i64[S], ``q_ok``
+    bool[S].  The two argmins go through K2; backfill grants up to
+    ``s_max`` per turn."""
+    if mode not in SELECT_MODES:
+        raise ValueError(f"select mode {mode!r}; one of {SELECT_MODES}")
     (grp_remaining, grp_elig, job_has_pending, job_ready, job_share, jkeys, gkeys) = shared
     jmask = (
         (st.job_queue[None, :] == q_ids[:, None])
@@ -274,10 +327,13 @@ def select_turns(st, sess, state, tiers, s_max, best_effort_pass, shared, q_ids,
     g, has_grp = lex_argmin(gkeys, gmask)
     g = g.to(torch.int64)
     req = st.group_resreq[g]
-    if best_effort_pass:
+    if mode == "backfill":
         budget = torch.full_like(g, s_max, dtype=torch.int32)
     else:
-        budget = turn_budget(st, sess, tiers, j, q_ids, req, job_share, job_ready, jmask, state, s_max)
+        budget = turn_budget(
+            st, sess, tiers, j, q_ids, req, job_share, job_ready, jmask, state, s_max,
+            mode="preempt" if mode.startswith("preempt") else "allocate",
+        )
     budget = budget.clamp(0, s_max)
     budget = torch.where(has_grp, torch.minimum(budget, grp_remaining[g]), 0).to(torch.int32)
     return j, g, has_grp, req, budget
@@ -307,7 +363,8 @@ def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, tr
         idx = c * S + slot
         q_idx = perm[idx.clamp(0, Q - 1)]
         j_sel, g_sel, has_grp, req_s, budget_s = select_turns(
-            st, sess, state, tiers, s_max, best_effort_pass, shared, q_idx,
+            st, sess, state, tiers, s_max, "backfill" if best_effort_pass else "allocate",
+            shared, q_idx,
             q_served[q_idx] & (idx < trip),
         )
         if preds_on:
@@ -349,15 +406,8 @@ def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, prune_idx=None):
     q_active = st.queue_valid & queue_has_live_job(st, grp_live)
     if not best_effort_pass:
         q_active = q_active & ~overused(state.queue_alloc, sess.deserved)
-    trip = max(int(q_active.sum()), 1)
-    q_share = queue_shares(state.queue_alloc, sess.deserved)
-    keys = [torch.where(q_active, k, BIG) for k in queue_order_keys(tiers, q_share, st.queue_uid_rank)]
-    keys.insert(0, torch.where(q_active, 0.0, 1.0))
-    # the reference's jnp.lexsort (first key here primary): stable sorts,
-    # least significant key first
-    perm = torch.arange(st.num_queues, device=st.device)
-    for k in reversed(keys):
-        perm = perm[torch.sort(k[perm], stable=True).indices]
+    nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank)
+    trip = max(int(nq), 1)
     gn = _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, prune_idx)
     state.rounds += 1
     return gn

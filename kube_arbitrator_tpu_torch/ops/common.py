@@ -16,6 +16,7 @@ from ..api.resource import NUM_FAIR_RESOURCES
 from ..cache.snapshot import DEVICE_EPSILON
 from .kernels.lex_argmin import lex_argmin as _lex_argmin_k2
 from .kernels.admit_chunk import to_i32
+from .kernels.seg_scan import seg_scan
 from .kernels.segment_sum import ordered_sum, segment_sum
 
 EPS = DEVICE_EPSILON
@@ -24,8 +25,8 @@ NUM_FAIR = NUM_FAIR_RESOURCES
 
 __all__ = [
     "BIG", "EPS", "NUM_FAIR", "ceil_div_pos", "dominant_share", "fair", "fits",
-    "lex_argmin", "mm_cumsum", "ordered_sum", "plugin_on", "safe_share",
-    "segment_sum", "to_i32",
+    "lex_argmin", "lexsort", "mm_cumsum", "ordered_sum", "plugin_on", "safe_share",
+    "seg_cumsum", "segment_sum", "to_i32",
 ]
 
 
@@ -66,9 +67,30 @@ def lex_argmin(keys: Sequence[torch.Tensor], mask: torch.Tensor) -> Tuple[torch.
     return _lex_argmin_k2(k, mask)
 
 
+def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """i64 permutation of ``jnp.lexsort(keys)`` (the LAST key primary,
+    ties kept in index order): stable sorts, least significant key first."""
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm
+
+
 def ceil_div_pos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """ceil(a/b) for positive b, as int32, clipped at >= 0."""
     return to_i32(torch.ceil(a / b.clamp(min=1e-30)).clamp(min=0.0))
+
+
+def seg_cumsum(x: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """Segmented INCLUSIVE prefix sum along axis 0 of f32 ``x`` [V] or
+    [V, C]; ``seg_start`` bool[V] marks each segment's first element.
+    Through K5, serially within a segment in index order (the reference's
+    native order; its jnp scan is a tree, equal at integer inputs)."""
+    squeeze = x.dim() == 1
+    v = (x[:, None] if squeeze else x).to(torch.float32).contiguous()
+    ones = torch.ones(v.shape[0], dtype=torch.bool, device=v.device)
+    _, out = seg_scan(ones, None, seg_start, v)
+    return out[:, 0] if squeeze else out
 
 
 def mm_cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The scheduling cycle: open session -> allocate -> backfill -> commit
-(the port of kube_arbitrator_tpu/ops/cycle.py:103-430).
+"""The scheduling cycle: open session -> the conf's actions (reclaim,
+allocate, backfill, preempt) -> commit (the port of
+kube_arbitrator_tpu/ops/cycle.py:103-430).
 
 Decisions are committed by masking: a job's new allocations produce bind
 intents only if the job ends the cycle gang-ready.
@@ -18,17 +19,20 @@ from .allocate import AllocState, SessionCtx, allocate_action, backfill_action
 from .common import fair, ordered_sum, safe_share, segment_sum
 from .fairness import drf_equilibrium_levels_per_job, drf_shares, proportion_deserved
 from .ordering import DEFAULT_ACTIONS, DEFAULT_TIERS, Tiers
+from .preempt import preempt_action, reclaim_action
 
 ACTION_KERNELS = {
     "allocate": allocate_action,
     "backfill": backfill_action,
+    "preempt": preempt_action,
+    "reclaim": reclaim_action,
 }
-# actions of the reference this slice does not port yet
+# actions of the reference the port does not have yet
 LATER_ACTIONS = {
-    "preempt": "port slice 5 (ops/preempt.py)",
-    "reclaim": "port slice 5 (ops/preempt.py)",
-    "reclaim_optimistic": "port slice 5 (ops/preempt.py)",
+    "reclaim_optimistic": "port slice 5, speed work (ops/preempt._reclaim_canon_optimistic)",
 }
+# kube-batch's documented evictive conf (the reference's bench.py:77)
+FULL_ACTIONS = ("reclaim", "allocate", "backfill", "preempt")
 
 _READY_STATUSES = (
     TaskStatus.ALLOCATED, TaskStatus.BINDING, TaskStatus.BOUND,
@@ -189,9 +193,10 @@ def schedule_cycle(
     stats: Optional[Dict[str, int]] = None,
 ) -> CycleDecisions:
     """One full scheduling cycle on the pack's device.  ``stats``, when
-    given, receives the rounds each action ran (``rounds.<action>``) and
-    the wall time of each stage (``ms.<stage>``; the device is
-    synchronised at each stage boundary to take them)."""
+    given, receives the rounds each action ran (``rounds.<action>``),
+    preempt's gated rounds (``rounds_gated.preempt``) and the wall time of
+    each stage (``ms.<stage>``; the device is synchronised at each stage
+    boundary to take them)."""
     clock = [time.perf_counter()]
 
     def mark(stage: str) -> None:
@@ -214,6 +219,8 @@ def schedule_cycle(
         state = kernel(st, sess, state, tiers, s_max=s_max, max_rounds=max_rounds)
         if stats is not None:
             stats[f"rounds.{action}"] = state.rounds
+            if action == "preempt":
+                stats["rounds_gated.preempt"] = state.rounds_gated
         mark(action)
     bind_cap, evict_cap = decode_caps if decode_caps is not None else (None, None)
     dec = commit_cycle(st, sess, state, bind_cap=bind_cap, evict_cap=evict_cap)

@@ -5,11 +5,18 @@ PyTorch version and with a launch counter:
 * K2 :func:`lex_argmin.lex_argmin`           — ops/common.lex_argmin
 * K3 :func:`decode_deferred.decode_deferred` — ops/allocate._decode_deferred
 * K4 :func:`segment_sum.segment_sum`         — slot-order segment sums
+* K5 :func:`seg_scan.seg_scan`               — ops/preempt victim-layout scans
+* K6 :func:`claim_nodes.claim_nodes`         — ops/preempt._apply_claim node half
+* K7 :func:`canon_pick.canon_pick`           — reclaim turn: per-node sums, first fit
+* K8 :func:`canon_commit.canon_commit`       — reclaim turn: window commit
 
 A wrapper takes the plain version only for CPU tensors; on CUDA tensors
 it launches its kernel (built on first use, see build.py) or raises.
 """
-from . import admit_chunk, decode_deferred, lex_argmin, segment_sum
+from . import (
+    admit_chunk, canon_commit, canon_pick, claim_nodes, decode_deferred, lex_argmin,
+    seg_scan, segment_sum,
+)
 
 # kernel name -> wrapper (each wrapper carries its ``launches`` count)
 KERNELS = {
@@ -17,6 +24,10 @@ KERNELS = {
     "lex_argmin": lex_argmin.lex_argmin,
     "decode_deferred": decode_deferred.decode_deferred,
     "segment_sum": segment_sum.segment_sum,
+    "seg_scan": seg_scan.seg_scan,
+    "claim_nodes": claim_nodes.claim_nodes,
+    "canon_pick": canon_pick.canon_pick,
+    "canon_commit": canon_commit.canon_commit,
 }
 
 

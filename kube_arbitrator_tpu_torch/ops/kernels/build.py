@@ -25,7 +25,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum")
+SOURCES = (
+    "admit_chunk", "lex_argmin", "decode_deferred", "segment_sum",
+    "seg_scan", "claim_nodes", "canon_pick", "canon_commit",
+)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

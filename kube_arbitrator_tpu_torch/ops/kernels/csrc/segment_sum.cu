@@ -7,7 +7,8 @@
 // (ops/native/segsum.cc via segsum.py:108-201): sums in slot order, no
 // float atomics, so the result equals the sequential scatter bit for bit.
 // The wrapper orders the slots with a stable sort of the indices (glue);
-// here one thread per (segment, column) adds its contiguous run in order.
+// here one thread per (segment, column) adds its contiguous run in order,
+// from zero or (accumulate != 0) from out's own value, in place.
 //
 // Bound: bytes — val read once (T*C*4), the permutation and segment
 // starts read once, out written once: ~2 MB at T = 100k, C = 4, ~0.6 us
@@ -25,11 +26,11 @@ template <typename T>
 __global__ void segment_sum_kernel(const T* __restrict__ val,
                                    const int* __restrict__ perm,
                                    const int* __restrict__ seg_start, int nseg,
-                                   int C, T* __restrict__ out) {
+                                   int C, int accumulate, T* __restrict__ out) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)nseg * C) return;
   const int s = (int)(i / C), c = (int)(i % C);
-  T acc = 0;
+  T acc = accumulate ? out[i] : (T)0;
   const int end = seg_start[s + 1];
   for (int j = seg_start[s]; j < end; ++j) acc = kat_add(acc, val[(size_t)perm[j] * C + c]);
   out[i] = acc;
@@ -37,11 +38,11 @@ __global__ void segment_sum_kernel(const T* __restrict__ val,
 
 template <typename T>
 int launch(const T* val, const int* perm, const int* seg_start, int nseg, int C,
-           T* out, void* stream) {
+           int accumulate, T* out, void* stream) {
   const size_t n = (size_t)nseg * C;
   if (n > 0) {
     segment_sum_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-        val, perm, seg_start, nseg, C, out);
+        val, perm, seg_start, nseg, C, accumulate, out);
   }
   return (int)cudaGetLastError();
 }
@@ -50,12 +51,12 @@ int launch(const T* val, const int* perm, const int* seg_start, int nseg, int C,
 
 extern "C" int kat_segment_sum_f32(const float* val, const int* perm,
                                    const int* seg_start, int nseg, int C,
-                                   float* out, void* stream) {
-  return launch<float>(val, perm, seg_start, nseg, C, out, stream);
+                                   int accumulate, float* out, void* stream) {
+  return launch<float>(val, perm, seg_start, nseg, C, accumulate, out, stream);
 }
 
 extern "C" int kat_segment_sum_i32(const int* val, const int* perm,
                                    const int* seg_start, int nseg, int C,
-                                   int* out, void* stream) {
-  return launch<int>(val, perm, seg_start, nseg, C, out, stream);
+                                   int accumulate, int* out, void* stream) {
+  return launch<int>(val, perm, seg_start, nseg, C, accumulate, out, stream);
 }

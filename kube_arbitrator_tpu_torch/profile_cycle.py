@@ -2,14 +2,17 @@
 under ``torch.profiler``.
 
     python -m kube_arbitrator_tpu_torch.profile_cycle [--tasks 100000]
-        [--nodes 10000] [--seed 42] [--out profile_out]
+        [--nodes 10000] [--seed 42] [--running-fraction 0.0]
+        [--actions allocate,backfill] [--out profile_out]
 
 A first cycle (seed - 1) warms up the kernel builds and the allocator;
 the profiled cycle then runs alone.  Prints the stage times, the top
 operations by device time, the device-busy share of the cycle's wall
 time (the union of kernel intervals on the card over the wall clock) and
 the count of kernel launches, and writes ``profile_cycle.json`` and a gzipped
-Chrome trace to ``--out``.  Needs a GPU.
+Chrome trace to ``--out``.  A last, unprofiled pass runs the same world
+action by action under ``torch.cuda.set_sync_debug_mode("warn")`` and
+counts each action's host syncs beside its rounds.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -17,14 +20,41 @@ import argparse
 import json
 import sys
 import time
+import warnings
 from pathlib import Path
 from typing import List, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .cache.snapshot import from_numpy
+from .cache.synth import build_synthetic_arrays
 from .cli import decide_world
 from .ops import kernels
+from .ops.cycle import ACTION_KERNELS, open_session
+from .ops.ordering import DEFAULT_TIERS
+
+
+def sync_counts(tasks, nodes, queues, tasks_per_job, seed, running_fraction, actions):
+    """{action: (host syncs, rounds)}: each action of one cycle run alone
+    with every synchronising CUDA call reported as a warning."""
+    arrays, _ = build_synthetic_arrays(tasks, nodes, queues, tasks_per_job, seed,
+                                       running_fraction=running_fraction)
+    st = from_numpy(arrays, "cuda")
+    sess, state = open_session(st, DEFAULT_TIERS)
+    torch.cuda.synchronize()
+    out = {}
+    for action in actions:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state = ACTION_KERNELS[action](st, sess, state, DEFAULT_TIERS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n = sum(1 for w in caught if "synchroniz" in str(w.message))
+        out[action] = (n, state.rounds)
+    return out
 
 
 def _busy_us(intervals) -> float:
@@ -45,12 +75,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--queues", type=int, default=8)
     ap.add_argument("--tasks-per-job", type=int, default=100)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--running-fraction", type=float, default=0.0)
+    ap.add_argument("--actions", default="allocate,backfill")
     ap.add_argument("--out", default="profile_out")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_cycle: needs a CUDA card", file=sys.stderr)
         return 2
-    world = dict(tasks=a.tasks, nodes=a.nodes, queues=a.queues, tasks_per_job=a.tasks_per_job)
+    world = dict(tasks=a.tasks, nodes=a.nodes, queues=a.queues, tasks_per_job=a.tasks_per_job,
+                 running_fraction=a.running_fraction,
+                 actions=tuple(x for x in a.actions.split(",") if x))
     decide_world(seed=a.seed - 1, device="cuda", **world)  # warm-up
     torch.cuda.synchronize()
     kernels.reset_counts()
@@ -76,12 +110,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         if dev_us > 0:
             rows.append(dict(name=ev.key, device_ms=dev_us / 1e3, count=ev.count))
     rows.sort(key=lambda x: -x["device_ms"])
+    launches = kernels.counts()
+    syncs = sync_counts(seed=a.seed, **world)
     report = dict(
         device=torch.cuda.get_device_name(0), world=dict(seed=a.seed, **world),
         profiled_wall_ms=wall_ms, cycle_ms=r["cycle_ms"], decode_ms=r["decode_ms"],
         stages_ms={k[3:]: v for k, v in r["stats"].items() if k.startswith("ms.")},
         rounds=r["rounds"], device_busy_ms=busy_ms, device_span_ms=span_ms,
-        device_kernels=len(dev_events), port_kernel_launches=kernels.counts(), top=rows[:30],
+        device_kernels=len(dev_events), port_kernel_launches=launches,
+        host_syncs_and_rounds=syncs, top=rows[:30],
     )
     out = Path(a.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -292,10 +292,10 @@ def test_unported_paths_raise():
     st = build_snapshot(_ports_world().cluster).tensors
     pst = from_numpy(pack_arrays(st), "cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
-        port_cycle.schedule_cycle(pst, actions=("reclaim", "allocate"))
+        port_cycle.schedule_cycle(pst, actions=("reclaim_optimistic", "allocate"))
     binpack = (port_ord.Tier(plugins=(port_ord.PluginOption.of(
         "nodeorder", arguments=(("policy", "binpack"),)),)),)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         port_cycle.schedule_cycle(pst, tiers=binpack)
     sess, state = port_cycle.open_session(pst, port_ord.DEFAULT_TIERS)
     with pytest.raises(NotImplementedError):

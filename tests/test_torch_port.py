@@ -73,8 +73,9 @@ def test_from_numpy_checks_and_refusals():
     j = sim.add_job("j", queue="q")
     sim.add_task(j, 1000, GB, name="t0")
     arrays = pack_arrays(build_snapshot(sim.cluster).tensors)
-    assert any(k.startswith("rv_") for k in arrays)  # ignored
+    assert any(k.startswith("rv_") for k in arrays)
     st = from_numpy(arrays, "cpu")
+    assert st.rv_window == int(arrays["rv_window"]) and st.rv_idx.dtype == torch.int32
     assert st.task_resreq.dtype == torch.float32 and st.task_valid.dtype == torch.bool
     bad = dict(arrays, node_idle=arrays["node_idle"].astype(np.float64))
     with pytest.raises(TypeError, match="node_idle"):
@@ -83,7 +84,7 @@ def test_from_numpy_checks_and_refusals():
         from_numpy({k: v for k, v in arrays.items() if k != "job_queue"}, "cpu")
     sim.add_task(j, 500, GB, name="t1", labels={"app": "x"},
                  affinity=[PodAffinityTerm(match_labels=(("app", "x"),), topology_key="zone")])
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         from_numpy(pack_arrays(build_snapshot(sim.cluster).tensors), "cpu")
 
 
