@@ -6,19 +6,26 @@
 Needs a CUDA card and nvcc; imports nothing of JAX.  Phases (any failure
 exits non-zero):
 
-1. kernels — builds K1-K8 from kube_arbitrator_tpu_torch/ops/kernels/csrc
+1. kernels — builds K1-K12 from kube_arbitrator_tpu_torch/ops/kernels/csrc
    (one nvcc per source, in parallel) and holds each against its plain
    PyTorch version, requiring equality: K1-K4 on seeded inputs at the
    allocate path's shapes (100k tasks, 10k nodes, 1k groups, 8-slot
    chunks), K5-K8 on the inputs the evictive path gives them in the
    50k-task x 5k-node world (its preempt victim panel, its first preempt
-   turn, its first claiming reclaim turn).  Times the kernel, the plain
-   version and, where one PyTorch call computes the same function
-   (K4's and K7's sums: ``Tensor.index_add_``), that call.
+   turn, its first claiming reclaim turn), K9-K10 on the binpack world's
+   turns (100k x 10k: the all-idle entry, where the binpack keys tie at
+   -0.0, and a turn after two rounds, binpack and spread), K11-K12 on
+   the pod-affinity world's groups after reclaim and three allocate
+   rounds (50k x 5k).  Times the kernel, the plain version and, where one
+   PyTorch call computes the same function (K4's, K7's, K11's and K12's
+   sums: ``Tensor.index_add_``; K9's order: ``torch.sort(stable=True)``),
+   that call.
 2. parity — worlds decided on the card and on the CPU by the port's
    ``schedule_cycle``, every CycleDecisions field equal: 1000 x 100
-   (allocate, backfill), and 5k x 500 and 20k x 2k under the evictive conf
-   (reclaim, allocate, backfill, preempt).
+   (allocate, backfill), 5k x 500 and 20k x 2k under the evictive conf
+   (reclaim, allocate, backfill, preempt), and at 5k x 500 a pod-affinity
+   evictive world, an evictive world without the reclaim canon pack
+   (``_reclaim_fast`` with its claim log) and a binpack world.
 3. allocate at full width — the ``python -m kube_arbitrator_tpu_torch``
    path on four 100k-task x 10k-node worlds (seeds 42, 43, 44 and one
    capacity-tight world): invariants hold and the integer decisions equal
@@ -27,12 +34,21 @@ exits non-zero):
    half the jobs running, seeds 42 and 43, on the card only: stage times,
    rounds, binds and evictions by phase; invariants; seed 42's counts and
    decision digest equal the JAX package's (EVICT_WORLD_42).
+5. the immediate path at full width — the pod-affinity evictive world
+   (50k x 5k, seeds 42 and 43: hostname / rack / zone domains and the
+   affinity mix of cache/synth.py) and the binpack (seed 42) and spread
+   (seed 43) allocate worlds (100k x 10k) on the card: invariants (no
+   over-commit, at most one pod of a self-anti-affinity job per node,
+   each self-affinity job's pods in one rack); card == CPU on the
+   integer fields (the allocate worlds at full width, the pod-affinity
+   world at 20k x 2k); seed 42's counts and digests equal the JAX
+   package's (PA_WORLD_42, BINPACK_WORLD_42); K9-K12 launched.
 
 Each path's launch counts are taken over its first world (seed 42), with
 every count set to 0 just before it.
 
-Prints the card's name and power limit, a JSON line of per-kernel
-numbers, and as its last line ``{"ok": true, "device": {...}}``; the
+Prints each phase's wall time, the card's name and power limit, a JSON
+line of per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``; the
 compiler's register and spill report goes to stderr.
 """
 from __future__ import annotations
@@ -74,6 +90,29 @@ EVICT_PARITY = (
 # decides it, from tests/test_torch_evict_fullwidth.py (the port's CPU run
 # equals it in every CycleDecisions field); the digest is decision_digest's.
 EVICT_WORLD_42 = dict(binds=23_937, evicts_by_phase=[0, 1139, 0, 426], digest="ef1edee61d169ef5")
+SLICE2_KERNELS = ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum", "seg_scan",
+                  "claim_nodes", "canon_pick", "canon_commit")
+# The immediate path's full-width worlds as the JAX package decides them,
+# from tests/test_torch_immediate_fullwidth.py (the port's CPU run equals
+# them in every integer CycleDecisions field): the pod-affinity evictive
+# world (EVICT_FULL with pod_affinity, seed 42) and the binpack allocate
+# world (FULL, nodeorder binpack, seed 42).
+PA_WORLD_42 = dict(binds=19_899, evicts_by_phase=[0, 21, 0, 426], digest="17c5f008e808b91e")
+BINPACK_WORLD_42 = dict(binds=96_725, digest="290aa02eea62a7b5")
+# card vs CPU on the pod-affinity world at a size the CPU decides quickly
+PA_CPU_CHECK = dict(tasks=20_000, nodes=2_000, queues=8, tasks_per_job=100,
+                    running_fraction=0.5, fit_fraction=1.2)
+# phase 2's slice-3 parity worlds: (name, world, canon pack stripped)
+PARITY_SLICE3 = (
+    ("pod-affinity evictive 5k x 500", dict(tasks=5_000, nodes=500, queues=8, tasks_per_job=100,
+                                            seed=42, running_fraction=0.5, fit_fraction=1.25,
+                                            pod_affinity=True, actions=EVICT_ACTIONS), False),
+    ("no canon pack (_reclaim_fast, claim log) 5k x 500",
+     dict(tasks=5_000, nodes=500, queues=8, tasks_per_job=100, seed=42, running_fraction=0.5,
+          fit_fraction=1.25, actions=EVICT_ACTIONS), True),
+    ("binpack 5k x 500", dict(tasks=5_000, nodes=500, queues=8, tasks_per_job=100, seed=42,
+                              node_order="binpack"), False),
+)
 
 
 class SmokeFailure(Exception):
@@ -125,7 +164,8 @@ def to_cpu(x):
     if isinstance(x, torch.Tensor):
         return x.cpu()
     if isinstance(x, tuple):
-        return tuple(to_cpu(v) for v in x)
+        vals = [to_cpu(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
     if dataclasses.is_dataclass(x):
         return dataclasses.replace(x, **{f.name: to_cpu(getattr(x, f.name))
                                          for f in dataclasses.fields(x)})
@@ -563,7 +603,304 @@ def k8_case(dev, fx):
                 bound_by=by, library_ms=None, shape=f"window W={W}, R={R}, {n_ev} evicted")
 
 
+# ---- K9-K12: the immediate path's own inputs (binpack 100k x 10k, the
+# pod-affinity evictive world 50k x 5k)
+
+
+def first_turn(st, sess, tiers, state):
+    """The group, request and budget of the next round's first queue turn,
+    selected as ops/allocate._process_queue selects them."""
+    from kube_arbitrator_tpu_torch.ops import allocate
+    from kube_arbitrator_tpu_torch.ops.fairness import overused
+
+    over = overused(state.queue_alloc, sess.deserved)
+    grp_live = allocate.group_live_mask(st, sess, state.group_placed, state.group_unfit, False)
+    q_active = st.queue_valid & allocate.queue_has_live_job(st, grp_live) & ~over
+    _, perm = allocate.queue_perm(tiers, q_active, state.queue_alloc, sess.deserved,
+                                  st.queue_uid_rank)
+    q = perm[:1]
+    shared = allocate._selection_shared(st, sess, state, tiers, False)
+    _, g, _, req, budget = allocate.select_turns(st, sess, state, tiers, 4096, "allocate", shared,
+                                                 q, st.queue_valid[q] & ~over[q])
+    return g, req[0].contiguous(), budget
+
+
+def turn_fixture(dev):
+    """The binpack world at full width, seed 42: its entry state (every
+    node idle: the binpack keys tie at -0.0) and the state after two
+    allocate rounds."""
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops import allocate, cycle
+    from kube_arbitrator_tpu_torch.ops.ordering import with_node_order
+
+    arrays, _ = build_synthetic_arrays(FULL["tasks"], FULL["nodes"], FULL["queues"],
+                                       FULL["tasks_per_job"], 42)
+    st = from_numpy(arrays, dev)
+    tiers = with_node_order("binpack")
+    sess, state0 = cycle.open_session(st, tiers)
+    mid = allocate.allocate_action(st, sess, state0, tiers, max_rounds=2)
+    return types.SimpleNamespace(st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess, tiers=tiers,
+                                 state0=state0, mid=mid)
+
+
+def turn_caps_args(fx, state, policy):
+    g, req, _ = first_turn(fx.st, fx.sess, fx.tiers, state)
+    return (state.node_idle, state.node_releasing, state.node_ports, state.node_num_tasks, g, req,
+            None, 4096, False, True, policy)
+
+
+def k9_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
+
+    err = 0.0
+    for state, policy in ((fx.state0, "binpack"), (fx.mid, "binpack"), (fx.mid, "spread")):
+        args = turn_caps_args(fx, state, policy)
+        k, nperm = k9.turn_caps(fx.st, *args)
+        kp, pp = k9.turn_caps_plain(fx.st_cpu, *to_cpu(args))
+        err = max(err, max_err(k, kp), max_err(nperm, pp))
+        expect(torch.equal(k.cpu(), kp) and torch.equal(nperm.cpu(), pp),
+               f"K9 {policy} differs from its plain version")
+        expect(int(k[0].sum()) > 0, f"K9 {policy}: no capacity")
+    args = turn_caps_args(fx, fx.mid, "binpack")
+    ms = cuda_ms(lambda: k9.turn_caps(fx.st, *args))
+    plain_ms = cuda_ms(lambda: k9.turn_caps_plain(fx.st, *args), reps=5)
+    # the library call for the order: one stable sort of the same keys
+    F = 3
+    total = fx.st.node_alloc[:, :F]
+    used = (total - fx.mid.node_idle[:, :F]).clamp(min=0.0)
+    key = torch.where(fx.st.node_valid, -(used / total.clamp(min=1e-30)).amax(dim=-1), 3.0e38)
+    lib_ms = cuda_ms(lambda: torch.sort(key, stable=True))
+    N, R = fx.mid.node_idle.shape
+    W = fx.mid.node_ports.shape[1]
+    # idle, releasing and allocatable, ports, counts, limits, class and
+    # flags read once; two capacity rows and the order written
+    nbytes = N * (3 * 4 * R + 4 * W + 4 + 4 + 4 + 2) + N * 4 * 3
+    b, by = bound_ms(nbytes, N * (6 * R + 14))
+    return dict(name="turn_caps", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms, shape=f"N={N}, R={R}, binpack order")
+
+
+def k10_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
+    from kube_arbitrator_tpu_torch.ops.kernels import turn_fill as k10
+
+    state = fx.mid
+    g, req, budget = first_turn(fx.st, fx.sess, fx.tiers, state)
+    k, nperm = k9.turn_caps(fx.st, *turn_caps_args(fx, state, "binpack"))
+    names = ("node_idle", "node_releasing", "node_ports", "node_num_tasks", "task_status",
+             "task_node")
+    base = {n: getattr(state, n) for n in names}
+    work = {n: v.clone() for n, v in base.items()}
+    cpu = {n: v.cpu() for n, v in base.items()}
+
+    def call(fn, st, tensors, dev_args):
+        kk, pp, gg, rr, bb, gp = dev_args
+        return fn(st, kk, pp, gg, rr, bb, gp, tensors["node_idle"], tensors["node_releasing"],
+                  tensors["node_ports"], tensors["node_num_tasks"], tensors["task_status"],
+                  tensors["task_node"], 4096, False, True)
+
+    dev_args = (k, nperm, g, req, budget, state.group_placed)
+    placed, use_rel = call(k10.turn_fill, fx.st, work, dev_args)
+    pp, up = call(k10.turn_fill_plain, fx.st_cpu, cpu, to_cpu(dev_args))
+    err = max_err(placed, pp)
+    expect(torch.equal(placed.cpu(), pp) and torch.equal(use_rel.cpu(), up),
+           "K10 placed / use_rel differ from the plain version")
+    for n in names:
+        err = max(err, max_err(work[n], cpu[n]))
+        expect(torch.equal(work[n].cpu(), cpu[n]), f"K10 {n} differs from its plain version")
+    expect(int(placed) > 0, "K10 inputs placed nothing")
+
+    def setup():
+        for n, v in base.items():
+            work[n].copy_(v)
+
+    ms = cuda_ms(lambda: call(k10.turn_fill, fx.st, work, dev_args), setup=setup)
+    plain_ms = cuda_ms(lambda: call(k10.turn_fill_plain, fx.st, work, dev_args), reps=5,
+                       setup=setup)
+    N, R = state.node_idle.shape
+    W = state.node_ports.shape[1]
+    T = state.task_status.shape[0]
+    n_nodes = int(((base["node_num_tasks"] != work["node_num_tasks"])).sum())
+    # two capacity rows and the order read; the touched node rows read
+    # and written; the task axis's group, rank and validity read, the
+    # group's placed tasks written
+    nbytes = 3 * N * 4 + n_nodes * 2 * (4 * R + 4 + 4 * W) + T * 9 + int(placed) * 8
+    b, by = bound_ms(nbytes, N * 4 + T * 3)
+    return dict(name="turn_fill", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None,
+                shape=f"N={N}, T={T}, {int(placed)} placed on {n_nodes} nodes")
+
+
+def pa_fixture(dev):
+    """The pod-affinity evictive world at full width, seed 42, on the
+    card: the cycle's entry state, and the state after reclaim and three
+    allocate rounds (pods placed this cycle, so the counts are live)."""
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops import allocate, cycle, preempt
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+
+    w = EVICT_FULL
+    arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"], w["tasks_per_job"], 42,
+                                       running_fraction=w["running_fraction"],
+                                       fit_fraction=w["fit_fraction"], pod_affinity=True)
+    st = from_numpy(arrays, dev)
+    sess, entry = cycle.open_session(st, tiers)
+    state = preempt.reclaim_action(st, sess, entry, tiers)
+    state = allocate.allocate_action(st, sess, state, tiers, max_rounds=3)
+    groups = [g for g in range(int(st.group_valid.sum()))
+              if (arrays["group_aff_terms"][g] >= 0).any() or (arrays["group_anti_terms"][g] >= 0).any()
+              or (arrays["symm_ok"].shape[0] and not arrays["symm_ok"][arrays["group_pa_class"][g]].all())]
+    aff, cls = arrays["group_aff_terms"], arrays["group_pa_class"]
+    # self-affinity groups: at the cycle's entry nothing of theirs is
+    # placed, so their fit seeds
+    self_aff = [g for g in groups if aff.shape[1] and aff[g, 0] >= 0
+                and arrays["aff_match"][aff[g, 0], cls[g]]]
+    return types.SimpleNamespace(st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess, tiers=tiers,
+                                 entry=entry, state=state, groups=groups, self_aff=self_aff)
+
+
+def k11_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
+
+    st, state = fx.st, fx.state
+    err, seeds, caps, blocked, fits = 0.0, [], [], 0, {}
+    cases = [(fx.entry, g) for g in fx.self_aff[:4]]
+    cases += [(state, g) for g in sorted(set(fx.groups[::4] + fx.groups[1:40:4]))]
+    for state, g in cases:
+        gt = torch.tensor([g], device=dev)
+        got = k11.pa_fit(st, gt, state.task_status, state.task_node)
+        want = k11.pa_fit_plain(fx.st_cpu, gt.cpu(), state.task_status.cpu(), state.task_node.cpu())
+        for name in want._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            err = max(err, max_err(a, b))
+            expect(torch.equal(a.cpu(), b), f"K11 group {g}: {name} differs from its plain version")
+        blocked += int((~want.ok).sum())
+        if bool(want.seed_flags.any()):
+            seeds.append((g, state))
+        if bool(want.cap_flags.any()):
+            caps.append((g, state))
+        fits[g, id(state)] = got
+    expect(blocked > 0 and seeds and caps, f"K11 inputs: blocked {blocked}, seeds {seeds}, caps {caps}")
+    state = fx.state
+    g = torch.tensor([caps[0][0]], device=dev)
+    ms = cuda_ms(lambda: k11.pa_fit(st, g, state.task_status, state.task_node))
+    plain_ms = cuda_ms(lambda: k11.pa_fit_plain(st, g, state.task_status, state.task_node), reps=5)
+    # the library call for the counts: one index_add_ of the placed pods'
+    # hostname domains
+    placed = k11._placed(st, state.task_status, state.task_node)
+    key = int(fits[caps[0][0], id(caps[0][1])].cap_keys[0])
+    dom = st.node_dom[key][state.task_node[placed].long()].long()
+    ones = torch.ones(dom.shape[0], dtype=torch.int32, device=dev)
+    acc = torch.zeros(st.num_domains, dtype=torch.int32, device=dev)
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, dom, ones))
+    T, N, K = st.num_tasks, st.num_nodes, st.node_dom.shape[0]
+    # per task the snapshot status, status, node, validity, group and
+    # class read once; per node its K domains read and ok written
+    nbytes = T * (4 * 5 + 1) + N * (4 * K + 1)
+    b, by = bound_ms(nbytes, T * 6 + N * 4 * K)
+    return dict(name="pa_fit", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms, shape=f"T={T}, N={N}, K={K}, D={st.num_domains}"), fits, seeds, caps
+
+
+def k12_case(dev, fx, fits, seeds, caps):
+    from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
+    from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
+
+    st = fx.st
+    err = 0.0
+    timing = None
+    changed = 0
+    for (g, state), policy in ((seeds[0], "first_fit"), (caps[0], "first_fit"),
+                               (caps[0], "binpack")):
+        gt = torch.tensor([g], device=dev)
+        fit = fits[g, id(state)]
+        k, nperm = k9.turn_caps(st, state.node_idle, state.node_releasing, state.node_ports,
+                                state.node_num_tasks, gt, st.group_resreq[g].contiguous(), fit.ok,
+                                4096, False, True, policy)
+        got = k12.pa_shape(st, fit, k, nperm)
+        want = k12.pa_shape_plain(fx.st_cpu, to_cpu(fit), k.cpu(), None if nperm is None else nperm.cpu())
+        err = max(err, max_err(got, want))
+        expect(torch.equal(got.cpu(), want), f"K12 group {g} {policy} differs from its plain version")
+        changed += int(not torch.equal(got, k))
+        if timing is None:
+            timing = (fit, k, nperm)
+    expect(changed > 0, "K12 inputs: no row was shaped")
+    fit, k, nperm = timing
+    ms = cuda_ms(lambda: k12.pa_shape(st, fit, k, nperm))
+    plain_ms = cuda_ms(lambda: k12.pa_shape_plain(st, fit, k, nperm), reps=5)
+    # the library call for the seed's sums: one index_add_ of a row by domain
+    ndom = st.node_dom[int(fit.seed_keys[0])].long()
+    has = ndom >= 0
+    idx, row = ndom[has], k[0][has]
+    acc = torch.zeros(st.num_domains, dtype=torch.int32, device=dev)
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, idx, row))
+    rows, N = k.shape
+    folds = int(fit.seed_flags.sum()) + int(fit.cap_flags.sum())
+    nbytes = rows * N * 4 * 2 + folds * N * 4
+    b, by = bound_ms(nbytes, rows * folds * N * 3)
+    return dict(name="pa_shape", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms, shape=f"{rows} rows x N={N}, {folds} fold(s), D={st.num_domains}")
+
+
+def pa_invariants(st, dec, seed) -> dict:
+    """The pod-affinity world's own guarantees: every self-anti-affinity
+    job holds at most one placed pod per node (hostname domain), every
+    self-affinity job's placed pods lie in one rack; returns counts."""
+    from kube_arbitrator_tpu_torch.api.types import TaskStatus
+    from kube_arbitrator_tpu_torch.cache import synth
+
+    tj = st.task_job.cpu().numpy()
+    valid = st.task_valid.cpu().numpy()
+    J = int(tj[valid].max()) + 1
+    running_job = np.zeros(J, bool)
+    running_job[tj[valid & (st.task_status.cpu().numpy() == int(TaskStatus.RUNNING))]] = True
+    _, pending_terms, _ = synth.pa_world_labels(seed, J, running_job)
+    status, node = dec.task_status.cpu().numpy(), dec.task_node.cpu().numpy()
+    placed = valid & ((status == int(TaskStatus.ALLOCATED)) | (status == int(TaskStatus.PIPELINED))) \
+        & (node >= 0)
+    n_anti = n_aff = 0
+    for k, terms in pending_terms.items():
+        term = terms[0]
+        if term.label != ("app", f"job-{k}"):
+            continue
+        nodes = node[placed & (tj == k)]
+        if not len(nodes):
+            continue
+        if term.anti:
+            n_anti += 1
+            expect(len(np.unique(nodes)) == len(nodes), f"self-anti job {k} shares a node")
+        else:
+            n_aff += 1
+            racks = np.unique(synth.node_label_value(synth.RACK_KEY, nodes))
+            expect(len(racks) == 1, f"self-affinity job {k} spans racks {racks.tolist()}")
+    expect(n_anti > 0 and n_aff > 0, "no self-(anti-)affinity job placed")
+    return dict(self_anti_jobs=n_anti, self_aff_jobs=n_aff)
+
+
 # ---------------------------------------------------------------- phases 2-4
+
+
+def decide_pack(device, w, stripped: bool) -> dict:
+    """decide_world's cycle on a pack whose reclaim canon pack is
+    stripped when ``stripped`` (reclaim then runs _reclaim_fast)."""
+    from kube_arbitrator_tpu_torch.cli import decide_world
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops.cycle import schedule_cycle
+
+    if not stripped:
+        return decide_world(device=device, **w)
+    arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"], w["tasks_per_job"],
+                                       w["seed"], running_fraction=w["running_fraction"],
+                                       fit_fraction=w["fit_fraction"])
+    for k in ("rv_idx", "rv_valid", "rv_nj_start", "rv_nq_start", "rv_block_start"):
+        arrays[k] = arrays[k][:0]
+    arrays["rv_window"] = 0
+    stats = {}
+    dec = schedule_cycle(from_numpy(arrays, device), actions=w["actions"], stats=stats)
+    return dict(decisions=dec, rounds={k: v for k, v in stats.items() if k.startswith("rounds")})
 
 
 def compare(a, b, fields) -> dict:
@@ -631,7 +968,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -644,17 +981,31 @@ def main() -> int:
         print(f"== ptxas {k}\n{v[1][-2000:]}", file=sys.stderr)
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s", flush=True)
     rows = {}
-    fx = evict_fixture(dev)
-    for case in (k1_case, k2_case, k3_case, k4_case, k5_case, k6_case, k7_case, k8_case):
-        r = case(dev, fx) if case in (k5_case, k6_case, k7_case, k8_case) else case(dev)
+
+    def report(r):
         rows[r["name"]] = r
         print(f"kernel {r['name']}: equal to plain; {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library {r['library_ms']}) "
               f"at {r['shape']}", flush=True)
+
+    fx = evict_fixture(dev)
+    for case in (k1_case, k2_case, k3_case, k4_case, k5_case, k6_case, k7_case, k8_case):
+        report(case(dev, fx) if case in (k5_case, k6_case, k7_case, k8_case) else case(dev))
     del fx
+    fx = turn_fixture(dev)
+    report(k9_case(dev, fx))
+    report(k10_case(dev, fx))
+    del fx
+    fx = pa_fixture(dev)
+    r, fits, seeds, caps = k11_case(dev, fx)
+    report(r)
+    report(k12_case(dev, fx, fits, seeds, caps))
+    del fx, fits
+    print(f"phase 1 (kernels) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 2: whole-cycle parity, card vs CPU, at a size whose
     # totals stay under 2^24
+    t0 = time.perf_counter()
     small = dict(tasks=1000, nodes=100, queues=8, tasks_per_job=50, seed=7,
                  running_fraction=0.2, fit_fraction=1.2)
     gpu = decide_world(device=dev, **small)
@@ -681,7 +1032,21 @@ def main() -> int:
               f"{len(gpu['binds'])} binds, {n_ev} evicts, rounds {gpu['rounds']} "
               f"(card {gpu['cycle_ms']:.0f} ms, CPU {cpu['cycle_ms']:.0f} ms)", flush=True)
 
+    for name, w, stripped in PARITY_SLICE3:
+        t1 = time.perf_counter()
+        gpu = decide_pack(dev, w, stripped)
+        cpu = decide_pack("cpu", w, stripped)
+        eq = compare(gpu["decisions"], cpu["decisions"], fields)
+        expect(all(eq.values()), f"{name}: card vs CPU differs: {[f for f, ok in eq.items() if not ok]}")
+        expect(gpu["rounds"] == cpu["rounds"], f"{name}: rounds {gpu['rounds']} vs {cpu['rounds']}")
+        expect(int(gpu["decisions"].bind_count) > 0, f"{name}: no binds")
+        print(f"parity {name}: all {len(fields)} fields equal (card vs CPU), "
+              f"{int(gpu['decisions'].bind_count)} binds, {int(gpu['decisions'].evict_count)} evicts, "
+              f"rounds {gpu['rounds']} ({time.perf_counter() - t1:.1f} s)", flush=True)
+    print(f"phase 2 (parity) {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 3: the main path at full width
+    t0 = time.perf_counter()
     counts = peak = None
     for i, w in enumerate(WORLDS):
         torch.cuda.synchronize()
@@ -708,8 +1073,10 @@ def main() -> int:
           f"{peak / 2**30:.2f} GiB", flush=True)
     for k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):
         expect(counts[k] > 0, f"kernel {k} was not launched on the allocate path")
+    print(f"phase 3 (allocate, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 4: the evictive cycle at full width, card only
+    t0 = time.perf_counter()
     evict_counts = None
     for seed in (42, 43):
         torch.cuda.synchronize()
@@ -737,8 +1104,75 @@ def main() -> int:
             expect(got == want, f"seed 42 differs from the JAX package's decisions: {got} vs {want}")
     print(f"launches on the evictive path (50k x 5k, seed 42): {evict_counts}; peak device "
           f"memory {epeak / 2**30:.2f} GiB", flush=True)
-    for k, n in evict_counts.items():
-        expect(n > 0, f"kernel {k} was not launched on the evictive path")
+    for k in SLICE2_KERNELS:
+        expect(evict_counts[k] > 0, f"kernel {k} was not launched on the evictive path")
+    print(f"phase 4 (evictive, full width) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 5: the immediate path at full width — the pod-affinity
+    # evictive world and the binpack / spread allocate worlds
+    t0 = time.perf_counter()
+    pa_counts = order_counts = None
+    for seed in (42, 43):
+        torch.cuda.synchronize()
+        if seed == 42:
+            kernels.reset_counts()
+        g = decide_world(device=dev, actions=EVICT_ACTIONS, seed=seed, pod_affinity=True,
+                         **EVICT_FULL)
+        if seed == 42:
+            pa_counts = kernels.counts()
+        dec = g["decisions"]
+        invariants(g["pack"], dec, g["binds"])
+        evict_invariants(g["pack"], dec)
+        pa_ok = pa_invariants(g["pack"], dec, seed)
+        bind, ev = dec.bind_mask.cpu().numpy(), dec.evict_mask.cpu().numpy()
+        phases = np.bincount(dec.evict_phase.cpu().numpy()[ev], minlength=4).tolist()
+        digest = decision_digest(bind, ev)
+        c = decide_world(device="cpu", actions=EVICT_ACTIONS, seed=seed, pod_affinity=True,
+                         **PA_CPU_CHECK)
+        gs = decide_world(device=dev, actions=EVICT_ACTIONS, seed=seed, pod_affinity=True,
+                          **PA_CPU_CHECK)
+        eq_int = compare(gs["decisions"], c["decisions"], INT_FIELDS)
+        expect(all(eq_int.values()), f"pa world {PA_CPU_CHECK['tasks']} seed {seed}: card vs CPU "
+               f"integer decisions differ: {[f for f, ok in eq_int.items() if not ok]}")
+        stages = {k[3:]: round(v, 1) for k, v in g["stats"].items() if k.startswith("ms.")}
+        print(f"pod-affinity full width {EVICT_FULL['tasks']}x{EVICT_FULL['nodes']} seed {seed}: "
+              f"{int(bind.sum())} binds, evicts by phase {phases}, digest {digest}, rounds "
+              f"{g['rounds']}, card cycle {g['cycle_ms']:.1f} ms {stages}; {pa_ok}; card == CPU on "
+              f"the integer fields at {PA_CPU_CHECK['tasks']}x{PA_CPU_CHECK['nodes']}", flush=True)
+        expect(phases[1] > 0 and phases[3] > 0, f"pa seed {seed}: reclaim or preempt evicted nothing")
+        if seed == 42:
+            got = dict(binds=int(bind.sum()), evicts_by_phase=phases, digest=digest)
+            expect(got == PA_WORLD_42, f"pa seed 42 differs from the JAX package: {got} vs {PA_WORLD_42}")
+    for seed, policy in ((42, "binpack"), (43, "spread")):
+        torch.cuda.synchronize()
+        if seed == 42:
+            kernels.reset_counts()
+        g = decide_world(device=dev, node_order=policy, seed=seed, **FULL)
+        if seed == 42:
+            order_counts = kernels.counts()
+        c = decide_world(device="cpu", node_order=policy, seed=seed, **FULL)
+        invariants(g["pack"], g["decisions"], g["binds"])
+        eq_int = compare(g["decisions"], c["decisions"], INT_FIELDS)
+        expect(all(eq_int.values()), f"{policy} seed {seed}: card vs CPU integer decisions differ: "
+               f"{[f for f, ok in eq_int.items() if not ok]}")
+        bind = g["decisions"].bind_mask.cpu().numpy()
+        digest = decision_digest(bind, g["decisions"].evict_mask.cpu().numpy())
+        stages = {k[3:]: round(v, 1) for k, v in g["stats"].items() if k.startswith("ms.")}
+        print(f"{policy} full width {FULL['tasks']}x{FULL['nodes']} seed {seed}: {int(bind.sum())} "
+              f"binds, digest {digest}, rounds {g['rounds']}, card cycle {g['cycle_ms']:.1f} ms "
+              f"{stages} (CPU cycle {c['cycle_ms']:.0f} ms); integer decisions equal", flush=True)
+        if seed == 42:
+            got = dict(binds=int(bind.sum()), digest=digest)
+            expect(got == BINPACK_WORLD_42, f"binpack seed 42 differs from the JAX package: "
+                   f"{got} vs {BINPACK_WORLD_42}")
+    print(f"launches on the pod-affinity path (50k x 5k, seed 42): {pa_counts}", flush=True)
+    print(f"launches on the binpack path (100k x 10k, seed 42): {order_counts}", flush=True)
+    for k in ("pa_fit", "pa_shape", "turn_caps", "turn_fill", "claim_nodes", "seg_scan",
+              "segment_sum", "lex_argmin"):
+        expect(pa_counts[k] > 0, f"kernel {k} was not launched on the pod-affinity path")
+    for k in ("turn_caps", "turn_fill", "lex_argmin"):
+        expect(order_counts[k] > 0, f"kernel {k} was not launched on the binpack path")
+    print(f"phase 5 (immediate path, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
@@ -757,11 +1191,25 @@ def main() -> int:
                        "kube_arbitrator_tpu/ops/preempt.py:2035"),
         "canon_commit": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/canon_commit.cu",
                          "kube_arbitrator_tpu/ops/preempt.py:2080"),
+        "turn_caps": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/turn_caps.cu",
+                      "kube_arbitrator_tpu/ops/allocate.py:585"),
+        "turn_fill": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/turn_fill.cu",
+                      "kube_arbitrator_tpu/ops/allocate.py:645"),
+        "pa_fit": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/pa_fit.cu",
+                   "kube_arbitrator_tpu/ops/podaffinity.py:73"),
+        "pa_shape": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/pa_shape.cu",
+                     "kube_arbitrator_tpu/ops/podaffinity.py:173"),
     }
     kline = []
     for k, r in rows.items():
-        n = counts[k] if k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum") \
-            else evict_counts[k]
+        if k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):
+            n = counts[k]
+        elif k in ("turn_caps", "turn_fill"):
+            n = order_counts[k]
+        elif k in ("pa_fit", "pa_shape"):
+            n = pa_counts[k]
+        else:
+            n = evict_counts[k]
         kline.append(dict(name=k, route="cuda", source=replaces[k][0], replaces=replaces[k][1],
                           launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
                           plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -769,7 +1217,7 @@ def main() -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": kline}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -2,10 +2,11 @@
 
 A copy of the fields of the reference's ``cache/snapshot.SnapshotTensors``
 that the ported actions read (kube_arbitrator_tpu/cache/snapshot.py:
-145-274), in the same dtypes (i32 / f32 / bool), with the reclaim canon
-pack (``rv_*``, built by :func:`build_reclaim_pack`).  The pod-affinity
-term axes are kept only so that :func:`from_numpy` can refuse packs that
-use them.
+145-274), in the same dtypes (i32 / f32 / bool): the task, group, node,
+job and queue tables, the pod-(anti-)affinity tables (topology domains,
+pod label classes, term ordinals with their static per-domain counts;
+:func:`trivial_pod_affinity` is the no-terms encoding), and the reclaim
+canon pack (``rv_*``, built by :func:`build_reclaim_pack`).
 
 Device resource units are ``[milli-cpu, MiB, milli-gpu, attach x100]``,
 in which the reference's epsilon slack is uniformly ``10.0``.
@@ -85,8 +86,18 @@ SCHEMA: Dict[str, tuple] = {
     "queue_uid_rank": (np.int32, 1),
     "queue_valid": (np.bool_, 1),
     "class_fit": (np.bool_, 2),
+    "task_pa_class": (np.int32, 1),
+    "group_pa_class": (np.int32, 1),
     "group_aff_terms": (np.int32, 2),
     "group_anti_terms": (np.int32, 2),
+    "node_dom": (np.int32, 2),
+    "aff_key": (np.int32, 1),
+    "anti_key": (np.int32, 1),
+    "aff_static": (np.int32, 2),
+    "anti_static": (np.int32, 2),
+    "aff_static_total": (np.int32, 1),
+    "aff_match": (np.bool_, 2),
+    "anti_match": (np.bool_, 2),
     "symm_ok": (np.bool_, 2),
     "others_used": (np.float32, 1),
     "rv_idx": (np.int32, 1),
@@ -96,13 +107,9 @@ SCHEMA: Dict[str, tuple] = {
     "rv_block_start": (np.int32, 1),
 }
 
-# Reference pack fields the port does not read: the pod-affinity tables
-# (which only matter when terms exist, and packs with terms are refused).
-IGNORED_FIELDS = frozenset({
-    "task_pa_class", "group_pa_class", "node_dom", "aff_key", "anti_key",
-    "aff_static", "anti_static", "aff_static_total", "aff_match",
-    "anti_match", "n_valid_queues",
-})
+# Reference pack fields the port does not read: the traced real-queue
+# count (the port's round loops read the active-queue count instead).
+IGNORED_FIELDS = frozenset({"n_valid_queues"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,9 +155,25 @@ class SnapshotTensors:
     queue_uid_rank: torch.Tensor   # i32[Q]
     queue_valid: torch.Tensor      # bool[Q]
     class_fit: torch.Tensor        # bool[CT, CN]
-    group_aff_terms: torch.Tensor  # i32[G, MA] (MA == 0 in accepted packs)
-    group_anti_terms: torch.Tensor  # i32[G, MB] (MB == 0)
-    symm_ok: torch.Tensor          # bool[CS, N] (CS == 0)
+    # pod (anti-)affinity: each (topology key, node label value) is one
+    # GLOBAL domain ordinal (distinct across keys); pod label classes CP
+    # are the distinct (namespace, labels) of pending tasks; each distinct
+    # term is an ordinal on the TF (affinity) or TA (anti) axis with the
+    # per-domain counts of matching existing pods.  Zero-sized term axes
+    # when no task carries terms.
+    task_pa_class: torch.Tensor    # i32[T] pod label class (pending tasks)
+    group_pa_class: torch.Tensor   # i32[G]
+    group_aff_terms: torch.Tensor  # i32[G, MA] term ordinals, -1 padding
+    group_anti_terms: torch.Tensor  # i32[G, MB]
+    node_dom: torch.Tensor         # i32[K, N] domain per topology key, -1 none
+    aff_key: torch.Tensor          # i32[TF] topology-key row per term
+    anti_key: torch.Tensor         # i32[TA]
+    aff_static: torch.Tensor       # i32[TF, D] existing matching pods per domain
+    anti_static: torch.Tensor      # i32[TA, D]
+    aff_static_total: torch.Tensor  # i32[TF] cluster-wide existing matches
+    aff_match: torch.Tensor        # bool[TF, CP] class cp matches the selector
+    anti_match: torch.Tensor       # bool[TA, CP]
+    symm_ok: torch.Tensor          # bool[CS, N] existing anti terms vs class (CS 0: none)
     others_used: torch.Tensor      # f32[R]
     # reclaim canon pack: RUNNING tasks sorted by (node, queue, job,
     # priority, uid), so node blocks and (node, job) / (node, queue)
@@ -186,6 +209,13 @@ class SnapshotTensors:
     def num_queues(self) -> int:
         return self.queue_weight.shape[0]
 
+    @property
+    def num_domains(self) -> int:
+        """D, the length of the domain axis of the static counts."""
+        if self.aff_static.shape[0]:
+            return self.aff_static.shape[1]
+        return self.anti_static.shape[1]
+
 
 def pa_enabled(st: SnapshotTensors) -> bool:
     """Does this pack carry pod-affinity terms (ops/podaffinity.py:64-70
@@ -203,9 +233,7 @@ def from_numpy(
     """The reference pack's fields (a mapping of numpy arrays, e.g.
     ``dataclasses.asdict`` of its SnapshotTensors) -> a port pack on
     ``device``.  Dtypes and ranks are checked against :data:`SCHEMA`;
-    ``rv_window`` is a plain int and the pod-affinity tables are ignored.
-    Packs with pod-affinity terms raise NotImplementedError (a later
-    slice ports the immediate path they need)."""
+    ``rv_window`` is a plain int."""
     dev = resolve_device(device)
     unknown = sorted(
         k for k in arrays
@@ -224,13 +252,28 @@ def from_numpy(
                 f"want {np.dtype(dtype)}[{ndim}d]"
             )
         out[name] = torch.from_numpy(np.array(a)).to(dev)  # a copy the port owns
-    st = SnapshotTensors(**out, rv_window=int(arrays.get("rv_window", 0)))
-    if pa_enabled(st):
-        raise NotImplementedError(
-            "pod-affinity packs need the immediate allocate path "
-            "(port slice 3: ops/podaffinity.py)"
-        )
-    return st
+    return SnapshotTensors(**out, rv_window=int(arrays.get("rv_window", 0)))
+
+
+def trivial_pod_affinity(T: int, N: int, G: int) -> Dict[str, np.ndarray]:
+    """The no-terms encoding (a copy of the reference's cache/snapshot.py:
+    480-500, with the group columns): zero-sized term axes and a single
+    pod label class."""
+    return dict(
+        task_pa_class=np.zeros(T, dtype=np.int32),
+        group_pa_class=np.zeros(G, dtype=np.int32),
+        group_aff_terms=np.full((G, 0), -1, dtype=np.int32),
+        group_anti_terms=np.full((G, 0), -1, dtype=np.int32),
+        node_dom=np.zeros((0, N), dtype=np.int32),
+        aff_key=np.zeros(0, dtype=np.int32),
+        anti_key=np.zeros(0, dtype=np.int32),
+        aff_static=np.zeros((0, 1), dtype=np.int32),
+        anti_static=np.zeros((0, 1), dtype=np.int32),
+        aff_static_total=np.zeros(0, dtype=np.int32),
+        aff_match=np.zeros((0, 1), dtype=bool),
+        anti_match=np.zeros((0, 1), dtype=bool),
+        symm_ok=np.zeros((0, N), dtype=bool),
+    )
 
 
 def build_reclaim_pack(

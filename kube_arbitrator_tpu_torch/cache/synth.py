@@ -1,11 +1,15 @@
 """O(T) vectorized synthetic world generator (the port's own copy of the
 reference's cache/synth.py:77-261).
 
-One predicate class, no ports, no pod affinity; jobs with drawn resource
-profiles across Q queues, a gang fraction, and a running fraction
-pre-placed round-robin across nodes with exact node accounting.  The
-arrays are built with numpy from ``seed`` and equal the reference's field
-for field.
+One predicate class, no ports; jobs with drawn resource profiles across Q
+queues, a gang fraction, and a running fraction pre-placed round-robin
+across nodes with exact node accounting.  The arrays are built with numpy
+from ``seed`` and equal the reference's field for field.
+
+``pod_affinity=True`` adds topology labels and a per-job mix of pod
+(anti-)affinity terms (:func:`pod_affinity_tables`), encoded in the
+layout of the reference's ``_build_pod_affinity`` (cache/snapshot.py:
+503-636); the other arrays are the same as without it.
 """
 from __future__ import annotations
 
@@ -19,7 +23,20 @@ from ..api.types import TaskStatus
 from ..device import DeviceLike
 from .snapshot import (
     MAX_PORT_WORDS, Snapshot, _bucket, build_reclaim_pack, from_numpy, to_device_units,
+    trivial_pod_affinity,
 )
+
+HOSTNAME_KEY = "kubernetes.io/hostname"
+RACK_KEY = "topology.kubernetes.io/rack"
+ZONE_KEY = "failure-domain.beta.kubernetes.io/zone"  # the k8s 1.13 zone label
+NODES_PER_RACK = 40
+NUM_ZONES = 4
+# per-job draw of the pod-affinity mix: (cumulative bound, category)
+PA_MIX = ((0.2, "self_aff_rack"), (0.4, "self_anti_host"), (0.5, "aff_zone_cache"),
+          (0.6, "anti_host_noisy"))
+PA_CACHE_RUNNING = 0.05    # RUNNING jobs labelled tier=cache
+PA_NOISY_RUNNING = 0.05    # RUNNING jobs labelled tier=noisy (with an anti term)
+PA_LATENCY_PENDING = 0.10  # pending jobs labelled tier=latency
 
 # (cpu milli, memory bytes, gpu milli) request profiles
 _PROFILES = np.array(
@@ -59,10 +76,12 @@ def build_synthetic_arrays(
     gang_fraction: float = 0.5,
     fit_fraction: float = 1.2,
     max_tasks_per_node: Optional[int] = None,
+    pod_affinity: bool = False,
 ) -> Tuple[Dict[str, np.ndarray], SynthIndex]:
     """The pack of a ``num_tasks`` x ``num_nodes`` world as numpy arrays.
     ``fit_fraction`` sizes node capacity as that multiple of total demand;
-    ``running_fraction`` of JOBS are pre-placed RUNNING."""
+    ``running_fraction`` of JOBS are pre-placed RUNNING; ``pod_affinity``
+    adds the affinity mix of :func:`pod_affinity_tables`."""
     rng = np.random.default_rng(seed)
     T_real, N_real = int(num_tasks), int(num_nodes)
     J_real = max(1, -(-T_real // tasks_per_job))
@@ -213,16 +232,191 @@ def build_synthetic_arrays(
         queue_uid_rank=np.arange(Q, dtype=np.int32),
         queue_valid=queue_valid,
         class_fit=np.ones((1, 1), dtype=bool),
-        group_aff_terms=np.full((G, 0), -1, dtype=np.int32),
-        group_anti_terms=np.full((G, 0), -1, dtype=np.int32),
-        symm_ok=np.zeros((0, N), dtype=bool),
         others_used=np.zeros(R, dtype=np.float32),
         **build_reclaim_pack(
             task_status, task_node, task_valid, task_job,
             np.zeros(T, dtype=np.int32), task_uid_rank, job_queue, N,
         ),
     )
+    if pod_affinity:
+        arrays.update(pod_affinity_tables(
+            seed, N_real, T, N, G, task_job, task_status, task_node, task_valid, running_job,
+            pjobs,
+        ))
+    else:
+        arrays.update(trivial_pod_affinity(T, N, G))
     return arrays, SynthIndex(T_real, N_real)
+
+
+@dataclasses.dataclass(frozen=True)
+class Term:
+    """One required pod (anti-)affinity term with a one-label selector,
+    scoped to the world's single namespace."""
+
+    label: Tuple[str, str]
+    key: str
+    anti: bool
+
+
+def pa_world_labels(seed: int, num_jobs: int, running_job: np.ndarray):
+    """The affinity mix of a world, drawn from ``seed`` with a generator of
+    its own (the base world's draws are unchanged).  Every job is labelled
+    ``app=job-<k>``.  Per pending job: 20% self-affinity on the rack key
+    (a gang that wants one rack), 20% self-anti-affinity on hostname (one
+    replica per node), 10% affinity on zone to ``tier=cache``, 10%
+    anti-affinity on hostname to ``tier=noisy``, the rest none; 10% of
+    pending jobs are labelled ``tier=latency``.  5% of RUNNING jobs are
+    labelled ``tier=cache`` and 5% ``tier=noisy``, and the noisy pods
+    carry an anti term of their own against ``tier=latency`` on hostname.
+    Returns (tier label per job or "", the pending jobs' term lists, the
+    running jobs' term lists), term lists as dicts job -> [Term]."""
+    rng = np.random.default_rng([seed, 0x9A])
+    u = rng.random(num_jobs)
+    v = rng.random(num_jobs)
+    w = rng.random(num_jobs)
+    tier = np.full(num_jobs, "", dtype=object)
+    tier[running_job & (v < PA_CACHE_RUNNING)] = "cache"
+    tier[running_job & (v >= PA_CACHE_RUNNING) & (v < PA_CACHE_RUNNING + PA_NOISY_RUNNING)] = "noisy"
+    tier[~running_job & (w < PA_LATENCY_PENDING)] = "latency"
+    pending_terms: Dict[int, list] = {}
+    lo = 0.0
+    for hi, cat in PA_MIX:
+        for k in np.nonzero(~running_job & (u >= lo) & (u < hi))[0].tolist():
+            app = ("app", f"job-{k}")
+            pending_terms[k] = [{
+                "self_aff_rack": Term(app, RACK_KEY, False),
+                "self_anti_host": Term(app, HOSTNAME_KEY, True),
+                "aff_zone_cache": Term(("tier", "cache"), ZONE_KEY, False),
+                "anti_host_noisy": Term(("tier", "noisy"), HOSTNAME_KEY, True),
+            }[cat]]
+        lo = hi
+    running_terms = {k: [Term(("tier", "latency"), HOSTNAME_KEY, True)]
+                     for k in np.nonzero(tier == "noisy")[0].tolist()}
+    return tier, pending_terms, running_terms
+
+
+def node_label_value(key: str, n: np.ndarray) -> np.ndarray:
+    """i64 label value id of nodes ``n`` under ``key``: hostname is the
+    node, racks hold NODES_PER_RACK consecutive nodes, zones take racks
+    round-robin."""
+    rack = n // NODES_PER_RACK
+    return {HOSTNAME_KEY: n, RACK_KEY: rack, ZONE_KEY: rack % NUM_ZONES}[key]
+
+
+def pod_affinity_tables(seed, N_real, T, N, G, task_job, task_status, task_node, task_valid,
+                        running_job, pjobs) -> Dict[str, np.ndarray]:
+    """The pa fields of the synthetic world in the reference's layout:
+    pod label classes, terms and domains numbered in first-appearance
+    order, the static counts over every existing pod (a task holding a
+    node), ``symm_ok`` [0, N] when no existing anti term matches a class.
+    Vectorized over pods: O(T + terms x classes)."""
+    J_real = running_job.shape[0]
+    tier, pending_terms, running_terms = pa_world_labels(seed, J_real, running_job)
+    if not pending_terms and not running_terms:
+        return trivial_pod_affinity(T, N, G)
+    pending = task_valid & (task_status == int(TaskStatus.PENDING))
+    # ---- pod label classes: one per pending job (its labels differ) ----
+    cls_of_job = np.full(J_real, -1, np.int64)
+    cls_of_job[pjobs] = np.arange(len(pjobs))
+    task_pa_class = np.zeros(T, np.int32)
+    task_pa_class[pending] = cls_of_job[task_job[pending]]
+    CP = max(1, len(pjobs))
+    # ---- terms, in first-appearance order over the pending jobs ----
+    aff_terms, anti_terms = {}, {}
+    job_aff, job_anti = {}, {}
+    for k in pjobs.tolist():
+        for term in pending_terms.get(k, ()):
+            table, per = (anti_terms, job_anti) if term.anti else (aff_terms, job_aff)
+            per.setdefault(k, []).append(table.setdefault(term, len(table)))
+    aff_list, anti_list = list(aff_terms), list(anti_terms)
+    keys: Dict[str, int] = {}
+    for term in aff_list + anti_list:
+        keys.setdefault(term.key, len(keys))
+    # ---- global domains, first appearance over (node, key) ----
+    K = len(keys)
+    nodes = np.arange(N_real)
+    vals = np.stack([node_label_value(key, nodes) for key in keys]) if K else np.zeros((0, N_real), np.int64)
+    code = (np.arange(K)[:, None] * (N_real + 1) + vals).T.reshape(-1)  # node-major
+    uniq, first = np.unique(code, return_index=True)
+    ordinal = np.empty(len(uniq), np.int64)
+    ordinal[np.argsort(first, kind="stable")] = np.arange(len(uniq))
+    node_dom = np.full((K, N), -1, np.int32)
+    node_dom[:, :N_real] = ordinal[np.searchsorted(uniq, code)].reshape(N_real, K).T
+    D = max(1, len(uniq))
+    # ---- static counts over existing pods ----
+    existing = np.nonzero(task_valid & (task_node >= 0))[0]
+    ex_job = task_job[existing]
+    ex_node = task_node[existing].astype(np.int64)
+    ex_tier = tier[ex_job]
+    by_job = np.argsort(ex_job, kind="stable")
+    job_start = np.searchsorted(ex_job[by_job], np.arange(J_real + 1))
+
+    def pods_matching(label):
+        """Indices into ``existing``: a job's own pods by its slice of
+        ``by_job``, a tier's by one pass (two tier selectors exist)."""
+        name, value = label
+        if name == "app":
+            k = int(value[len("job-"):])
+            return by_job[job_start[k]:job_start[k + 1]]
+        return np.nonzero(ex_tier == value)[0]
+
+    def static(terms, key_arr):
+        out = np.zeros((len(terms), D), np.int32)
+        total = np.zeros(len(terms), np.int32)
+        for tid, term in enumerate(terms):
+            key_arr[tid] = keys[term.key]
+            m = pods_matching(term.label)
+            total[tid] = len(m)
+            out[tid] = np.bincount(node_dom[keys[term.key], ex_node[m]], minlength=D)[:D]
+        return out, total
+
+    aff_key = np.zeros(len(aff_list), np.int32)
+    anti_key = np.zeros(len(anti_list), np.int32)
+    aff_static, aff_static_total = static(aff_list, aff_key)
+    anti_static, _ = static(anti_list, anti_key)
+    # ---- selector x class ----
+    cls_app = pjobs.astype(np.int64)
+    cls_tier = tier[pjobs]
+
+    def match(terms):
+        out = np.zeros((len(terms), CP), bool)
+        for tid, term in enumerate(terms):
+            name, value = term.label
+            if name == "app":
+                out[tid, :len(pjobs)] = cls_app == int(value[len("job-"):])
+            else:
+                out[tid, :len(pjobs)] = cls_tier == value
+        return out
+
+    # ---- static symmetry: existing pods' anti terms vs incoming classes.
+    # Every running term is (tier=latency, hostname): it blocks its own
+    # node for the latency classes ----
+    symm_ok = np.ones((CP, N), bool)
+    ex_anti = np.isin(ex_job, np.fromiter(running_terms, np.int64, len(running_terms)))
+    lat_cls = np.nonzero(cls_tier == "latency")[0]
+    if ex_anti.any() and len(lat_cls):
+        symm_ok[np.ix_(lat_cls, np.unique(ex_node[ex_anti]))] = False
+    else:
+        symm_ok = np.ones((0, N), bool)
+    # ---- per-group columns (one group per pending job) ----
+    MA = max((len(v) for v in job_aff.values()), default=0)
+    MB = max((len(v) for v in job_anti.values()), default=0)
+    group_pa_class = np.zeros(G, np.int32)
+    group_pa_class[:len(pjobs)] = np.arange(len(pjobs))
+    group_aff_terms = np.full((G, MA), -1, np.int32)
+    group_anti_terms = np.full((G, MB), -1, np.int32)
+    for g, k in enumerate(pjobs.tolist()):
+        for m, tid in enumerate(sorted(job_aff.get(k, ()))):
+            group_aff_terms[g, m] = tid
+        for m, tid in enumerate(sorted(job_anti.get(k, ()))):
+            group_anti_terms[g, m] = tid
+    return dict(
+        task_pa_class=task_pa_class, group_pa_class=group_pa_class,
+        group_aff_terms=group_aff_terms, group_anti_terms=group_anti_terms, node_dom=node_dom,
+        aff_key=aff_key, anti_key=anti_key, aff_static=aff_static, anti_static=anti_static,
+        aff_static_total=aff_static_total, aff_match=match(aff_list),
+        anti_match=match(anti_list), symm_ok=symm_ok,
+    )
 
 
 def build_synthetic_snapshot(
@@ -235,11 +429,12 @@ def build_synthetic_snapshot(
     gang_fraction: float = 0.5,
     fit_fraction: float = 1.2,
     max_tasks_per_node: Optional[int] = None,
+    pod_affinity: bool = False,
     device: DeviceLike = None,
 ) -> Snapshot:
     """:func:`build_synthetic_arrays` packed onto ``device``."""
     arrays, index = build_synthetic_arrays(
         num_tasks, num_nodes, num_queues, tasks_per_job, seed,
-        running_fraction, gang_fraction, fit_fraction, max_tasks_per_node,
+        running_fraction, gang_fraction, fit_fraction, max_tasks_per_node, pod_affinity,
     )
     return Snapshot(tensors=from_numpy(arrays, device), index=index)

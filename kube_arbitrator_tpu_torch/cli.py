@@ -3,14 +3,17 @@
     python -m kube_arbitrator_tpu_torch --tasks 100000 --nodes 10000 \\
         --queues 8 --tasks-per-job 100 --cycles 3 --seed 42 [--device cpu] [--json]
     python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 \\
-        --running-fraction 0.5 --actions reclaim,allocate,backfill,preempt
+        --running-fraction 0.5 --actions reclaim,allocate,backfill,preempt \\
+        [--pod-affinity] [--node-order {first_fit,binpack,spread}]
 
 Each cycle decides a fresh world (seed, seed+1, ...) with the default
-tiers and the ``--actions`` list (default allocate, backfill), decodes
-its binds into (task uid, node name) pairs, and prints the bind and
-evict counts, the rounds per action and the wall time.  Building the
-world and copying it to the device is set-up and is timed apart from the
-cycle.
+tiers (``--node-order`` sets their nodeorder plugin's policy) and the
+``--actions`` list (default allocate, backfill), decodes its binds into
+(task uid, node name) pairs, and prints the bind and evict counts, the
+rounds per action and the wall time.  ``--pod-affinity`` labels the
+world's nodes with hostname, rack and zone domains and gives its jobs
+the pod-(anti-)affinity mix of cache/synth.py.  Building the world and
+copying it to the device is set-up and is timed apart from the cycle.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from .cache.synth import build_synthetic_arrays
 from .cache.snapshot import from_numpy
 from .device import resolve_device
 from .ops.cycle import schedule_cycle
-from .ops.ordering import DEFAULT_ACTIONS
+from .ops.ordering import DEFAULT_ACTIONS, NODE_ORDER_POLICIES, with_node_order
 
 
 def _sync(device: torch.device) -> None:
@@ -45,21 +48,25 @@ def decide_world(
     fit_fraction: float = 1.2,
     device=None,
     actions: Tuple[str, ...] = DEFAULT_ACTIONS,
+    node_order: str = "first_fit",
+    pod_affinity: bool = False,
 ) -> Dict:
     """Build one synthetic world, decide it on ``device`` with ``actions``
-    and decode its binds.  Returns the decisions, the decoded bind column,
-    the rounds and stage times (``stats``) and timings."""
+    under the default tiers with ``node_order``, and decode its binds.
+    Returns the decisions, the decoded bind column, the rounds and stage
+    times (``stats``) and timings."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     arrays, index = build_synthetic_arrays(
         tasks, nodes, queues, tasks_per_job, seed,
-        running_fraction=running_fraction, fit_fraction=fit_fraction,
+        running_fraction=running_fraction, fit_fraction=fit_fraction, pod_affinity=pod_affinity,
     )
     st = from_numpy(arrays, dev)
     _sync(dev)
     t1 = time.perf_counter()
     stats: Dict[str, float] = {}
-    dec = schedule_cycle(st, actions=tuple(actions), stats=stats)
+    dec = schedule_cycle(st, tiers=with_node_order(node_order), actions=tuple(actions),
+                         stats=stats)
     _sync(dev)
     t2 = time.perf_counter()
     binds = decode_binds(index, dec)
@@ -84,6 +91,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="fraction of jobs pre-placed RUNNING (the evictive actions' victims)")
     ap.add_argument("--actions", default=",".join(DEFAULT_ACTIONS),
                     help="comma list of actions, e.g. reclaim,allocate,backfill,preempt")
+    ap.add_argument("--node-order", default="first_fit", choices=NODE_ORDER_POLICIES,
+                    help="the nodeorder plugin's policy")
+    ap.add_argument("--pod-affinity", action="store_true",
+                    help="topology labels and the pod-(anti-)affinity mix of cache/synth.py")
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the GPU)")
     ap.add_argument("--json", action="store_true", help="one JSON object per cycle")
     a = ap.parse_args(argv)
@@ -92,7 +103,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     for c in range(a.cycles):
         r = decide_world(a.tasks, a.nodes, a.queues, a.tasks_per_job, a.seed + c,
-                         running_fraction=a.running_fraction, device=dev, actions=actions)
+                         running_fraction=a.running_fraction, device=dev, actions=actions,
+                         node_order=a.node_order, pod_affinity=a.pod_affinity)
         row = dict(
             cycle=c, seed=a.seed + c, device=name, binds=len(r["binds"]),
             evicts=int(r["decisions"].evict_count),

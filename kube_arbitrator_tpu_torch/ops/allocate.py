@@ -1,23 +1,29 @@
-"""The allocate action on its batched, deferred-decode path (the port of
-kube_arbitrator_tpu/ops/allocate.py).
+"""The allocate action (the port of kube_arbitrator_tpu/ops/allocate.py).
 
-Rounds run until one places nothing.  Each round orders the active
-queues, then walks them in chunks of TURN_CHUNK turns: the chunk's
-(job, group, budget) selections are computed together (two K2 launches
-plus plain torch for the budgets), then K1 runs the chunk's node
-admission slot by slot on the device, and the chunk's aggregates are
-committed.  Placements accumulate as per-(group, node) counts, decoded
-into task placements once per action by K3.
+Rounds run until one places nothing; each round visits the active queues
+in queue order.  Two paths, chosen as the reference chooses them
+(:func:`_use_deferred_decode`):
 
-K1's plain version (``copies_fit`` / ``node_capacity`` and the prefix
-fill, the reference's ``_copies_fit`` / ``_node_capacity``) lives beside
-it in ops/kernels/admit_chunk.py.
+* batched, deferred decode (first-fit node order, no pod affinity,
+  within DEFER_MAX_CELLS [G, N] cells): a round walks its queues in
+  chunks of TURN_CHUNK turns; the chunk's (job, group, budget) selections
+  are computed together (two K2 launches plus plain torch for the
+  budgets), K1 runs the chunk's node admission slot by slot, and
+  placements accumulate as per-(group, node) counts that K3 decodes into
+  task placements once per action.  Host reads: ``trip`` and
+  ``progress`` once per round each.
+* immediate (binpack / spread node order, pod affinity, larger packs,
+  or ``turn_batch=False``, the reference's parity path): one turn per
+  active queue, each deciding its tasks at once — selection (two K2
+  launches), the group's pod-affinity fit (K11), per-node capacity and
+  the packing order (K9), seed and domain cap (K12), fill, node
+  writeback and task decode (K10).  Host reads: one per round (the
+  progress flag and the active-queue count together); a turn reads
+  nothing on the host.
 
-Only first-fit node order without pod affinity is ported here; the
-immediate path (binpack/spread, pod affinity, ``turn_batch=False``, more
-than DEFER_MAX_CELLS cells) raises NotImplementedError.
-
-Host reads: ``trip`` and ``progress`` once per round.
+The plain versions of the kernels (``copies_fit`` / ``node_capacity``,
+the reference's ``_copies_fit`` / ``_node_capacity``, and the turn's
+fill) live beside them in ops/kernels/.
 """
 from __future__ import annotations
 
@@ -31,12 +37,10 @@ from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, lexsort, plugin_on
 from .fairness import drf_shares, overused, queue_shares
 from .kernels.admit_chunk import admit_chunk
 from .kernels.decode_deferred import decode_deferred
+from .kernels.turn_caps import turn_caps
+from .kernels.turn_fill import turn_fill
 from .ordering import Tiers, group_order_keys, job_order_keys, node_order_policy, queue_order_keys
-
-IMMEDIATE_PATH = (
-    "the immediate allocate path (binpack/spread node order, pod affinity, "
-    "turn_batch=False, or more than DEFER_MAX_CELLS cells) is port slice 3"
-)
+from .podaffinity import pa_shape, pod_affinity_fit
 
 # Eviction-phase codes carried by AllocState.evict_phase (the reference's
 # ops/allocate.py:69-72; stable wire values of the audit records)
@@ -78,6 +82,11 @@ class AllocState:
     rounds: int = 0
     rounds_gated: int = 0          # preempt rounds served by the round gate
     claim_conflicts: int = 0       # the optimistic reclaim engine's count
+
+
+def _host(*xs) -> list:
+    """One host read of several device scalars."""
+    return torch.stack([x.reshape(()).to(torch.int64) for x in xs]).tolist()
 
 
 def _copy(state: AllocState) -> AllocState:
@@ -413,6 +422,72 @@ def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, prune_idx=None):
     return gn
 
 
+def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, preds_on, pa_on):
+    """One queue's turn on the immediate path, in place (the reference's
+    _process_queue, :553-706): selection from the current aggregates,
+    then K11 / K9 / K12 / K10 and the aggregate commit.  ``q`` is i64[1];
+    a padding or drained queue's turn places nothing."""
+    if best_effort_pass:
+        q_ok = st.queue_valid[q]  # backfill has no queue-fairness gate
+    else:
+        q_ok = st.queue_valid[q] & ~overused(state.queue_alloc, sess.deserved)[q]
+    shared = _selection_shared(st, sess, state, tiers, best_effort_pass)
+    j, g, has_grp, req, budget = select_turns(
+        st, sess, state, tiers, s_max, "backfill" if best_effort_pass else "allocate",
+        shared, q, q_ok,
+    )
+    req1 = req[0].contiguous()
+    fit = pod_affinity_fit(st, g, state.task_status, state.task_node) if pa_on else None
+    k, nperm = turn_caps(
+        st, state.node_idle, state.node_releasing, state.node_ports, state.node_num_tasks, g,
+        req1, None if fit is None else fit.ok, s_max, best_effort_pass, preds_on, policy,
+    )
+    if fit is not None:
+        k = pa_shape(st, fit, k, nperm)
+    placed, use_rel = turn_fill(
+        st, k, nperm, g, req1, budget, state.group_placed, state.node_idle,
+        state.node_releasing, state.node_ports, state.node_num_tasks, state.task_status,
+        state.task_node, s_max, best_effort_pass, preds_on,
+    )
+    # capacity-limited (not budget-limited) groups can never place again
+    if best_effort_pass:
+        unfit_now = has_grp & (placed < budget)
+    else:
+        unfit_now = has_grp & use_rel & (placed < budget)
+    ptf = placed.to(torch.float32)[:, None] * req
+    state.job_alloc.index_put_((j,), ptf, accumulate=True)
+    state.queue_alloc.index_put_((q,), ptf, accumulate=True)
+    state.job_ready_cnt.index_put_((j,), placed, accumulate=True)
+    state.group_placed.index_put_((g,), placed, accumulate=True)
+    state.group_unfit.index_put_((g,), state.group_unfit[g] | unfit_now)
+    # marking a group unfit is progress: the queue's next job gets a turn
+    state.progress = state.progress | (placed > 0)[0] | unfit_now[0]
+
+
+def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pass):
+    """The immediate path's round loop: each round's active queues in
+    queue order, one turn each; one host read per round."""
+    policy = node_order_policy(tiers)
+    preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
+    pa_on = preds_on and pa_enabled(st)
+    while True:
+        grp_live = group_live_mask(st, sess, state.group_placed, state.group_unfit,
+                                   best_effort_pass)
+        q_active = st.queue_valid & queue_has_live_job(st, grp_live)
+        if not best_effort_pass:
+            q_active = q_active & ~overused(state.queue_alloc, sess.deserved)
+        nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved,
+                              st.queue_uid_rank)
+        go, trip = _host(state.progress, nq)
+        if not (go and state.rounds < max_rounds):
+            return state
+        state.progress = torch.zeros_like(state.progress)
+        for qi in range(max(trip, 1)):
+            _process_queue(perm[qi:qi + 1], st, sess, state, tiers, s_max, best_effort_pass,
+                           policy, preds_on, pa_on)
+        state.rounds += 1
+
+
 def _decode_deferred(st, state, entry_placed, gn_a, gn_p):
     """Counts -> task placements through K3 (allocated before pipelined)."""
     status, node = decode_deferred(
@@ -437,20 +512,35 @@ def allocate_action(
     """Run rounds until a full round places nothing.  Returns a new
     state; ``state`` is left as it was.
 
-    ``prune``: None enables feasibility pre-pruning when N // 8 >=
-    ``prune_floor``; the panel is the smallest of N//8, N//4 or full
-    that the largest class's feasible-node count fits."""
-    if turn_batch is False or not _use_deferred_decode(st, tiers):
-        raise NotImplementedError(IMMEDIATE_PATH)
+    ``turn_batch``: None takes the batched deferred-decode round when
+    :func:`_use_deferred_decode` allows it, else the immediate turn loop;
+    False forces the immediate loop (the reference's parity path); True
+    requires the batched round and raises ValueError where it is not
+    legal.
+
+    ``prune`` (batched round only): None enables feasibility pre-pruning
+    when N // 8 >= ``prune_floor``; the panel is the smallest of N//8,
+    N//4 or full that the largest class's feasible-node count fits."""
+    legal = _use_deferred_decode(st, tiers)
+    if turn_batch and not legal:
+        raise ValueError(
+            "turn_batch=True but the batched round is not legal for this pack / tiers "
+            "(node order, pod affinity, or cell cap)"
+        )
+    defer = legal if turn_batch is None else bool(turn_batch)
     N = st.num_nodes
     if prune is None:
-        prune = N // 8 >= prune_floor
+        prune = defer and N // 8 >= prune_floor
+    if prune and not defer:
+        raise ValueError("prune=True requires the batched round; the immediate loop is full width")
     entry_placed = state.group_placed.clone()
     state = _copy(state)
     dev = st.device
     state.progress = torch.ones((), dtype=torch.bool, device=dev)
-    state.rounds = 0
+    state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     state.group_unfit = torch.zeros_like(state.group_unfit)
+    if not defer:
+        return _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pass)
 
     prune_idx = None
     if prune:

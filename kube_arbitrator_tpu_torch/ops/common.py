@@ -93,11 +93,44 @@ def seg_cumsum(x: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
     return out[:, 0] if squeeze else out
 
 
+SCAN_BLOCK = 16
+
+
 def mm_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum along axis 0.  The reference's triangular-matmul
-    form is a TPU device choice; off the TPU it is a plain cumsum
-    (kube_arbitrator_tpu/ops/common.py:118-119)."""
-    return torch.cumsum(x, dim=0)
+    """Inclusive f32 prefix sum along axis 0 of ``x`` [V] or [V, C], added
+    in the order of the reference's ``mm_cumsum`` on the CPU
+    (kube_arbitrator_tpu/ops/common.py:118-119: ``jnp.cumsum``, which XLA
+    rewrites into a two-level scan): blocks of SCAN_BLOCK summed left to
+    right, plus the inclusive scan (the same recursion) of the previous
+    blocks' totals.  Elementwise f32 adds only, so the card and the CPU
+    give the reference's bits (``torch.cumsum`` would add in double on
+    the CPU and in another order on the card)."""
+    squeeze = x.dim() == 1
+    v = (x[:, None] if squeeze else x).to(torch.float32)
+    out = _blocked_scan(v)
+    return out[:, 0] if squeeze else out
+
+
+def _blocked_scan(v: torch.Tensor) -> torch.Tensor:
+    n, c = v.shape
+    B = SCAN_BLOCK
+    if n == 0:
+        return v
+    if n <= B:
+        cols = [v[0]]
+        for i in range(1, n):
+            cols.append(cols[-1] + v[i])
+        return torch.stack(cols)
+    nb = -(-n // B)
+    vp = torch.cat([v, v.new_zeros((nb * B - n, c))]) if nb * B != n else v
+    blocks = vp.reshape(nb, B, c)
+    cols = [blocks[:, 0]]
+    for i in range(1, B):
+        cols.append(cols[-1] + blocks[:, i])
+    inner = torch.stack(cols, dim=1)                      # [nb, B, c]
+    outer = _blocked_scan(inner[:, -1].contiguous())      # inclusive over blocks
+    excl = torch.cat([v.new_zeros((1, c)), outer[:-1]])
+    return (inner + excl[:, None, :]).reshape(nb * B, c)[:n]
 
 
 def plugin_on(tiers, name: str, attr: str) -> bool:

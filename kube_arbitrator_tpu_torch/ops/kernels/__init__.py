@@ -9,13 +9,17 @@ PyTorch version and with a launch counter:
 * K6 :func:`claim_nodes.claim_nodes`         — ops/preempt._apply_claim node half
 * K7 :func:`canon_pick.canon_pick`           — reclaim turn: per-node sums, first fit
 * K8 :func:`canon_commit.canon_commit`       — reclaim turn: window commit
+* K9 :func:`turn_caps.turn_caps`             — immediate turn: capacity, packing order
+* K10 :func:`turn_fill.turn_fill`            — immediate turn: fill, writeback, decode
+* K11 :func:`pa_fit.pa_fit`                  — pod-affinity fit of a turn's group
+* K12 :func:`pa_shape.pa_shape`              — pod-affinity seed and domain cap
 
 A wrapper takes the plain version only for CPU tensors; on CUDA tensors
 it launches its kernel (built on first use, see build.py) or raises.
 """
 from . import (
-    admit_chunk, canon_commit, canon_pick, claim_nodes, decode_deferred, lex_argmin,
-    seg_scan, segment_sum,
+    admit_chunk, canon_commit, canon_pick, claim_nodes, decode_deferred, lex_argmin, pa_fit,
+    pa_shape, seg_scan, segment_sum, turn_caps, turn_fill,
 )
 
 # kernel name -> wrapper (each wrapper carries its ``launches`` count)
@@ -28,6 +32,10 @@ KERNELS = {
     "claim_nodes": claim_nodes.claim_nodes,
     "canon_pick": canon_pick.canon_pick,
     "canon_commit": canon_commit.canon_commit,
+    "turn_caps": turn_caps.turn_caps,
+    "turn_fill": turn_fill.turn_fill,
+    "pa_fit": pa_fit.pa_fit,
+    "pa_shape": pa_shape.pa_shape,
 }
 
 

@@ -9,11 +9,15 @@ the covering-prefix evict rule.  The per-node aggregates are inputs:
 ``node_victims`` / ``totfree`` summed by K4 in slot order, ``vmax`` /
 ``vmin`` by an order-free max / min.  The turn's scalars (``g``,
 ``budget``, ``has_grp``, ``was_ready``, ``need``) stay on the device.
+With pod affinity (``pa``: K11's ok mask and the K12 shaping of the
+claim capacity, the reference's :513-516 and :604-606) the kernel runs in
+two launches with K12 between them: the capacity, then the scan, fill
+and evict rule over the shaped capacity.
 CUDA source: csrc/claim_nodes.cu.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -29,16 +33,31 @@ BIG = 3.0e38  # rounds to the reference's float32 BIG
 SIGNATURES = {
     "kat_claim_nodes": (
         P, P, P, P, P, P, P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P,
-        I, I, I, I, I, I, I, I, P, P, P, P, P, P, P, P,
+        I, I, I, I, I, I, I, I, P, P, I, P, P, P, P, P, P, P, P,
     ),
 }
 
 
 def claim_nodes_plain(st, node_victims, totfree, vmax, vmin, node_ports, node_num_tasks,
                       victims, vnode, vres, node_rank, node_cum,
-                      g, req, budget, has_grp, was_ready, need, s_max, preempt_mode, preds_on):
+                      g, req, budget, has_grp, was_ready, need, s_max, preempt_mode, preds_on,
+                      pa=None):
     """The plain version, the reference's arithmetic op for op."""
-    N = st.num_nodes
+    cap, full, chunk_m, node_uniform = claim_caps_plain(
+        st, node_victims, totfree, vmax, vmin, node_ports, node_num_tasks, g, req, s_max,
+        preds_on, None if pa is None else pa[0],
+    )
+    if pa is not None:
+        cap = pa[1](cap)
+    return claim_fill_plain(st, cap, full, chunk_m, node_uniform, victims, vnode, vres,
+                            node_rank, node_cum, req, budget, has_grp, was_ready, need,
+                            preempt_mode)
+
+
+def claim_caps_plain(st, node_victims, totfree, vmax, vmin, node_ports, node_num_tasks, g, req,
+                     s_max, preds_on, pa_ok):
+    """Per-node claim capacity (i32[N]) and the values the evict rule
+    reads: full claims, victims per claim chunk, uniform-victim flag."""
     if preds_on:
         klass = st.group_klass[g].to(torch.int64)
         static_ok = (
@@ -54,6 +73,8 @@ def claim_nodes_plain(st, node_victims, totfree, vmax, vmin, node_ports, node_nu
         pods_head = torch.full_like(node_num_tasks, s_max)
         ok = st.node_valid
         has_ports = torch.zeros((), dtype=torch.bool, device=req.device)
+    if pa_ok is not None:
+        ok = ok & pa_ok
     ok = ok & (node_victims > 0)
     weak_ok = ~(totfree < req[None, :]).all(dim=-1)
     reqpos = req[None, :] > 0
@@ -76,7 +97,12 @@ def claim_nodes_plain(st, node_victims, totfree, vmax, vmin, node_ports, node_nu
     cap = torch.minimum(cap, pods_head.to(torch.float32))
     cap = torch.where(has_ports, cap.clamp(max=1.0), cap)
     cap = torch.where(ok & weak_ok, cap, 0.0)
-    cap = to_i32(cap.clamp(min=0.0))
+    return to_i32(cap.clamp(min=0.0)), full, chunk_m, node_uniform
+
+
+def claim_fill_plain(st, cap, full, chunk_m, node_uniform, victims, vnode, vres, node_rank,
+                     node_cum, req, budget, has_grp, was_ready, need, preempt_mode):
+    """The scan, fill, statement gate and evict rule over ``cap``."""
     cum = torch.cumsum(cap, 0, dtype=torch.int32)
     placed_pre = torch.minimum(budget, cum[-1:])
     p = torch.minimum((placed_pre - (cum - cap)).clamp(min=0), cap)
@@ -120,13 +146,15 @@ def claim_nodes(
     s_max: int,
     preempt_mode: bool,            # phase 1 (the statement gate) vs phase 2
     preds_on: bool,
+    pa: Optional[Tuple[torch.Tensor, Callable]] = None,  # (ok bool[N], caps -> shaped caps)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (p i32[N], cum i32[N], [placed_total, placed_pre] i32[2],
     evict bool[P]).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel (twice, around ``pa``'s shaping, with pod
+    affinity)."""
     args = (st, node_victims, totfree, vmax, vmin, node_ports, node_num_tasks, victims,
             vnode, vres, node_rank, node_cum, g, req, budget, has_grp, was_ready, need,
-            s_max, preempt_mode, preds_on)
+            s_max, preempt_mode, preds_on, pa)
     if totfree.device.type == "cpu":
         return claim_nodes_plain(*args)
     dev = totfree.device
@@ -160,19 +188,34 @@ def claim_nodes(
     placed = torch.empty(2, dtype=torch.int32, device=dev)
     evict = torch.empty(Pn, dtype=torch.bool, device=dev)
     fn = build.bind("claim_nodes", "kat_claim_nodes", SIGNATURES)
-    build.check(fn(
-        build.ptr(g32), build.ptr(req), build.ptr(budget), build.ptr(has_grp),
-        build.ptr(was_ready), build.ptr(need), build.ptr(node_victims), build.ptr(totfree),
-        build.ptr(vmax), build.ptr(vmin), build.ptr(st.class_fit), st.class_fit.shape[1],
-        build.ptr(st.node_klass), build.ptr(st.node_valid), build.ptr(st.node_unsched),
-        build.ptr(st.node_max_tasks), build.ptr(node_ports), build.ptr(node_num_tasks),
-        build.ptr(st.group_klass), build.ptr(st.group_ports), build.ptr(victims),
-        build.ptr(vnode), build.ptr(vres), build.ptr(node_rank), build.ptr(node_cum),
-        Pn, N, R, W, s_max, st.num_tasks, int(preempt_mode), int(preds_on),
-        build.ptr(full_s), build.ptr(chunk_s), build.ptr(unif_s), build.ptr(p),
-        build.ptr(cum), build.ptr(placed), build.ptr(evict), build.stream(),
-    ), "claim_nodes")
-    claim_nodes.launches += 1
+    pa_ok = None
+    if pa is not None:
+        pa_ok = pa[0]
+        build.require(pa_ok, torch.bool, "claim_nodes.pa_ok", dev)
+
+    def launch(phase, cap_in=None):
+        build.check(fn(
+            build.ptr(g32), build.ptr(req), build.ptr(budget), build.ptr(has_grp),
+            build.ptr(was_ready), build.ptr(need), build.ptr(node_victims), build.ptr(totfree),
+            build.ptr(vmax), build.ptr(vmin), build.ptr(st.class_fit), st.class_fit.shape[1],
+            build.ptr(st.node_klass), build.ptr(st.node_valid), build.ptr(st.node_unsched),
+            build.ptr(st.node_max_tasks), build.ptr(node_ports), build.ptr(node_num_tasks),
+            build.ptr(st.group_klass), build.ptr(st.group_ports), build.ptr(victims),
+            build.ptr(vnode), build.ptr(vres), build.ptr(node_rank), build.ptr(node_cum),
+            Pn, N, R, W, s_max, st.num_tasks, int(preempt_mode), int(preds_on),
+            build.ptr(pa_ok), build.ptr(cap_in), phase,
+            build.ptr(full_s), build.ptr(chunk_s), build.ptr(unif_s), build.ptr(p),
+            build.ptr(cum), build.ptr(placed), build.ptr(evict), build.stream(),
+        ), "claim_nodes")
+        claim_nodes.launches += 1
+
+    if pa is None:
+        launch(0)
+    else:
+        launch(1)
+        shaped = pa[1](p).contiguous()
+        build.require(shaped, torch.int32, "claim_nodes.shaped_caps", dev)
+        launch(2, shaped)
     return p, cum, placed, evict
 
 

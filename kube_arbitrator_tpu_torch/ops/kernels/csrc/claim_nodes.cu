@@ -25,6 +25,13 @@
 // Arithmetic mirrors the plain version: IEEE divides, separate roundings
 // of products and differences (built with -fmad=false), saturating
 // float -> int conversion.
+//
+// Pod affinity (preempt.py:513-516, :604-606): the fit's ok mask joins
+// the node predicate, and K12 shapes the claim capacity between the
+// capacity and the scan.  The kernel then runs twice: phase 1 writes the
+// caps (and the pass-2 scratch) and stops; K12 shapes them; phase 2 takes
+// the shaped caps in and runs the scan, the fill and the evict rule.
+// Phase 0 is the fused launch without pod affinity.
 #include "common.cuh"
 
 namespace {
@@ -34,6 +41,7 @@ struct Claim {
   int R, W, N, s_max;
   bool preds_on;
   bool has_ports;
+  const uint8_t* pa_ok;  // K11's mask, or nullptr
   int klass;
   const int* gports;
 };
@@ -65,6 +73,7 @@ __device__ int node_cap(const Claim& c, int n, const int* node_victims,
     pods_head = c.s_max;
     ok = node_valid[n] != 0;
   }
+  if (c.pa_ok) ok = ok && c.pa_ok[n] != 0;
   ok = ok && nv > 0;
   bool all_below = true, uniform = nv > 0;
   float per_min = KAT_BIG, chunk = -KAT_BIG;
@@ -118,6 +127,7 @@ __global__ void __launch_bounds__(1024) claim_nodes_kernel(
     const int* __restrict__ vnode, const float* __restrict__ vres,
     const int* __restrict__ node_rank, const float* __restrict__ node_cum, int P,
     int N, int R, int W, int s_max, int T, int preempt_mode, int preds_on,
+    const uint8_t* __restrict__ pa_ok, const int* __restrict__ cap_in, int phase,
     float* __restrict__ full_s, float* __restrict__ chunk_s, uint8_t* __restrict__ unif_s,
     int* __restrict__ p_out, int* __restrict__ cum_out, int* __restrict__ placed_out,
     uint8_t* __restrict__ evict_out) {
@@ -129,6 +139,7 @@ __global__ void __launch_bounds__(1024) claim_nodes_kernel(
   c.N = N;
   c.s_max = s_max;
   c.preds_on = preds_on != 0;
+  c.pa_ok = pa_ok;
   c.klass = group_klass[g];
   c.gports = group_ports + (size_t)g * W;
   c.has_ports = false;
@@ -140,12 +151,14 @@ __global__ void __launch_bounds__(1024) claim_nodes_kernel(
   const int hi = min(lo + per, N);
   int tsum = 0;
   for (int n = lo; n < hi; ++n) {
-    const int cap = node_cap(c, n, node_victims, totfree, vmax, vmin, class_fit, CN, node_klass,
-                             node_valid, node_unsched, node_max_tasks, node_ports,
-                             node_num_tasks, full_s, chunk_s, unif_s);
+    const int cap = phase == 2 ? cap_in[n]
+                               : node_cap(c, n, node_victims, totfree, vmax, vmin, class_fit, CN,
+                                          node_klass, node_valid, node_unsched, node_max_tasks,
+                                          node_ports, node_num_tasks, full_s, chunk_s, unif_s);
     p_out[n] = cap;  // cap until pass 1 ends
     tsum += cap;
   }
+  if (phase == 1) return;  // the caps go to K12
   int total;
   int run = kat_block_excl_scan(tsum, &total);
   const int budget = *budget_p;
@@ -203,7 +216,8 @@ extern "C" int kat_claim_nodes(
     const int* group_klass, const int* group_ports, const uint8_t* victims,
     const int* vnode, const float* vres, const int* node_rank,
     const float* node_cum, int P, int N, int R, int W, int s_max, int T,
-    int preempt_mode, int preds_on, float* full_s, float* chunk_s,
+    int preempt_mode, int preds_on, const uint8_t* pa_ok, const int* cap_in,
+    int phase, float* full_s, float* chunk_s,
     uint8_t* unif_s, int* p_out, int* cum_out, int* placed_out,
     uint8_t* evict_out, void* stream) {
   claim_nodes_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
@@ -211,7 +225,7 @@ extern "C" int kat_claim_nodes(
       vmin, class_fit, CN, node_klass, node_valid, node_unsched,
       node_max_tasks, node_ports, node_num_tasks, group_klass, group_ports,
       victims, vnode, vres, node_rank, node_cum, P, N, R, W, s_max, T,
-      preempt_mode, preds_on, full_s, chunk_s, unif_s, p_out, cum_out,
-      placed_out, evict_out);
+      preempt_mode, preds_on, pa_ok, cap_in, phase, full_s, chunk_s, unif_s, p_out,
+      cum_out, placed_out, evict_out);
   return (int)cudaGetLastError();
 }

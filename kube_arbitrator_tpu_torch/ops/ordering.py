@@ -104,6 +104,18 @@ def queue_order_keys(
 NODE_ORDER_POLICIES = ("first_fit", "binpack", "spread")
 
 
+def with_node_order(policy: str, tiers: Tiers = DEFAULT_TIERS) -> Tiers:
+    """``tiers`` with kube-batch's nodeorder plugin set to ``policy`` (the
+    plugin joins the last tier); first-fit, the default order, leaves
+    ``tiers`` as they are."""
+    if policy not in NODE_ORDER_POLICIES:
+        raise ValueError(f"unknown nodeorder policy {policy!r}; one of {NODE_ORDER_POLICIES}")
+    if policy == "first_fit":
+        return tiers
+    opt = PluginOption.of("nodeorder", arguments=(("policy", policy),))
+    return tiers[:-1] + (Tier(plugins=tiers[-1].plugins + (opt,)),)
+
+
 def node_order_policy(tiers: Tiers) -> str:
     """'first_fit' (default), 'binpack' or 'spread', from the nodeorder
     plugin's ``policy`` argument."""

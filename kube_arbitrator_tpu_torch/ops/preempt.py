@@ -9,23 +9,28 @@ preempt.py).
   gang-ready.
 * reclaim (reclaim.go:41-188): a non-overused queue's job evicts RUNNING
   tasks of other queues, gated by the Reclaimable verdicts (gang,
-  proportion), one task claim per job per cycle, over the pack's canon
-  victim layout (``rv_*``).
+  proportion), one task claim per job per cycle.
 
 Engines ported: preempt's batched round (``_rounds_batched``, the
 default, with its incremental round gate) and sequential turn loop
-(``_rounds``); reclaim's sequential canon walk (``_reclaim_canon``, the
-reference's default dispatch).  The other reclaim engines raise
-NotImplementedError.
+(``_rounds``, which pod-affinity packs take: the claim reads the group's
+affinity fit); reclaim's sequential canon walk over the pack's canon
+victim layout (``_reclaim_canon``, the reference's default) and, for
+packs without the canon pack or with pod affinity, ``_reclaim_fast``
+over victim layouts sorted at action entry (its claimant decode deferred
+to a claim log, or immediate under pod affinity).  The opt-in batched
+and optimistic reclaim engines raise NotImplementedError.
 
 Kernels: K5 ``seg_scan`` runs every victim-layout scan (two per verdict
 pass under the default tiers, three when drf's tier decides; two in the
-canon seed), K6 ``claim_nodes`` the node half of a preempt claim, K7
-``canon_pick`` / K8 ``canon_commit`` a reclaim turn;
-K2 picks jobs and groups and K4 sums per node, job and queue in slot
-order.  Host reads: one per round (the progress flag and the active-queue
-count together), one per preempt action for the victim-panel tier and
-one for the gated-round count.  A turn reads nothing on the host.
+canon seed; one in ``_reclaim_fast``'s entry), K6 ``claim_nodes`` the
+node half of a preempt claim (with K11 ``pa_fit`` / K12 ``pa_shape``
+under pod affinity), K7 ``canon_pick`` / K8 ``canon_commit`` a canon
+reclaim turn; K2 picks jobs and groups and K4 sums per node, job and
+queue in slot order.  Host reads: one per round (the progress flag and
+the active-queue count together), one per preempt action for the
+victim-panel tier and one for the gated-round count.  A turn reads
+nothing on the host.
 """
 from __future__ import annotations
 
@@ -40,9 +45,11 @@ from ..cache.snapshot import SnapshotTensors, pa_enabled
 from .allocate import (
     EVICT_PHASE_PREEMPT,
     EVICT_PHASE_PREEMPT_INTRA,
+    EVICT_PHASE_RECLAIM,
     AllocState,
     SessionCtx,
     _copy,
+    _host,
     _scatter_any,
     _scatter_count,
     _selection_shared,
@@ -51,7 +58,9 @@ from .allocate import (
     queue_perm,
     select_turns,
 )
-from .common import BIG, EPS, fair, lex_argmin, lexsort, plugin_on, safe_share, seg_cumsum
+from .common import (
+    BIG, EPS, fair, lex_argmin, lexsort, mm_cumsum, plugin_on, safe_share, seg_cumsum,
+)
 from .fairness import drf_shares
 from .kernels.canon_commit import _scatter_set, canon_commit
 from .kernels.canon_pick import canon_pick
@@ -59,6 +68,7 @@ from .kernels.claim_nodes import claim_nodes
 from .kernels.seg_scan import seg_scan
 from .kernels.segment_sum import segment_order, segment_sum
 from .ordering import Tiers, group_order_keys, job_order_keys
+from .podaffinity import pa_shape, pod_affinity_fit
 
 RUNNING = int(TaskStatus.RUNNING)
 RELEASING = int(TaskStatus.RELEASING)
@@ -74,10 +84,6 @@ TURN_BATCH_MAX_CELLS = 1 << 22
 # active queues runs its overflow turns through the sequential turn.
 TURN_PANEL = 32
 
-RECLAIM_FAST = (
-    "reclaim without the canon pack (or with pod affinity) runs the "
-    "reference's _reclaim_fast engine: port slice 3 (with pod affinity)"
-)
 RECLAIM_BATCHED = (
     "reclaim turn_batch=True (the reference's _reclaim_canon_batched) is "
     "port slice 5 (speed work)"
@@ -86,11 +92,6 @@ RECLAIM_OPTIMISTIC = (
     "reclaim turn_batch='optimistic' (the reference's "
     "_reclaim_canon_optimistic) is port slice 5 (speed work)"
 )
-
-
-def _host(*xs) -> list:
-    """One host read of several device scalars."""
-    return torch.stack([x.reshape(()).to(torch.int64) for x in xs]).tolist()
 
 
 # ---------------------------------------------------------------- victim view
@@ -278,10 +279,14 @@ def _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, re
     f32[R]; ``victims`` is this queue's verdict mask."""
     J, Q, N = st.num_jobs, st.num_queues, st.num_nodes
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
+    pa = None
+    if preds_on and pa_enabled(st):
+        fit = pod_affinity_fit(st, g, state.task_status, state.task_node)
+        pa = (fit.ok, lambda cap: pa_shape(st, fit, cap[None, :])[0])
     p, cum, placed, evict = claim_nodes(
         st, *claim_aggregates(st, view, victims), state.node_ports, state.node_num_tasks,
         victims, view.node, view.resreq, node_rank, node_cum, g, req, budget, has_grp,
-        was_ready, need, s_max, mode == "preempt", preds_on,
+        was_ready, need, s_max, mode == "preempt", preds_on, pa,
     )
     placed_total, placed_pre = placed[0:1], placed[1:2]
     freed = segment_sum(torch.where(evict[:, None], view.resreq, 0.0), view.node, N,
@@ -608,6 +613,11 @@ def _reclaim_verdict_names(tiers: Tiers):
     return ()
 
 
+def _claim_key_fits(num_groups: int, num_tasks: int) -> bool:
+    """Does the claim log's (group, rank) join key fit int32?"""
+    return num_groups * (num_tasks + 1) < 2**31
+
+
 def _replay_claim_log(st, task_status, task_node, log_g, log_n, log_r):
     """Deferred claimant decode: claim k pipelined group ``log_g[k]``'s
     task of rank ``log_r[k]`` onto node ``log_n[k]``, joined on the
@@ -781,6 +791,198 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     return _canon_writeback(st, state, carry)
 
 
+def _task_layout(segment, priority, uid_rank, resreq, extra_keys=()):
+    """A fixed victim order over the whole task axis: (SortLayout, inv
+    i64[T] task -> sorted position, base i64[T] sorted position -> its
+    segment's first position)."""
+    lay = SortLayout.build(segment, priority, uid_rank, resreq, extra_keys)
+    T = lay.order.shape[0]
+    pos = torch.arange(T, device=lay.order.device)
+    inv = torch.empty_like(pos)
+    inv[lay.order.to(torch.int64)] = pos
+    base = torch.cummax(torch.where(lay.seg_start, pos, 0), dim=0).values
+    return lay, inv, base
+
+
+def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
+    """Cross-queue reclaim over victim layouts sorted once at action entry
+    (the reference's _reclaim_fast, preempt.py:1567-1913), pop for pop.
+
+    Per turn: the queue's job / group pop (K2); the victims' eligibility —
+    gang's in-(node, job) rank as the entry rank minus the segment's
+    evictions so far (K5 ranks once at entry), proportion's in-(node,
+    queue) cumulative as a difference of one global cumulative (added in
+    the reference's order, ``mm_cumsum``); the per-node victim count and
+    sums (K4, slot order); the first feasible node; the covering victim
+    prefix on it; the accounting.  The claimant decode is deferred to a
+    claim log replayed at the end, or immediate under pod affinity (the
+    fit reads the live placements).  Updates ``state`` in place."""
+    J, Q, N, T = st.num_jobs, st.num_queues, st.num_nodes, st.num_tasks
+    dev = st.device
+    i64, i32 = torch.int64, torch.int32
+    rr = st.task_resreq
+    vj = st.task_job
+    vq = st.job_queue[vj.to(i64)]
+    vj64, vq64 = vj.to(i64), vq.to(i64)
+    verdict_names = _reclaim_verdict_names(tiers)
+    preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
+    use_gang = "gang" in verdict_names
+    use_prop = "proportion" in verdict_names
+    pa_on = preds_on and pa_enabled(st)
+    defer = not pa_on and _claim_key_fits(st.num_groups, T)
+
+    node_key = state.task_node.clamp(min=0)
+    # within-node victim order (queue, job, priority, uid)
+    L_node, inv_node, _ = _task_layout(node_key, st.task_priority, st.task_uid_rank, rr,
+                                       extra_keys=(vj, vq))
+    order_node = L_node.order.to(i64)
+    node_sorted = node_key[order_node]
+    cand0 = (state.task_status == RUNNING) & st.task_valid & (state.task_node >= 0)
+    # per-node sums run over the entry candidates only (the others add
+    # exact zeros in the reference's scatter), so no segment collects
+    # every task without a node
+    cand_node = torch.where(cand0, node_key, N)
+    node_order = segment_order(cand_node, N)
+    if use_gang:
+        L_nj, inv_nj, base_nj = _task_layout((vj, node_key), st.task_priority,
+                                             st.task_uid_rank, rr)
+        rank0_nj, _ = L_nj.rank_and_cum(cand0)
+        tbase_nj = base_nj[inv_nj]
+    if use_prop:
+        L_nq, inv_nq, base_nq = _task_layout((vq, node_key), st.task_priority,
+                                             st.task_uid_rank, rr, extra_keys=(vj,))
+        order_nq = L_nq.order.to(i64)
+        res_nq = fair(L_nq.res_sorted)
+        deserved_t = fair(sess.deserved)[vq64]
+
+    state.progress = torch.ones((), dtype=torch.bool, device=dev)
+    state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
+    q_entries = _scatter_count(st.job_queue, st.job_valid, Q)
+    job_consumed = torch.zeros(J, dtype=torch.bool, device=dev)
+    cand = cand0.clone()
+    e_nj = torch.zeros(T, dtype=i32, device=dev)  # evictions per (job, node) segment base
+    log_g = torch.full((J + 1,), -1, dtype=i32, device=dev)  # row J: dropped writes
+    log_n = torch.zeros(J + 1, dtype=i32, device=dev)
+    log_r = torch.zeros(J + 1, dtype=i32, device=dev)
+    n_claims = torch.zeros(1, dtype=i32, device=dev)
+    node_ids = torch.arange(N, device=dev)
+    while True:
+        q_active = st.queue_valid & (q_entries > 0) & queue_has_live_job(
+            st, group_live_mask(st, sess, state.group_placed, None), job_extra=~job_consumed,
+        )
+        nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank)
+        go, nq_h = _host(state.progress, nq)
+        if not (go and state.rounds < max_rounds):
+            break
+        state.progress = torch.zeros_like(state.progress)
+        for qi in range(max(nq_h, 1)):
+            q = perm[qi:qi + 1]
+            shared = _reclaim_shared(st, sess, state, tiers, job_consumed)
+            j, g, has_grp, req, pop, burn_now = _reclaim_pop(
+                st, sess, state, tiers, shared, q, q_entries[q]
+            )
+            j64, g64 = j.to(i64), g.to(i64)
+            # ---- victim eligibility: corrected gang rank, lean prop cum
+            elig = cand
+            if use_gang:
+                rank_now = rank0_nj - e_nj[tbase_nj]
+                cap = (state.job_ready_cnt - sess.min_avail).clamp(min=0)
+                elig = elig & (rank_now < cap[vj64])
+            if use_prop:
+                m_nq = cand[order_nq]
+                v_nq = torch.where(m_nq[:, None], res_nq, 0.0)
+                c_nq = mm_cumsum(v_nq)
+                cum_seg = c_nq - (c_nq[base_nq] - v_nq[base_nq])  # inclusive in-segment
+                after = fair(state.queue_alloc)[vq64] - cum_seg[inv_nq]
+                elig = elig & (deserved_t < after + EPS).all(dim=-1)
+            if not verdict_names:
+                elig = torch.zeros_like(cand)
+            mask_v = elig & (vq64 != q)
+            vstat = torch.cat([mask_v.to(torch.float32)[:, None],
+                               torch.where(mask_v[:, None], rr, 0.0)], dim=1)
+            agg = segment_sum(vstat, cand_node, N, order=node_order)
+            vic_cnt, vic_res = agg[:, 0], agg[:, 1:]
+            # ---- first-fit node choice
+            if preds_on:
+                klass = st.group_klass[g64].to(i64)
+                node_ok = (st.class_fit[klass][:, st.node_klass.to(i64)][0]
+                           & st.node_valid & ~st.node_unsched)
+                g_ports = st.group_ports[g64][0]
+                node_ok = node_ok & ((g_ports[None, :] & state.node_ports) == 0).all(dim=-1)
+                node_ok = node_ok & (st.node_max_tasks - state.node_num_tasks > 0)
+            else:
+                node_ok = st.node_valid
+            if pa_on:
+                node_ok = node_ok & pod_affinity_fit(st, g, state.task_status, state.task_node).ok
+            weak_ok = ~(vic_res < req[None, :]).all(dim=-1)
+            feas = node_ok & (vic_cnt > 0) & weak_ok & pop & has_grp
+            n_star = torch.where(feas, node_ids, N).argmin().reshape(1)
+            claimed = pop & has_grp & feas.any()
+            fail = pop & ~claimed
+            q_entries.index_put_((q,), -(burn_now | fail).to(i32), accumulate=True)
+            job_consumed.index_put_((j64,), job_consumed[j64] | pop)
+            # ---- the minimal covering prefix on n_star (only its victims
+            # are non-zero, so one cumulative in node order is in-node)
+            m_s = mask_v[order_node] & (node_sorted == n_star)
+            v_s = torch.where(m_s[:, None], L_node.res_sorted, 0.0)
+            cum_s = mm_cumsum(v_s)
+            evict_s = m_s & claimed & ((cum_s - v_s) < (req - EPS)[None, :]).any(dim=-1)
+            evict = evict_s[inv_node]
+            evict_res = torch.where(evict[:, None], rr, 0.0)
+            # the evicted victims' sum, in slot order (only they are non-zero)
+            freed = segment_sum(evict_res, (~evict).to(i32), 1)[0]
+            cand = cand & ~evict
+            if use_gang:
+                # every task adds its 0 / 1 at its own segment's base: integer
+                # atomics spread over the segments (a sort-based accumulate
+                # into one drop row serialises T adds on the card)
+                e_nj.scatter_add_(0, tbase_nj, evict.to(i32))
+            # ---- claimant decode
+            placed_g = state.group_placed[g64]
+            if defer:
+                slot = torch.where(claimed, n_claims, J).to(i64)
+                log_g.index_put_((slot,), g.to(i32))
+                log_n.index_put_((slot,), n_star.to(i32))
+                log_r.index_put_((slot,), placed_g)
+                n_claims = n_claims + claimed.to(i32)
+            else:
+                assigned = ((st.task_group == g) & st.task_valid
+                            & (st.task_group_rank == placed_g) & claimed)
+                state.task_status = torch.where(evict, RELEASING, state.task_status)
+                state.task_status = torch.where(assigned, PIPELINED, state.task_status)
+                state.task_node = torch.where(assigned, n_star.to(i32), state.task_node)
+            # ---- accounting
+            ev_cnt_res = torch.cat([evict.to(torch.float32)[:, None], evict_res], dim=1)
+            jstat = segment_sum(ev_cnt_res, torch.where(evict, vj, J), J)
+            qstat = segment_sum(ev_cnt_res, torch.where(evict, vq, Q), Q)
+            creq = (req * claimed.to(torch.float32))[None, :]
+            state.job_alloc = state.job_alloc - jstat[:, 1:]
+            state.job_alloc.index_put_((j64,), creq, accumulate=True)
+            state.queue_alloc = state.queue_alloc - qstat[:, 1:]
+            state.queue_alloc.index_put_((q,), creq, accumulate=True)
+            state.job_ready_cnt = state.job_ready_cnt - jstat[:, 0].to(i32)
+            state.job_ready_cnt.index_put_((j64,), claimed.to(i32), accumulate=True)
+            state.node_releasing.index_put_((n_star,), (freed[None, :] - creq), accumulate=True)
+            ports_row = state.node_ports[n_star]
+            state.node_ports.index_put_(
+                (n_star,), torch.where(claimed[:, None], ports_row | st.group_ports[g64], ports_row)
+            )
+            state.node_num_tasks.index_put_((n_star,), claimed.to(i32), accumulate=True)
+            state.group_placed.index_put_((g64,), claimed.to(i32), accumulate=True)
+            state.evicted_for = torch.where(evict, -2, state.evicted_for)
+            state.evict_claimant = torch.where(evict, j.to(i32), state.evict_claimant)
+            state.evict_phase = torch.where(evict, EVICT_PHASE_RECLAIM, state.evict_phase)
+            state.evict_round = torch.where(evict, state.rounds, state.evict_round)
+            state.progress = state.progress | pop[0]
+        state.rounds += 1
+    if defer:
+        state.task_status = torch.where(cand0 & ~cand, RELEASING, state.task_status)
+        state.task_status, state.task_node = _replay_claim_log(
+            st, state.task_status, state.task_node, log_g[:J], log_n[:J], log_r[:J],
+        )
+    return state
+
+
 def reclaim_action(
     st: SnapshotTensors,
     sess: SessionCtx,
@@ -790,11 +992,13 @@ def reclaim_action(
     max_rounds: int = 100_000,
     turn_batch=None,
 ) -> AllocState:
-    """The reference's default dispatch: the sequential canon walk
-    (``turn_batch`` None or False).  The other engines raise
-    NotImplementedError naming the slice that ports them.  ``s_max`` is
-    accepted for the action signature; reclaim claims one task at a time.
-    Returns a new state."""
+    """The reference's default dispatch (``turn_batch`` None or False): the
+    sequential canon walk over the pack's canon layout, or
+    ``_reclaim_fast`` where the pack has none (or its key would overflow
+    int32) or pod affinity is on.  The opt-in batched / optimistic
+    engines raise NotImplementedError naming the slice that ports them.
+    ``s_max`` is accepted for the action signature; reclaim claims one
+    task at a time.  Returns a new state."""
     del s_max
     if turn_batch == "optimistic":
         raise NotImplementedError(RECLAIM_OPTIMISTIC)
@@ -804,8 +1008,8 @@ def reclaim_action(
         st.rv_block_start.shape[0] == st.num_nodes + 1
         and st.rv_idx.shape[0] > 0
         and st.rv_window > 0
-        and st.num_groups * (st.num_tasks + 1) < 2**31
+        and _claim_key_fits(st.num_groups, st.num_tasks)
     )
-    if not pack_ok or (plugin_on(tiers, "predicates", "predicate_disabled") and pa_enabled(st)):
-        raise NotImplementedError(RECLAIM_FAST)
-    return _reclaim_canon(st, sess, _copy(state), tiers, max_rounds)
+    if pack_ok and not (plugin_on(tiers, "predicates", "predicate_disabled") and pa_enabled(st)):
+        return _reclaim_canon(st, sess, _copy(state), tiers, max_rounds)
+    return _reclaim_fast(st, sess, _copy(state), tiers, max_rounds)

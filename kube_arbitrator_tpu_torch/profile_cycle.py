@@ -3,7 +3,8 @@ under ``torch.profiler``.
 
     python -m kube_arbitrator_tpu_torch.profile_cycle [--tasks 100000]
         [--nodes 10000] [--seed 42] [--running-fraction 0.0]
-        [--actions allocate,backfill] [--out profile_out]
+        [--actions allocate,backfill] [--node-order first_fit] [--pod-affinity]
+        [--out profile_out]
 
 A first cycle (seed - 1) warms up the kernel builds and the allocator;
 the profiled cycle then runs alone.  Prints the stage times, the top
@@ -32,16 +33,19 @@ from .cache.synth import build_synthetic_arrays
 from .cli import decide_world
 from .ops import kernels
 from .ops.cycle import ACTION_KERNELS, open_session
-from .ops.ordering import DEFAULT_TIERS
+from .ops.ordering import NODE_ORDER_POLICIES, with_node_order
 
 
-def sync_counts(tasks, nodes, queues, tasks_per_job, seed, running_fraction, actions):
+def sync_counts(tasks, nodes, queues, tasks_per_job, seed, running_fraction, actions,
+                node_order="first_fit", pod_affinity=False):
     """{action: (host syncs, rounds)}: each action of one cycle run alone
     with every synchronising CUDA call reported as a warning."""
     arrays, _ = build_synthetic_arrays(tasks, nodes, queues, tasks_per_job, seed,
-                                       running_fraction=running_fraction)
+                                       running_fraction=running_fraction,
+                                       pod_affinity=pod_affinity)
     st = from_numpy(arrays, "cuda")
-    sess, state = open_session(st, DEFAULT_TIERS)
+    tiers = with_node_order(node_order)
+    sess, state = open_session(st, tiers)
     torch.cuda.synchronize()
     out = {}
     for action in actions:
@@ -49,7 +53,7 @@ def sync_counts(tasks, nodes, queues, tasks_per_job, seed, running_fraction, act
         try:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                state = ACTION_KERNELS[action](st, sess, state, DEFAULT_TIERS)
+                state = ACTION_KERNELS[action](st, sess, state, tiers)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         n = sum(1 for w in caught if "synchroniz" in str(w.message))
@@ -77,6 +81,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--running-fraction", type=float, default=0.0)
     ap.add_argument("--actions", default="allocate,backfill")
+    ap.add_argument("--node-order", default="first_fit", choices=NODE_ORDER_POLICIES)
+    ap.add_argument("--pod-affinity", action="store_true")
     ap.add_argument("--out", default="profile_out")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -84,7 +90,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     world = dict(tasks=a.tasks, nodes=a.nodes, queues=a.queues, tasks_per_job=a.tasks_per_job,
                  running_fraction=a.running_fraction,
-                 actions=tuple(x for x in a.actions.split(",") if x))
+                 actions=tuple(x for x in a.actions.split(",") if x),
+                 node_order=a.node_order, pod_affinity=a.pod_affinity)
     decide_world(seed=a.seed - 1, device="cuda", **world)  # warm-up
     torch.cuda.synchronize()
     kernels.reset_counts()

@@ -289,15 +289,22 @@ def test_pruned_panel_tiers_match_reference(pool_a, open_tasks, tier):
 
 
 def test_unported_paths_raise():
+    """Only the later slices' engines raise; binpack (the immediate path
+    this slice opens) decides equal to the reference, and the batched
+    round refuses a conf it cannot serve."""
     st = build_snapshot(_ports_world().cluster).tensors
     pst = from_numpy(pack_arrays(st), "cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         port_cycle.schedule_cycle(pst, actions=("reclaim_optimistic", "allocate"))
-    binpack = (port_ord.Tier(plugins=(port_ord.PluginOption.of(
-        "nodeorder", arguments=(("policy", "binpack"),)),)),)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        port_cycle.schedule_cycle(pst, tiers=binpack)
-    sess, state = port_cycle.open_session(pst, port_ord.DEFAULT_TIERS)
-    with pytest.raises(NotImplementedError):
-        port_alloc.allocate_action(pst, sess, state, port_ord.DEFAULT_TIERS, turn_batch=False)
-    assert torch.equal(state.node_idle, pst.node_idle)
+    spec = [[("priority", {}), ("gang", {})],
+            [("drf", {}), ("predicates", {}), ("proportion", {}),
+             ("nodeorder", {"arguments": (("policy", "binpack"),)})]]
+    ref_tiers, port_tiers = tiers_pair(spec)
+    ref, port = run_both(st, ref_tiers, port_tiers)
+    assert int(port.bind_count) > 0
+    sess, state = port_cycle.open_session(pst, port_tiers)
+    with pytest.raises(ValueError, match="turn_batch=True"):
+        port_alloc.allocate_action(pst, sess, state, port_tiers, turn_batch=True)
+    imm = port_alloc.allocate_action(pst, sess, state, port_ord.DEFAULT_TIERS, turn_batch=False)
+    assert torch.equal(state.node_idle, pst.node_idle)  # the caller's state is left alone
+    assert (imm.task_status == int(TaskStatus.ALLOCATED)).sum() > 0

@@ -30,6 +30,7 @@ from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
 from kube_arbitrator_tpu_torch.ops import allocate as port_alloc
 from kube_arbitrator_tpu_torch.ops import common as port_common
 from kube_arbitrator_tpu_torch.ops import cycle as port_cycle
+from kube_arbitrator_tpu_torch.ops import ordering as port_ord
 from kube_arbitrator_tpu_torch.ops import preempt as port_pre
 from kube_arbitrator_tpu_torch.ops.kernels import admit_chunk as k1
 from kube_arbitrator_tpu_torch.ops.kernels import build
@@ -38,8 +39,12 @@ from kube_arbitrator_tpu_torch.ops.kernels import canon_pick as k7
 from kube_arbitrator_tpu_torch.ops.kernels import claim_nodes as k6
 from kube_arbitrator_tpu_torch.ops.kernels import decode_deferred as k3
 from kube_arbitrator_tpu_torch.ops.kernels import lex_argmin as k2
+from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
+from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
 from kube_arbitrator_tpu_torch.ops.kernels import seg_scan as k5
 from kube_arbitrator_tpu_torch.ops.kernels import segment_sum as k4
+from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
+from kube_arbitrator_tpu_torch.ops.kernels import turn_fill as k10
 from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as PORT_TIERS
 
 GB = 1024**3
@@ -431,7 +436,7 @@ def _c_signatures():
 def test_ctypes_bindings_match_c_signatures():
     sigs = _c_signatures()
     declared = {}
-    for mod in (k1, k2, k3, k4, k5, k6, k7, k8):
+    for mod in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
         declared.update(mod.SIGNATURES)
     assert set(declared) == set(sigs)
     for name, types in declared.items():
@@ -490,6 +495,22 @@ def test_evictive_cycle_on_card_matches_cpu(cuda_device):
     actions = ("reclaim", "allocate", "backfill", "preempt")
     gpu = port_cycle.schedule_cycle(from_numpy(arrays, cuda_device), actions=actions)
     cpu = port_cycle.schedule_cycle(from_numpy(arrays, "cpu"), actions=actions)
+    for f in dataclasses.fields(cpu):
+        assert torch.equal(getattr(gpu, f.name).cpu(), getattr(cpu, f.name)), f.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,pod_affinity", [("binpack", False), ("first_fit", True)])
+def test_immediate_cycle_on_card_matches_cpu(cuda_device, policy, pod_affinity):
+    """K9-K12 through the immediate path: binpack, and pod affinity under
+    the evictive conf (with K6's split launch and _reclaim_fast)."""
+    arrays, _ = build_synthetic_arrays(2000, 200, num_queues=8, tasks_per_job=100, seed=1,
+                                       running_fraction=0.5, fit_fraction=1.0,
+                                       pod_affinity=pod_affinity)
+    actions = ("reclaim", "allocate", "backfill", "preempt")
+    tiers = port_ord.with_node_order(policy)
+    gpu = port_cycle.schedule_cycle(from_numpy(arrays, cuda_device), tiers=tiers, actions=actions)
+    cpu = port_cycle.schedule_cycle(from_numpy(arrays, "cpu"), tiers=tiers, actions=actions)
     for f in dataclasses.fields(cpu):
         assert torch.equal(getattr(gpu, f.name).cpu(), getattr(cpu, f.name)), f.name
 

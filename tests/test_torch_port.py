@@ -18,7 +18,7 @@ from kube_arbitrator_tpu.cache.synth import build_synthetic_snapshot as ref_synt
 from kube_arbitrator_tpu.ops import cycle as ref_cycle
 from kube_arbitrator_tpu_torch import cli, resolve_device
 from kube_arbitrator_tpu_torch.cache.decode import decode_binds
-from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy, pa_enabled
 from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_snapshot
 from kube_arbitrator_tpu_torch.ops import cycle as port_cycle
 
@@ -82,10 +82,23 @@ def test_from_numpy_checks_and_refusals():
         from_numpy(bad, "cpu")
     with pytest.raises(ValueError, match="missing"):
         from_numpy({k: v for k, v in arrays.items() if k != "job_queue"}, "cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        from_numpy(dict(arrays, bogus=np.zeros(1)), "cpu")
+    # a pod-affinity pack is accepted with its tables, and decides as the
+    # reference does
     sim.add_task(j, 500, GB, name="t1", labels={"app": "x"},
                  affinity=[PodAffinityTerm(match_labels=(("app", "x"),), topology_key="zone")])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        from_numpy(pack_arrays(build_snapshot(sim.cluster).tensors), "cpu")
+    ref_st = build_snapshot(sim.cluster).tensors
+    pa = pack_arrays(ref_st)
+    st = from_numpy(pa, "cpu")
+    assert pa_enabled(st) and st.group_aff_terms.shape[1] == 1
+    for name in ("node_dom", "aff_key", "aff_static", "aff_match", "task_pa_class"):
+        assert np.array_equal(getattr(st, name).numpy(), pa[name]), name
+    dec = port_cycle.schedule_cycle(st)
+    ref = ref_cycle.schedule_cycle(ref_st)
+    for f in dataclasses.fields(dec):
+        assert np.array_equal(np.asarray(getattr(ref, f.name)), getattr(dec, f.name).numpy()), f.name
+    assert int(dec.bind_count) == 2
 
 
 @pytest.mark.parametrize("caps", [None, (64, 8)])

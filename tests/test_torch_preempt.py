@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from kube_arbitrator_tpu.api import TaskStatus
+from kube_arbitrator_tpu.api import PodAffinityTerm, TaskStatus
 from kube_arbitrator_tpu.cache import SimCluster, build_snapshot, generate_cluster
 from kube_arbitrator_tpu.cache import snapshot as ref_snapshot
 from kube_arbitrator_tpu.cache.decode import decode_decisions
@@ -160,7 +160,7 @@ def _preempt_then_reclaim_world():
     return sim
 
 
-def _two_queue_contention_world():
+def _two_queue_contention_world(affinity=()):
     sim = SimCluster()
     for name in ("qa", "qb", "qc"):
         sim.add_queue(name, weight=1)
@@ -170,7 +170,8 @@ def _two_queue_contention_world():
         sim.add_task(ja, 1000, GB, status=TaskStatus.RUNNING, node="n1", name=f"a-r{i}", priority=i)
     for name, ts in (("b", 2), ("c", 3)):
         j = sim.add_job(name, queue=f"q{name}", min_available=1, creation_ts=ts)
-        sim.add_task(j, 1000, GB, name=f"{name}-p0")
+        sim.add_task(j, 1000, GB, name=f"{name}-p0", labels={"app": "x"} if affinity else None,
+                     affinity=affinity)
     return sim
 
 
@@ -340,7 +341,11 @@ def test_reclaim_action_alone_matches_reference(seed):
 
 
 def test_unported_reclaim_engines_raise():
-    st = build_snapshot(_two_queue_contention_world().cluster).tensors
+    """The opt-in batched and optimistic engines (slice 5) raise; a pack
+    without the canon pack and a pod-affinity pack take ``_reclaim_fast``
+    and decide equal to the reference."""
+    sim = _two_queue_contention_world()
+    st = build_snapshot(sim.cluster).tensors
     pst = from_numpy(pack_arrays(st), "cpu")
     tiers = port_ord.DEFAULT_TIERS
     sess, state = port_cycle.open_session(pst, tiers)
@@ -350,14 +355,23 @@ def test_unported_reclaim_engines_raise():
         port_pre.reclaim_action(pst, sess, state, tiers, turn_batch=True)
     with pytest.raises(NotImplementedError, match="_reclaim_canon_optimistic"):
         port_pre.reclaim_action(pst, sess, state, tiers, turn_batch="optimistic")
-    no_canon = dataclasses.replace(
-        pst, rv_idx=pst.rv_idx[:0], rv_valid=pst.rv_valid[:0], rv_nj_start=pst.rv_nj_start[:0],
-        rv_nq_start=pst.rv_nq_start[:0], rv_block_start=pst.rv_block_start[:0], rv_window=0,
-    )
-    with pytest.raises(NotImplementedError, match="_reclaim_fast"):
-        port_pre.reclaim_action(no_canon, sess, state, tiers)
-    affinity = dataclasses.replace(
-        pst, group_aff_terms=torch.zeros((pst.num_groups, 1), dtype=torch.int32)
-    )
-    with pytest.raises(NotImplementedError, match="_reclaim_fast"):
-        port_pre.reclaim_action(affinity, sess, state, tiers)
+    no_canon = pack_arrays(st)
+    for k in ("rv_idx", "rv_valid", "rv_nj_start", "rv_nq_start", "rv_block_start"):
+        no_canon[k] = no_canon[k][:0]
+    no_canon["rv_window"] = 0
+    ref_st = dataclasses.replace(st, **{k: v for k, v in no_canon.items() if k.startswith("rv_")})
+    ref_open, ref_reclaim = _ref_reclaim()
+    ref = ref_reclaim(ref_st, *ref_open(ref_st))
+    port = port_pre.reclaim_action(from_numpy(no_canon, "cpu"), sess, state, tiers)
+    assert_state_equal(ref, port, "no canon pack: ")
+    assert (port.evict_phase.numpy() == 3).sum() > 0
+    # the same world with a pod-affinity term on the claimant
+    sim_pa = _two_queue_contention_world(
+        affinity=[PodAffinityTerm(match_labels=(("app", "x"),), topology_key="zone", anti=True)])
+    st_pa = build_snapshot(sim_pa.cluster).tensors
+    assert st_pa.group_anti_terms.shape[1] == 1 and st_pa.rv_idx.shape[0] > 0
+    ref = ref_reclaim(st_pa, *ref_open(st_pa))
+    pst_pa = from_numpy(pack_arrays(st_pa), "cpu")
+    port = port_pre.reclaim_action(pst_pa, *port_cycle.open_session(pst_pa, tiers), tiers)
+    assert_state_equal(ref, port, "pod affinity: ")
+    assert (port.evict_phase.numpy() == 3).sum() > 0
