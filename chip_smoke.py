@@ -6,7 +6,7 @@
 Needs a CUDA card and nvcc; imports nothing of JAX.  Phases (any failure
 exits non-zero):
 
-1. kernels — builds K1-K12 from kube_arbitrator_tpu_torch/ops/kernels/csrc
+1. kernels — builds K1-K16 from kube_arbitrator_tpu_torch/ops/kernels/csrc
    (one nvcc per source, in parallel) and holds each against its plain
    PyTorch version, requiring equality: K1-K4 on seeded inputs at the
    allocate path's shapes (100k tasks, 10k nodes, 1k groups, 8-slot
@@ -16,16 +16,25 @@ exits non-zero):
    turns (100k x 10k: the all-idle entry, where the binpack keys tie at
    -0.0, and a turn after two rounds, binpack and spread), K11-K12 on
    the pod-affinity world's groups after reclaim and three allocate
-   rounds (50k x 5k).  Times the kernel, the plain version and, where one
-   PyTorch call computes the same function (K4's, K7's, K11's and K12's
-   sums: ``Tensor.index_add_``; K9's order: ``torch.sort(stable=True)``),
-   that call.
+   rounds (50k x 5k), K13-K15 on the optimistic reclaim engine's first
+   speculation window of the q512_evict world (50k x 5k, 512 queues),
+   K16 on its three callers' shapes (a commit list at T = 102,400 whose
+   count passes the cap, allocate's feasibility cells at [K, 10,240],
+   preempt's full-width victim panel at 51,200).  Times the kernel, the
+   plain version and, where one PyTorch call computes the same function
+   (K4's, K7's, K11's, K12's and K13's sums: ``Tensor.index_add_``; K9's
+   order: ``torch.sort(stable=True)``; K16: ``torch.nonzero`` plus
+   padding), that call.  B3, still torch: one round's queue order at
+   Q = 512, card == CPU, timed beside one ``torch.sort``.
 2. parity — worlds decided on the card and on the CPU by the port's
    ``schedule_cycle``, every CycleDecisions field equal: 1000 x 100
    (allocate, backfill), 5k x 500 and 20k x 2k under the evictive conf
-   (reclaim, allocate, backfill, preempt), and at 5k x 500 a pod-affinity
+   (reclaim, allocate, backfill, preempt), at 5k x 500 a pod-affinity
    evictive world, an evictive world without the reclaim canon pack
-   (``_reclaim_fast`` with its claim log) and a binpack world.
+   (``_reclaim_fast`` with its claim log) and a binpack world, and the
+   reference's sequential-vs-batched soak shape at q = 64 under
+   ``reclaim_optimistic`` (and its ``reclaim_action(turn_batch=True)``,
+   every AllocState field equal).
 3. allocate at full width — the ``python -m kube_arbitrator_tpu_torch``
    path on four 100k-task x 10k-node worlds (seeds 42, 43, 44 and one
    capacity-tight world): invariants hold and the integer decisions equal
@@ -43,6 +52,17 @@ exits non-zero):
    integer fields (the allocate worlds at full width, the pod-affinity
    world at 20k x 2k); seed 42's counts and digests equal the JAX
    package's (PA_WORLD_42, BINPACK_WORLD_42); K9-K12 launched.
+6. the opt-in reclaim engines at full width — q512_evict (50k x 5k, 512
+   queues, half the jobs running; seeds 42 and 43) and rounds_q4 (20k x
+   2k, 4 queues, 70% running; seed 42): the canon walk, the round-batched
+   and the optimistic engine from one open_session state leave the same
+   AllocState and round count (stage times, counters and, for seed 42,
+   host syncs printed); the cycle under ``reclaim_optimistic, allocate,
+   backfill, preempt`` keeps the invariants of phase 4 and counts claim
+   conflicts; seed 42's counts, digest and reclaim counters equal the
+   JAX package's (Q512_WORLD_42, ROUNDS_Q4_WORLD_42); card == CPU on the
+   integer fields (rounds_q4 at full width, the q512 shape at 20k x 2k);
+   K13-K16 launched.
 
 Each path's launch counts are taken over its first world (seed 42), with
 every count set to 0 just before it.
@@ -53,6 +73,7 @@ compiler's register and spill report goes to stderr.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -102,6 +123,28 @@ BINPACK_WORLD_42 = dict(binds=96_725, digest="290aa02eea62a7b5")
 # card vs CPU on the pod-affinity world at a size the CPU decides quickly
 PA_CPU_CHECK = dict(tasks=20_000, nodes=2_000, queues=8, tasks_per_job=100,
                     running_fraction=0.5, fit_fraction=1.2)
+# The opt-in reclaim engines' worlds (the reference bench's
+# full_actions_q512@50000x5000 and full_actions_rounds_q4@20000x2000) under
+# OPT_ACTIONS; seed 42 as the JAX package decides it, from
+# tests/test_torch_reclaim_fullwidth.py (the port's CPU run equals it in
+# every integer CycleDecisions field and every stage counter).
+OPT_ACTIONS = ("reclaim_optimistic", "allocate", "backfill", "preempt")
+Q512_EVICT = dict(tasks=50_000, nodes=5_000, queues=512, tasks_per_job=100,
+                  running_fraction=0.5, fit_fraction=1.2)
+ROUNDS_Q4 = dict(tasks=20_000, nodes=2_000, queues=4, tasks_per_job=100,
+                 running_fraction=0.7, fit_fraction=1.2)
+Q512_WORLD_42 = dict(binds=24_695, evicts_by_phase=[0, 0, 0, 408], digest="608633b7eb81a733",
+                     reclaim_counters=[2, 1, 31_626])
+ROUNDS_Q4_WORLD_42 = dict(binds=5_427, evicts_by_phase=[0, 778, 0, 105],
+                          digest="9db04e52b1d1becb", reclaim_counters=[19, 1, 84])
+# card vs CPU for the q512 shape at a size the CPU decides quickly
+Q512_CPU_CHECK = dict(tasks=20_000, nodes=2_000, queues=512, tasks_per_job=100,
+                      running_fraction=0.5, fit_fraction=1.2)
+# phase 2's world of the reference's sequential-vs-batched soak shape at
+# q = 64 (few tasks per job, more jobs than queues, oversubscribed)
+SOAK_Q64 = dict(tasks=4_000, nodes=400, queues=64, tasks_per_job=20, seed=1,
+                running_fraction=0.5, fit_fraction=1.25)
+RECLAIM_ENGINES = (None, True, "optimistic")
 # phase 2's slice-3 parity worlds: (name, world, canon pack stripped)
 PARITY_SLICE3 = (
     ("pod-affinity evictive 5k x 500", dict(tasks=5_000, nodes=500, queues=8, tasks_per_job=100,
@@ -844,6 +887,258 @@ def k12_case(dev, fx, fits, seeds, caps):
                 library_ms=lib_ms, shape=f"{rows} rows x N={N}, {folds} fold(s), D={st.num_domains}")
 
 
+# ---- K13-K16: the opt-in reclaim engines' first window of q512_evict,
+# and the three compactions at their callers' shapes
+
+
+def window_fixture(dev):
+    """The q512_evict seed-42 world on the card and on the CPU: the
+    reclaim entry state after open_session and the optimistic engine's
+    first speculation window (its pops, products and picks)."""
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops import cycle, preempt
+    from kube_arbitrator_tpu_torch.ops.kernels.round_products import new_products
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+
+    w = Q512_EVICT
+    arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"], w["tasks_per_job"], 42,
+                                       running_fraction=w["running_fraction"],
+                                       fit_fraction=w["fit_fraction"])
+    st = from_numpy(arrays, dev)
+    sess, state = cycle.open_session(st, tiers)
+    state.progress = torch.zeros((), dtype=torch.bool, device=dev)
+    ctx = preempt._canon_ctx(st, sess)
+    carry = preempt._canon_seed(st, state, ctx)
+    use_gang, use_prop, preds_on = preempt._reclaim_flags(tiers)
+    RP = preempt._reclaim_panel(st)
+    nq, perm = preempt._canon_round_order(st, sess, tiers, state, carry)
+    trip = int(nq.clamp(min=1))
+    q_panel = perm[torch.arange(RP, device=dev).clamp(max=st.num_queues - 1)]
+    in_window = torch.arange(RP, device=dev) < trip
+    shared = preempt._reclaim_shared(st, sess, state, tiers, carry.job_consumed)
+    pops = preempt.reclaim_select_turns(st, sess, state, tiers, shared, q_panel, carry.q_entries)
+    Vp, R = ctx.cres.shape
+    prods = preempt._round_products(st, sess, state, ctx, carry, use_gang, use_prop,
+                                    new_products(Vp, st.num_nodes, R, dev))
+    return types.SimpleNamespace(
+        st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess, state=state, ctx=ctx, carry=carry,
+        flags=(use_gang, use_prop, preds_on), RP=RP, trip=trip, q_panel=q_panel.to(torch.int32),
+        in_window=in_window, pops=pops, prods=prods)
+
+
+def k13_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import round_products as k13
+
+    use_gang, use_prop, _ = fx.flags
+    st, ctx, c, s = fx.st, fx.ctx, fx.carry, fx.state
+    Vp, R = ctx.cres.shape
+    N = st.num_nodes
+
+    def args(st_, ctx_, c_, s_, sess_, out, dirty=None):
+        return (st_, ctx_, c_.cand, c_.rank_nj, c_.cum_nq, s_.job_ready_cnt, sess_.min_avail,
+                s_.queue_alloc, use_gang, use_prop, out, dirty)
+
+    got = k13.round_products(*args(st, ctx, c, s, fx.sess, k13.new_products(Vp, N, R, dev)))
+    want = k13.round_products_plain(*args(fx.st_cpu, to_cpu(ctx), to_cpu(c), to_cpu(s),
+                                          to_cpu(fx.sess), k13.new_products(Vp, N, R, "cpu")))
+    err = 0.0
+    for name, a, b in zip(("elig", "pn", "segcum"), got, want):
+        err = max(err, max_err(a, b))
+        expect(torch.equal(a.cpu(), b), f"K13 {name} differs from its plain version")
+    expect(int(got[0].sum()) > 0, "K13 inputs: no eligible victim")
+    # a clear dirty flag leaves the products as they are
+    kept = tuple(x.clone() for x in got)
+    k13.round_products(*args(st, ctx, c, s, fx.sess, got, torch.zeros(1, dtype=torch.bool,
+                                                                        device=dev)))
+    c.cand.logical_not_()
+    k13.round_products(*args(st, ctx, c, s, fx.sess, got, torch.zeros(1, dtype=torch.bool,
+                                                                        device=dev)))
+    c.cand.logical_not_()
+    expect(all(torch.equal(a, b) for a, b in zip(kept, got)), "K13 wrote under a clear dirty flag")
+    out = k13.new_products(Vp, N, R, dev)
+    ms = cuda_ms(lambda: k13.round_products(*args(st, ctx, c, s, fx.sess, out)))
+    plain_ms = cuda_ms(lambda: k13.round_products_plain(*args(st, ctx, c, s, fx.sess, out)), reps=3)
+    # the library call for the per-node sums: one index_add_ (not in slot order)
+    elig = got[0]
+    stat = torch.cat([elig.float()[:, None], torch.where(elig[:, None], ctx.cres, 0.0)], 1)
+    idx = ctx.cnode.clamp(max=N - 1).long()
+    acc = torch.zeros((N, R + 1), device=dev)
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, idx, stat))
+    F = c.cum_nq.shape[1]
+    nbytes = Vp * (1 + 4 + 4 * F + 4 + 4 + 4 * F + 4 * R + 1) + (N + 1) * 4 + st.num_jobs * 8 \
+        + st.num_queues * 4 * R + Vp * (1 + 4 * (R + 1)) + N * 4 * (R + 1)
+    b, by = bound_ms(nbytes, Vp * (2 * (R + 1) + 2 * F + 3))
+    return dict(name="round_products", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms,
+                shape=f"Vp={Vp}, N={N}, R={R} (q512_evict first window)")
+
+
+def k14_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import union_fit as k14
+
+    _, _, preds_on = fx.flags
+    st, ctx, s = fx.st, fx.ctx, fx.state
+    jp, gp, hgp, reqp, popp, burnp = fx.pops
+    _, pn, segcum = fx.prods
+    rows = (fx.q_panel, gp, hgp, popp & fx.in_window)
+
+    def args(st_, ctx_, s_, pn_, seg_, q, g, hg, pp, req):
+        return (st_, ctx_.skey, seg_, pn_, q, g, hg, pp, req, s_.node_ports, s_.node_num_tasks,
+                preds_on)
+
+    q, g, hg, pp = rows
+    got = k14.union_fit(*args(st, ctx, s, pn, segcum, q, g, hg, pp, reqp))
+    want = k14.union_fit_plain(*args(fx.st_cpu, to_cpu(ctx), to_cpu(s), pn.cpu(), segcum.cpu(),
+                                     q.cpu(), g.cpu(), hg.cpu(), pp.cpu(), reqp.cpu()))
+    expect(torch.equal(got.cpu(), want), "K14 differs from its plain version")
+    N = st.num_nodes
+    n_claim = int((got < N).sum())
+    expect(n_claim > 1 and int((got == N).sum()) > 0, f"K14 inputs: {n_claim} rows claim")
+    ms = cuda_ms(lambda: k14.union_fit(*args(st, ctx, s, pn, segcum, q, g, hg, pp, reqp)))
+    plain_ms = cuda_ms(lambda: k14.union_fit_plain(*args(st, ctx, s, pn, segcum, q, g, hg, pp,
+                                                         reqp)), reps=3)
+    RP = q.shape[0]
+    Vp, R = ctx.cres.shape
+    W = s.node_ports.shape[1]
+    nbytes = Vp * 4 + Vp * 4 * (R + 1) + N * 4 * (R + 1) + N * (4 + 4 * W + 4 + 4 + 3) \
+        + RP * (4 + 4 + 2 + 4 * R) + RP * 4
+    nops = RP * N * (int(np.ceil(np.log2(Vp))) + 2 * (R + 1) + 8)
+    b, by = bound_ms(nbytes, nops)
+    return dict(name="union_fit", max_abs_err=float((got.cpu() - want).abs().max()), ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+                shape=f"RP={RP} rows x N={N}, Vp={Vp}, {n_claim} rows claim (q512_evict first "
+                      f"window); library: none, no PyTorch call searches and screens per cell")
+
+
+def k15_case(dev, fx):
+    from kube_arbitrator_tpu_torch.ops.kernels import union_fit as k14
+    from kube_arbitrator_tpu_torch.ops.kernels import window_gate as k15
+
+    _, _, preds_on = fx.flags
+    st, ctx, s, c = fx.st, fx.ctx, fx.state, fx.carry
+    jp, gp, hgp, reqp, popp, burnp = fx.pops
+    _, pn, segcum = fx.prods
+    N, R = st.num_nodes, ctx.cres.shape[1]
+    pick = k14.union_fit(st, ctx.skey, segcum, pn, fx.q_panel, gp, hgp, popp & fx.in_window, reqp,
+                         s.node_ports, s.node_num_tasks, preds_on)
+    base = dict(q_entries=c.q_entries, job_consumed=c.job_consumed, progress=s.progress)
+    rows = (pick, N, fx.q_panel, jp, gp, hgp, reqp, popp, burnp)
+
+    def run(fn, dev_, t):
+        ctl, sel = k15.new_gate(R, dev_)
+        ctl[k15.TRIP] = fx.trip
+        fn(*[r.to(dev_) if isinstance(r, torch.Tensor) else r for r in rows], ctl,
+           t["q_entries"], t["job_consumed"], t["progress"], sel)
+        return ctl, sel
+
+    g_t = {k: v.clone() for k, v in base.items()}
+    c_t = {k: v.cpu() for k, v in base.items()}
+    g_ctl, g_sel = run(k15.window_gate, dev, g_t)
+    c_ctl, c_sel = run(k15.window_gate_plain, "cpu", c_t)
+    for name, a, b in [("ctl", g_ctl, c_ctl)] + list(zip(("sel_i", "sel_b", "sel_req"), g_sel, c_sel)) \
+            + [(k, g_t[k], c_t[k]) for k in base]:
+        expect(torch.equal(a.cpu(), b), f"K15 {name} differs from its plain version")
+    conflicts = int(g_ctl[k15.CONFLICTS])
+    expect(bool(g_sel[1][3]) and conflicts > 0, f"K15 inputs: no claim or no conflict ({conflicts})")
+    work = {k: v.clone() for k, v in base.items()}
+    ctl, sel = k15.new_gate(R, dev)
+
+    def setup():
+        for k, v in base.items():
+            work[k].copy_(v)
+        ctl.zero_()
+        ctl[k15.TRIP] = fx.trip
+
+    def gate(fn):
+        return lambda: fn(*rows, ctl, work["q_entries"], work["job_consumed"], work["progress"], sel)
+
+    ms = cuda_ms(gate(k15.window_gate), setup=setup)
+    plain_ms = cuda_ms(gate(k15.window_gate_plain), reps=5, setup=setup)
+    RP = pick.shape[0]
+    first = int((pick.cpu() < N).nonzero()[0, 0])
+    nbytes = RP * (4 * 4 + 3 + 4 * R) + first * (4 + 1) + 64
+    b, by = bound_ms(nbytes, RP * 8)
+    return dict(name="window_gate", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None,
+                shape=f"RP={RP}, first claim at row {first}, {conflicts} conflicts (q512_evict "
+                      f"first window); library: none, the gate is a chain of dependent scalar "
+                      f"decisions")
+
+
+def b3_case(dev, fx):
+    """B3, still torch: one round's queue order at Q = 512 (the queue
+    keys, then ``lexsort``: a stable sort per key), against the CPU."""
+    from kube_arbitrator_tpu_torch.ops import allocate
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+
+    st, s, sess = fx.st, fx.state, fx.sess
+    q_active = st.queue_valid & (fx.carry.q_entries > 0)
+    args = (q_active, s.queue_alloc, sess.deserved, st.queue_uid_rank)
+    _, perm = allocate.queue_perm(tiers, *args)
+    _, perm_cpu = allocate.queue_perm(tiers, *[a.cpu() for a in args])
+    expect(torch.equal(perm.cpu(), perm_cpu), "B3: the card's queue order differs from the CPU's")
+    ms = cuda_ms(lambda: allocate.queue_perm(tiers, *args))
+    key = torch.where(q_active, 0.0, 1.0)
+    lib_ms = cuda_ms(lambda: torch.sort(key, stable=True))
+    Q, K = st.num_queues, 3
+    b, by = bound_ms(K * Q * 4 + Q * 8, K * Q * int(np.ceil(np.log2(Q))))
+    return dict(name="queue_perm (B3, torch)", ms=ms, plain_ms=ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms, shape=f"[Q]={Q}, {K} keys; library: torch.sort(stable=True) "
+                                         f"of one key")
+
+
+def k16_case(dev, efx, tfx):
+    """B7 at T = 102,400 (the case timed), B4 on the allocate world's
+    feasibility cells at [K, 10,240], B11 on the evictive world's running
+    tasks at P = T = 51,200."""
+    from kube_arbitrator_tpu_torch.api.types import TaskStatus
+    from kube_arbitrator_tpu_torch.ops import allocate
+    from kube_arbitrator_tpu_torch.ops.cycle import decode_caps
+    from kube_arbitrator_tpu_torch.ops.kernels import stable_compact as k16
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+
+    rng = np.random.default_rng(16)
+    T = 102_400
+    cap = decode_caps(T)[0]
+    mask = torch.from_numpy(rng.random(T) < 0.6).to(dev)  # more set than cap
+    cells = allocate._prune_cells(tfx.st, tfx.state0, tiers, False)
+    N = tfx.st.num_nodes
+    st_e = efx.st
+    running0 = (efx.state.task_status == int(TaskStatus.RUNNING)) & st_e.task_valid \
+        & (efx.state.task_node >= 0)
+    Te = st_e.num_tasks
+    cases = (("B7", mask[None, :], cap, -1), ("B4", cells, N // 4, N),
+             ("B11", running0[None, :], Te, Te))
+    err, times = 0.0, {}
+    for name, m, cp, pad in cases:
+        gi, gc = k16.stable_compact(m, cp, pad)
+        m_cpu = m.mask().cpu() if isinstance(m, k16.FeasCells) else m.cpu()
+        pi, pc = k16.stable_compact_plain(m_cpu, cp, pad)
+        err = max(err, max_err(gi, pi), max_err(gc, pc))
+        expect(torch.equal(gi.cpu(), pi) and torch.equal(gc.cpu(), pc),
+               f"K16 {name} differs from its plain version")
+        times[name] = cuda_ms(lambda: k16.stable_compact(m, cp, pad))
+    expect(int(mask.sum()) > cap, "K16 B7 inputs: the count does not pass cap")
+
+    def nonzero_pad():
+        idx = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+        nz = torch.nonzero(mask).reshape(-1)[:cap]
+        idx[:nz.numel()] = nz
+        return idx, mask.sum()
+
+    ms = times["B7"]
+    plain_ms = cuda_ms(lambda: k16.stable_compact_plain(mask[None, :], cap, -1), reps=5)
+    lib_ms = cuda_ms(nonzero_pad)
+    b, by = bound_ms(T + cap * 4 + 4, T * 2)
+    print(f"kernel stable_compact: B4 [{cells.shape[0]},{N}] cap {N // 4} {times['B4']:.4f} ms, "
+          f"B11 T={Te} {times['B11']:.4f} ms", flush=True)
+    return dict(name="stable_compact", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms, b4_ms=times["B4"], b11_ms=times["B11"],
+                shape=f"B7 mask bool[{T}] -> i32[{cap}] (count past cap); library: "
+                      f"torch.nonzero + pad (a host sync)")
+
+
 def pa_invariants(st, dec, seed) -> dict:
     """The pod-affinity world's own guarantees: every self-anti-affinity
     job holds at most one placed pod per node (hostname domain), every
@@ -955,6 +1250,106 @@ def evict_invariants(st, dec) -> None:
            "a node over its pod limit")
 
 
+@contextlib.contextmanager
+def count_queue_orders():
+    """Count the rounds' queue orders (B3's lexsorts) while the block
+    runs: ``queue_perm`` as ops/allocate and ops/preempt call it."""
+    from kube_arbitrator_tpu_torch.ops import allocate, preempt
+
+    n = [0]
+    orig = allocate.queue_perm
+
+    def counted(*a, **k):
+        n[0] += 1
+        return orig(*a, **k)
+
+    allocate.queue_perm = preempt.queue_perm = counted
+    try:
+        yield n
+    finally:
+        allocate.queue_perm = preempt.queue_perm = orig
+
+
+def reclaim_once(device, w, turn_batch, count_syncs=False):
+    """(state, ms, syncs): one reclaim_action of world ``w`` from its
+    open_session state on ``device``; syncs counted under the CUDA sync
+    debug mode when asked (None otherwise)."""
+    import warnings
+
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops import cycle, preempt
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+
+    arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"], w["tasks_per_job"],
+                                       w["seed"], running_fraction=w["running_fraction"],
+                                       fit_fraction=w["fit_fraction"])
+    st = from_numpy(arrays, device)
+    sess, state = cycle.open_session(st, tiers)
+    from kube_arbitrator_tpu_torch.ops.kernels.canon_commit import canon_commit
+
+    out = {}
+    for tb in RECLAIM_ENGINES if turn_batch == "all" else (turn_batch,):
+        syncs = None
+        if str(device) != "cpu":
+            torch.cuda.synchronize()
+        k8_before = canon_commit.launches
+        t0 = time.perf_counter()
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    r = preempt.reclaim_action(st, sess, state, tiers, turn_batch=tb)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs = sum(1 for x in caught if "synchroniz" in str(x.message))
+        else:
+            r = preempt.reclaim_action(st, sess, state, tiers, turn_batch=tb)
+        if str(device) != "cpu":
+            torch.cuda.synchronize()
+        out[tb] = (r, (time.perf_counter() - t0) * 1e3, syncs, canon_commit.launches - k8_before)
+    return out if turn_batch == "all" else out[turn_batch][0]
+
+
+def compare_states(a, b) -> list:
+    """The AllocState fields (tensors and counters) where ``a`` and
+    ``b`` differ."""
+    diff = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        same = torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor) else x == y
+        if not same:
+            diff.append(f.name)
+    return diff
+
+
+def engines_once(dev, w, count_syncs):
+    """The three reclaim engines (canon walk, round-batched, optimistic)
+    from one open_session state on the card: every AllocState tensor
+    field and the round count equal; per engine its stage time, rounds,
+    gated rounds, conflicts, windows, K8 launches (turns; windows for the
+    optimistic engine) and (when counted, in a second pass) host syncs."""
+    runs = reclaim_once(dev, w, "all")
+    base = runs[None][0]
+    names = {None: "canon", True: "batched", "optimistic": "optimistic"}
+    row = dict(ms={}, counters={}, windows=runs["optimistic"][0].windows, k8_launches={})
+    for tb, (r, ms, _, k8) in runs.items():
+        diff = [f for f in compare_states(base, r)
+                if f not in ("rounds_gated", "claim_conflicts", "windows")]
+        expect(not diff, f"{w}: reclaim engine {names[tb]} differs from the canon walk in {diff}")
+        row["ms"][names[tb]] = ms
+        row["counters"][names[tb]] = [r.rounds, r.rounds_gated, r.claim_conflicts]
+        # K8 commits every turn of the canon and batched engines, one
+        # claim per window of the optimistic one
+        row["k8_launches"][names[tb]] = k8
+    expect(row["counters"]["optimistic"][2] > 0, f"{w}: the optimistic engine had no conflict")
+    if count_syncs:
+        synced = reclaim_once(dev, w, "all", count_syncs=True)
+        row["syncs"] = {names[tb]: x[2] for tb, x in synced.items()}
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -991,10 +1386,18 @@ def main() -> int:
     fx = evict_fixture(dev)
     for case in (k1_case, k2_case, k3_case, k4_case, k5_case, k6_case, k7_case, k8_case):
         report(case(dev, fx) if case in (k5_case, k6_case, k7_case, k8_case) else case(dev))
-    del fx
-    fx = turn_fixture(dev)
-    report(k9_case(dev, fx))
-    report(k10_case(dev, fx))
+    tfx = turn_fixture(dev)
+    report(k9_case(dev, tfx))
+    report(k10_case(dev, tfx))
+    report(k16_case(dev, fx, tfx))
+    del fx, tfx
+    fx = window_fixture(dev)
+    for case in (k13_case, k14_case, k15_case):
+        report(case(dev, fx))
+    b3 = b3_case(dev, fx)
+    print(f"b3 {b3['name']}: card == CPU; {b3['ms']:.4f} ms (the plain torch path; bound "
+          f"{b3['bound_ms']:.6f} ms by {b3['bound_by']}, library {b3['library_ms']:.4f} ms) at "
+          f"{b3['shape']}", flush=True)
     del fx
     fx = pa_fixture(dev)
     r, fits, seeds, caps = k11_case(dev, fx)
@@ -1043,6 +1446,25 @@ def main() -> int:
         print(f"parity {name}: all {len(fields)} fields equal (card vs CPU), "
               f"{int(gpu['decisions'].bind_count)} binds, {int(gpu['decisions'].evict_count)} evicts, "
               f"rounds {gpu['rounds']} ({time.perf_counter() - t1:.1f} s)", flush=True)
+    # the opt-in reclaim engines: the soak shape at q = 64 under
+    # reclaim_optimistic, and reclaim_action(turn_batch=True) alone
+    w = SOAK_Q64
+    gpu = decide_world(device=dev, actions=OPT_ACTIONS, **w)
+    cpu = decide_world(device="cpu", actions=OPT_ACTIONS, **w)
+    eq = compare(gpu["decisions"], cpu["decisions"], fields)
+    expect(all(eq.values()), f"soak q64 reclaim_optimistic: card vs CPU differs: "
+           f"{[f for f, ok in eq.items() if not ok]}")
+    expect(gpu["rounds"] == cpu["rounds"], f"soak q64: counters {gpu['rounds']} vs {cpu['rounds']}")
+    expect(int(gpu["decisions"].evict_count) > 0, "soak q64: no evictions")
+    print(f"parity soak shape q64 {w['tasks']}x{w['nodes']} {OPT_ACTIONS}: all {len(fields)} "
+          f"fields equal (card vs CPU), {int(gpu['decisions'].evict_count)} evicts, counters "
+          f"{gpu['rounds']}", flush=True)
+    states = {d: reclaim_once(d, w, True) for d in (dev, "cpu")}
+    eq = compare_states(states[dev], states["cpu"])
+    expect(not eq, f"soak q64 turn_batch=True: card vs CPU differs: {eq}")
+    print(f"parity soak shape q64 reclaim_action(turn_batch=True): every AllocState field equal "
+          f"(card vs CPU), rounds {states[dev].rounds}, gated {states[dev].rounds_gated}",
+          flush=True)
     print(f"phase 2 (parity) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 3: the main path at full width
@@ -1174,6 +1596,66 @@ def main() -> int:
         expect(order_counts[k] > 0, f"kernel {k} was not launched on the binpack path")
     print(f"phase 5 (immediate path, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 6: the opt-in reclaim engines at full width — q512_evict
+    # (seeds 42, 43) and rounds_q4 (seed 42)
+    t0 = time.perf_counter()
+    opt_counts = None
+    engine_rows = []
+    for name, w, seeds, pins in (("q512_evict", Q512_EVICT, (42, 43), Q512_WORLD_42),
+                                 ("rounds_q4", ROUNDS_Q4, (42,), ROUNDS_Q4_WORLD_42)):
+        for seed in seeds:
+            row = engines_once(dev, dict(w, seed=seed), count_syncs=seed == 42)
+            engine_rows.append(dict(world=name, seed=seed, **row))
+            print(f"{name} seed {seed}: the three reclaim engines from one state: "
+                  f"{json.dumps(row)}", flush=True)
+            torch.cuda.synchronize()
+            if opt_counts is None:
+                kernels.reset_counts()
+                with count_queue_orders() as n_orders:
+                    g = decide_world(device=dev, actions=OPT_ACTIONS, seed=seed, **w)
+                opt_counts = kernels.counts()
+                print(f"{name} seed {seed}: B3 queue orders (torch lexsorts) in the cycle: "
+                      f"{n_orders[0]}", flush=True)
+            else:
+                g = decide_world(device=dev, actions=OPT_ACTIONS, seed=seed, **w)
+            dec = g["decisions"]
+            invariants(g["pack"], dec, g["binds"])
+            evict_invariants(g["pack"], dec)
+            bind, ev = dec.bind_mask.cpu().numpy(), dec.evict_mask.cpu().numpy()
+            phases = np.bincount(dec.evict_phase.cpu().numpy()[ev], minlength=4).tolist()
+            digest = decision_digest(bind, ev)
+            counters = [g["stats"][f"{k}.reclaim_optimistic"]
+                        for k in ("rounds", "rounds_gated", "claim_conflicts")]
+            stages = {k[3:]: round(v, 1) for k, v in g["stats"].items() if k.startswith("ms.")}
+            print(f"{name} full width {w['tasks']}x{w['nodes']} q{w['queues']} seed {seed} "
+                  f"{OPT_ACTIONS}: {int(bind.sum())} binds, evicts by phase {phases}, digest "
+                  f"{digest}, reclaim (rounds, gated, conflicts) {counters}, rounds {g['rounds']}, "
+                  f"card cycle {g['cycle_ms']:.1f} ms {stages}", flush=True)
+            expect(phases[3] > 0 and counters[2] > 0,
+                   f"{name} seed {seed}: reclaim evicted nothing or no conflict")
+            expect(counters == row["counters"]["optimistic"],
+                   f"{name} seed {seed}: the cycle's reclaim counters differ from the engine's")
+            if seed == 42:
+                got = dict(binds=int(bind.sum()), evicts_by_phase=phases, digest=digest,
+                           reclaim_counters=counters)
+                expect(got == pins, f"{name} seed 42 differs from the JAX package: {got} vs {pins}")
+        cw = Q512_CPU_CHECK if name == "q512_evict" else w
+        gs = decide_world(device=dev, actions=OPT_ACTIONS, seed=42, **cw)
+        c = decide_world(device="cpu", actions=OPT_ACTIONS, seed=42, **cw)
+        eq_int = compare(gs["decisions"], c["decisions"], INT_FIELDS)
+        expect(all(eq_int.values()), f"{name} at {cw['tasks']}x{cw['nodes']}: card vs CPU "
+               f"integer decisions differ: {[f for f, ok in eq_int.items() if not ok]}")
+        expect(gs["rounds"] == c["rounds"], f"{name}: counters {gs['rounds']} vs {c['rounds']}")
+        print(f"{name} card == CPU on the integer fields and counters at {cw['tasks']}x{cw['nodes']} "
+              f"q{cw['queues']} seed 42 (card {gs['cycle_ms']:.0f} ms, CPU {c['cycle_ms']:.0f} ms)",
+              flush=True)
+    print(f"launches on the optimistic reclaim path (q512_evict, seed 42): {opt_counts}", flush=True)
+    for k in ("round_products", "union_fit", "window_gate", "stable_compact", "canon_commit",
+              "lex_argmin", "segment_sum"):
+        expect(opt_counts[k] > 0, f"kernel {k} was not launched on the optimistic reclaim path")
+    print(f"phase 6 (opt-in reclaim engines, full width) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
                         "kube_arbitrator_tpu/ops/allocate.py:793"),
@@ -1199,6 +1681,14 @@ def main() -> int:
                    "kube_arbitrator_tpu/ops/podaffinity.py:73"),
         "pa_shape": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/pa_shape.cu",
                      "kube_arbitrator_tpu/ops/podaffinity.py:173"),
+        "round_products": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/round_products.cu",
+                           "kube_arbitrator_tpu/ops/preempt.py:2582"),
+        "union_fit": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/union_fit.cu",
+                      "kube_arbitrator_tpu/ops/preempt.py:2609"),
+        "window_gate": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/window_gate.cu",
+                        "kube_arbitrator_tpu/ops/preempt.py:2735"),
+        "stable_compact": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/stable_compact.cu",
+                           "kube_arbitrator_tpu/ops/cycle.py:181"),
     }
     kline = []
     for k, r in rows.items():
@@ -1208,6 +1698,8 @@ def main() -> int:
             n = order_counts[k]
         elif k in ("pa_fit", "pa_shape"):
             n = pa_counts[k]
+        elif k in ("round_products", "union_fit", "window_gate", "stable_compact"):
+            n = opt_counts[k]
         else:
             n = evict_counts[k]
         kline.append(dict(name=k, route="cuda", source=replaces[k][0], replaces=replaces[k][1],

@@ -5,12 +5,16 @@
     python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 \\
         --running-fraction 0.5 --actions reclaim,allocate,backfill,preempt \\
         [--pod-affinity] [--node-order {first_fit,binpack,spread}]
+    python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 --queues 512 \\
+        --running-fraction 0.5 --actions reclaim_optimistic,allocate,backfill,preempt
 
 Each cycle decides a fresh world (seed, seed+1, ...) with the default
 tiers (``--node-order`` sets their nodeorder plugin's policy) and the
 ``--actions`` list (default allocate, backfill), decodes its binds into
 (task uid, node name) pairs, and prints the bind and evict counts, the
-rounds per action and the wall time.  ``--pod-affinity`` labels the
+rounds per action (with the gated rounds of preempt and the reclaim
+actions, and the reclaim actions' claim conflicts) and the wall time.
+``reclaim_optimistic`` is reclaim through the optimistic engine.  ``--pod-affinity`` labels the
 world's nodes with hostname, rack and zone domains and gives its jobs
 the pod-(anti-)affinity mix of cache/synth.py.  Building the world and
 copying it to the device is set-up and is timed apart from the cycle.
@@ -74,7 +78,8 @@ def decide_world(
     t3 = time.perf_counter()
     return dict(
         pack=st, decisions=dec, binds=binds, pairs=pairs, stats=stats,
-        rounds={k: v for k, v in stats.items() if k.startswith(("rounds.", "rounds_gated."))},
+        rounds={k: v for k, v in stats.items()
+                if k.startswith(("rounds.", "rounds_gated.", "claim_conflicts."))},
         setup_ms=(t1 - t0) * 1e3, cycle_ms=(t2 - t1) * 1e3, decode_ms=(t3 - t2) * 1e3,
     )
 
@@ -90,7 +95,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--running-fraction", type=float, default=0.0,
                     help="fraction of jobs pre-placed RUNNING (the evictive actions' victims)")
     ap.add_argument("--actions", default=",".join(DEFAULT_ACTIONS),
-                    help="comma list of actions, e.g. reclaim,allocate,backfill,preempt")
+                    help="comma list of actions, e.g. reclaim,allocate,backfill,preempt "
+                         "(reclaim_optimistic: reclaim through the optimistic engine)")
     ap.add_argument("--node-order", default="first_fit", choices=NODE_ORDER_POLICIES,
                     help="the nodeorder plugin's policy")
     ap.add_argument("--pod-affinity", action="store_true",

@@ -10,8 +10,10 @@ in queue order.  Two paths, chosen as the reference chooses them
   are computed together (two K2 launches plus plain torch for the
   budgets), K1 runs the chunk's node admission slot by slot, and
   placements accumulate as per-(group, node) counts that K3 decodes into
-  task placements once per action.  Host reads: ``trip`` and
-  ``progress`` once per round each.
+  task placements once per action.  With pruning, K16 evaluates the
+  feasibility cells and compacts each class's nodes into the panel
+  once per action.  Host reads: ``trip`` and ``progress`` once per
+  round each, and the panel's widest class once per action.
 * immediate (binpack / spread node order, pod affinity, larger packs,
   or ``turn_batch=False``, the reference's parity path): one turn per
   active queue, each deciding its tasks at once — selection (two K2
@@ -28,7 +30,7 @@ fill) live beside them in ops/kernels/.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +39,7 @@ from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, lexsort, plugin_on
 from .fairness import drf_shares, overused, queue_shares
 from .kernels.admit_chunk import admit_chunk
 from .kernels.decode_deferred import decode_deferred
+from .kernels.stable_compact import FeasCells, stable_compact
 from .kernels.turn_caps import turn_caps
 from .kernels.turn_fill import turn_fill
 from .ordering import Tiers, group_order_keys, job_order_keys, node_order_policy, queue_order_keys
@@ -80,8 +83,10 @@ class AllocState:
     evict_round: torch.Tensor      # i32[T]
     progress: torch.Tensor         # bool scalar: placements this round
     rounds: int = 0
-    rounds_gated: int = 0          # preempt rounds served by the round gate
-    claim_conflicts: int = 0       # the optimistic reclaim engine's count
+    rounds_gated: int = 0          # rounds served by preempt's round gate or reclaim's
+    #                                batched / optimistic fast paths
+    claim_conflicts: int = 0       # the optimistic reclaim engine's discarded claims
+    windows: int = 0               # the optimistic reclaim engine's speculation windows
 
 
 def _host(*xs) -> list:
@@ -257,50 +262,34 @@ def _class_minreq(st):
     return out[:K]
 
 
-def _feasible_cells(class_fit, node_klass, node_valid, node_unsched, preds_on, minreq, basis):
-    """bool[K, n]: node x class feasibility (predicates; plus the
-    capacity screen against ``minreq`` when given)."""
-    K = class_fit.shape[0]
-    n = node_klass.shape[0]
-    if preds_on:
-        feas = class_fit[:, node_klass.to(torch.int64)] & node_valid[None, :] & ~node_unsched[None, :]
-    else:
-        feas = node_valid[None, :].expand(K, n)
-    if minreq is not None:
-        never = (
-            (minreq[:, None, :] > 0)
-            & (minreq[:, None, :] < BIG / 2)
-            & (basis[None, :, :] < minreq[:, None, :] - EPS)
-        ).any(dim=-1)
-        feas = feas & ~never
-    return feas
-
-
-def _prune_feasible(st, state, tiers, best_effort_pass):
-    """bool[K, N]: once-per-action feasibility; a False cell can never
-    grant a copy to any group of the class during this action."""
+def _prune_cells(st, state, tiers, best_effort_pass) -> FeasCells:
+    """The once-per-action feasibility cells [K, N]: a False cell can
+    never grant a copy to any group of the class during this action
+    (static predicates; capacity only shrinks during allocate, so a node
+    whose entry max(idle, releasing) lies below the class's smallest
+    request in a requested dimension never fits).  Backfill places
+    without a resource screen."""
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     if best_effort_pass:
         minreq = basis = None
     else:
         minreq = _class_minreq(st)
         basis = torch.maximum(state.node_idle, state.node_releasing)
-    return _feasible_cells(
-        st.class_fit, st.node_klass, st.node_valid, st.node_unsched, preds_on, minreq, basis,
-    )
+    return FeasCells(st.class_fit, st.node_klass, st.node_valid, st.node_unsched, preds_on,
+                     minreq, basis)
 
 
-def _compact_rows(feas: torch.Tensor, NC: int) -> torch.Tensor:
-    """i32[K, NC]: per-class stable compaction of the feasible nodes
-    (node order kept); slots past the class's count hold N."""
-    K, N = feas.shape
-    dest = torch.cumsum(feas.to(torch.int32), dim=1, dtype=torch.int32) - 1
-    slot = torch.where(feas & (dest < NC), dest, NC).to(torch.int64)
-    idx = torch.full((K, NC + 1), N, dtype=torch.int32, device=feas.device)
-    nodes = torch.arange(N, dtype=torch.int32, device=feas.device).expand(K, N)
-    # only column NC (dropped below) can receive more than one write
-    idx.scatter_(1, slot, nodes)
-    return idx[:, :NC].contiguous()
+def _prune_feasible(st, state, tiers, best_effort_pass):
+    """bool[K, N]: the cells of :func:`_prune_cells`, evaluated."""
+    return _prune_cells(st, state, tiers, best_effort_pass).mask()
+
+
+def _compact_rows(feas, NC: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(i32[K, NC], count i32[K]): per-class stable compaction of the
+    feasible nodes (node order kept; slots past the class's count hold
+    N) through K16, which evaluates :class:`FeasCells` in the same
+    launch."""
+    return stable_compact(feas, NC, feas.shape[1])
 
 
 def _selection_shared(st, sess, state, tiers, best_effort_pass):
@@ -544,12 +533,14 @@ def allocate_action(
 
     prune_idx = None
     if prune:
-        feas = _prune_feasible(st, state, tiers, best_effort_pass)
-        cmax = int(feas.to(torch.int32).sum(dim=1).max())
+        # one compaction at N // 4: when every class fits N // 8, its
+        # first N // 8 columns are the N // 8 compaction
+        panel, counts = _compact_rows(_prune_cells(st, state, tiers, best_effort_pass), N // 4)
+        cmax = int(counts.max())
         if cmax <= N // 8:
-            prune_idx = _compact_rows(feas, N // 8)
+            prune_idx = panel[:, :N // 8].contiguous()
         elif cmax <= N // 4:
-            prune_idx = _compact_rows(feas, N // 4)
+            prune_idx = panel
 
     G = st.num_groups
     gn_a = torch.zeros((G, N), dtype=torch.int32, device=dev)

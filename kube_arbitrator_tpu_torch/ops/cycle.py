@@ -8,8 +8,9 @@ intents only if the job ends the cycle gang-ready.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -18,19 +19,39 @@ from ..cache.snapshot import SnapshotTensors
 from .allocate import AllocState, SessionCtx, allocate_action, backfill_action
 from .common import fair, ordered_sum, safe_share, segment_sum
 from .fairness import drf_equilibrium_levels_per_job, drf_shares, proportion_deserved
+from .kernels.stable_compact import stable_compact
 from .ordering import DEFAULT_ACTIONS, DEFAULT_TIERS, Tiers
-from .preempt import preempt_action, reclaim_action
+from .preempt import (
+    preempt_action,
+    reclaim_action,
+    reclaim_batch_fallback_reason,
+    reclaim_engine_fallback_reason,
+    turn_batch_fallback_reason,
+)
+
+
+def _reclaim_optimistic_action(st, sess, state, tiers, s_max: int = 4096,
+                               max_rounds: int = 100_000) -> AllocState:
+    """Reclaim with the opt-in optimistic engine (the reference's
+    ops/cycle.py:50-76), selected from the conf as ``actions:
+    "reclaim_optimistic, allocate, ..."``.  Decides like ``reclaim``.  A
+    pack the engine is illegal for (no canon pack, pod affinity, a
+    (node, queue) key past int32) takes the default dispatch instead of
+    raising; :func:`schedule_cycle_staged` says so once per reason."""
+    legal = reclaim_engine_fallback_reason(st, tiers) is None
+    return reclaim_action(st, sess, state, tiers, s_max=s_max, max_rounds=max_rounds,
+                          turn_batch="optimistic" if legal else None)
+
 
 ACTION_KERNELS = {
     "allocate": allocate_action,
     "backfill": backfill_action,
     "preempt": preempt_action,
     "reclaim": reclaim_action,
+    "reclaim_optimistic": _reclaim_optimistic_action,
 }
-# actions of the reference the port does not have yet
-LATER_ACTIONS = {
-    "reclaim_optimistic": "port slice 5, speed work (ops/preempt._reclaim_canon_optimistic)",
-}
+# the evictive actions whose counters the cycle reports beside rounds
+RECLAIM_ACTIONS = ("reclaim", "reclaim_optimistic")
 # kube-batch's documented evictive conf (the reference's bench.py:77)
 FULL_ACTIONS = ("reclaim", "allocate", "backfill", "preempt")
 
@@ -90,17 +111,9 @@ def decode_caps(num_tasks: int) -> Tuple[int, int]:
 
 def _compact_indices(mask: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(idx i32[cap], count i32[]): the set ordinals of ``mask`` in
-    ascending order, -1 padded; ``count`` is the full population."""
-    T = mask.shape[0]
-    mi = mask.to(torch.int32)
-    pos = torch.cumsum(mi, 0, dtype=torch.int32) - 1
-    count = mi.sum(dtype=torch.int32)
-    write = mask & (pos < cap)
-    idx = torch.full((cap + 1,), -1, dtype=torch.int32, device=mask.device)
-    slot = torch.where(write, pos, cap).to(torch.int64)
-    # only slot ``cap`` (dropped below) can receive more than one write
-    idx.scatter_(0, slot, torch.arange(T, dtype=torch.int32, device=mask.device))
-    return idx[:cap].contiguous(), count
+    ascending order, -1 padded; ``count`` is the full population.  K16."""
+    idx, count = stable_compact(mask[None, :], cap, -1)
+    return idx[0], count[0]
 
 
 def open_session(st: SnapshotTensors, tiers: Tiers) -> Tuple[SessionCtx, AllocState]:
@@ -183,6 +196,41 @@ def open_session(st: SnapshotTensors, tiers: Tiers) -> Tuple[SessionCtx, AllocSt
     return sess, state
 
 
+def _run_cycle(st, tiers, actions, s_max, max_rounds, decode_caps,
+               on_stage: Optional[Callable[[str, float, float, Optional[AllocState]], None]]):
+    """open_session -> each action -> commit.  With ``on_stage``, the
+    device is synchronised at each stage boundary and ``on_stage(stage,
+    wall_ts, ms, state)`` is called after each stage (``state`` the
+    action's result, None for open_session and commit)."""
+    dev = st.device
+
+    def stage(name, fn, *args, state_of=None, **kw):
+        if on_stage is None:
+            return fn(*args, **kw)
+        ts = time.time()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        on_stage(name, ts, (time.perf_counter() - t0) * 1e3, state_of(out) if state_of else None)
+        return out
+
+    sess, state = stage("open_session", open_session, st, tiers)
+    for action in actions:
+        if action not in ACTION_KERNELS:
+            raise ValueError(f"unknown action: {action}")
+        state = stage(action, _run_stage, st, sess, state, action, tiers, s_max, max_rounds,
+                      state_of=lambda s: s)
+    bind_cap, evict_cap = decode_caps if decode_caps is not None else (None, None)
+    return stage("commit", commit_cycle, st, sess, state, bind_cap=bind_cap, evict_cap=evict_cap)
+
+
+def _run_stage(st, sess, state, action: str, tiers: Tiers, s_max: int,
+               max_rounds: int) -> AllocState:
+    """One action of the cycle (the reference's staged ``_run_stage``)."""
+    return ACTION_KERNELS[action](st, sess, state, tiers, s_max=s_max, max_rounds=max_rounds)
+
+
 def schedule_cycle(
     st: SnapshotTensors,
     tiers: Tiers = DEFAULT_TIERS,
@@ -194,38 +242,76 @@ def schedule_cycle(
 ) -> CycleDecisions:
     """One full scheduling cycle on the pack's device.  ``stats``, when
     given, receives the rounds each action ran (``rounds.<action>``),
-    preempt's gated rounds (``rounds_gated.preempt``) and the wall time of
-    each stage (``ms.<stage>``; the device is synchronised at each stage
-    boundary to take them)."""
-    clock = [time.perf_counter()]
+    the gated rounds of preempt and the reclaim actions
+    (``rounds_gated.<action>``), the reclaim actions' claim conflicts
+    (``claim_conflicts.<action>``) and the wall time of each stage
+    (``ms.<stage>``; the device is synchronised at each stage boundary
+    to take them)."""
 
-    def mark(stage: str) -> None:
-        if stats is not None:
-            if st.device.type == "cuda":
-                torch.cuda.synchronize(st.device)
-            now = time.perf_counter()
-            stats[f"ms.{stage}"] = (now - clock[0]) * 1e3
-            clock[0] = now
+    def record(stage, ts, ms, state):
+        if state is not None:
+            stats[f"rounds.{stage}"] = state.rounds
+            if stage == "preempt" or stage in RECLAIM_ACTIONS:
+                stats[f"rounds_gated.{stage}"] = state.rounds_gated
+            if stage in RECLAIM_ACTIONS:
+                stats[f"claim_conflicts.{stage}"] = state.claim_conflicts
+        stats[f"ms.{stage}"] = ms
 
-    sess, state = open_session(st, tiers)
-    mark("open_session")
-    for action in actions:
-        if action in LATER_ACTIONS:
-            raise NotImplementedError(f"action {action!r} is {LATER_ACTIONS[action]}")
-        try:
-            kernel = ACTION_KERNELS[action]
-        except KeyError:
-            raise ValueError(f"unknown action: {action}") from None
-        state = kernel(st, sess, state, tiers, s_max=s_max, max_rounds=max_rounds)
-        if stats is not None:
-            stats[f"rounds.{action}"] = state.rounds
-            if action == "preempt":
-                stats["rounds_gated.preempt"] = state.rounds_gated
-        mark(action)
-    bind_cap, evict_cap = decode_caps if decode_caps is not None else (None, None)
-    dec = commit_cycle(st, sess, state, bind_cap=bind_cap, evict_cap=evict_cap)
-    mark("commit")
-    return dec
+    return _run_cycle(st, tiers, tuple(actions), s_max, max_rounds, decode_caps,
+                      None if stats is None else record)
+
+
+def schedule_cycle_staged(
+    st: SnapshotTensors,
+    tiers: Tiers = DEFAULT_TIERS,
+    actions: Tuple[str, ...] = DEFAULT_ACTIONS,
+    s_max: int = 4096,
+    max_rounds: int = 100_000,
+    decode_caps: Optional[Tuple[int, int]] = None,
+):
+    """The same cycle, stage by stage (the reference's
+    ops/cycle.py:464-574).  Returns ``(CycleDecisions, [(stage, wall_ts,
+    ms, rounds, rounds_gated, claim_conflicts), ...])`` for
+    ``open_session``, each action and ``commit``; the three counters are
+    the action's ``AllocState`` counters after the stage (None for the
+    other stages).  Before the cycle, an evictive action whose fast
+    engine this pack cannot take is named once per (action, reason) on
+    stderr."""
+    timings: List[tuple] = []
+
+    def record(stage, ts, ms, state):
+        counters = ((state.rounds, state.rounds_gated, state.claim_conflicts)
+                    if state is not None else (None, None, None))
+        timings.append((stage, ts, ms) + counters)
+
+    _record_fallback_reasons(st, tiers, actions)
+    dec = _run_cycle(st, tiers, tuple(actions), s_max, max_rounds, decode_caps, record)
+    return dec, timings
+
+
+# (action, reason) pairs already reported by this process
+_FALLBACKS_SEEN: set = set()
+
+
+def _record_fallback_reasons(st, tiers, actions) -> None:
+    """Print, once per (action, reason) and process, that an evictive
+    action's fast engine is disabled for this pack and what runs
+    instead (the reference's text; its metrics counter waits for the
+    port's metrics registry)."""
+    for action, reason_fn, fell_to in (
+        ("preempt", turn_batch_fallback_reason, "sequential turn loop"),
+        ("reclaim", reclaim_batch_fallback_reason, "sorted-space _reclaim_fast kernel"),
+        ("reclaim_optimistic", reclaim_engine_fallback_reason,
+         "default reclaim dispatch (sequential canon walk or sorted-space _reclaim_fast)"),
+    ):
+        if action not in actions:
+            continue
+        reason = reason_fn(st, tiers)
+        if reason is None or (action, reason) in _FALLBACKS_SEEN:
+            continue
+        _FALLBACKS_SEEN.add((action, reason))
+        print(f"# kat: {action} fast-path engine disabled for this pack shape "
+              f"(reason={reason}); running the {fell_to}", file=sys.stderr)
 
 
 def commit_cycle(

@@ -13,13 +13,18 @@ PyTorch version and with a launch counter:
 * K10 :func:`turn_fill.turn_fill`            — immediate turn: fill, writeback, decode
 * K11 :func:`pa_fit.pa_fit`                  — pod-affinity fit of a turn's group
 * K12 :func:`pa_shape.pa_shape`              — pod-affinity seed and domain cap
+* K13 :func:`round_products.round_products`  — opt-in reclaim: union eligibility, sums, scan
+* K14 :func:`union_fit.union_fit`            — opt-in reclaim: own-queue subtraction, first fit
+* K15 :func:`window_gate.window_gate`        — optimistic reclaim: the window's commit gate
+* K16 :func:`stable_compact.stable_compact`  — commit lists, allocate's panel, preempt's panel
 
 A wrapper takes the plain version only for CPU tensors; on CUDA tensors
 it launches its kernel (built on first use, see build.py) or raises.
 """
 from . import (
     admit_chunk, canon_commit, canon_pick, claim_nodes, decode_deferred, lex_argmin, pa_fit,
-    pa_shape, seg_scan, segment_sum, turn_caps, turn_fill,
+    pa_shape, round_products, seg_scan, segment_sum, stable_compact, turn_caps, turn_fill,
+    union_fit, window_gate,
 )
 
 # kernel name -> wrapper (each wrapper carries its ``launches`` count)
@@ -36,6 +41,10 @@ KERNELS = {
     "turn_fill": turn_fill.turn_fill,
     "pa_fit": pa_fit.pa_fit,
     "pa_shape": pa_shape.pa_shape,
+    "round_products": round_products.round_products,
+    "union_fit": union_fit.union_fit,
+    "window_gate": window_gate.window_gate,
+    "stable_compact": stable_compact.stable_compact,
 }
 
 

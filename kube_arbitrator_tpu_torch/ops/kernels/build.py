@@ -29,6 +29,7 @@ SOURCES = (
     "admit_chunk", "lex_argmin", "decode_deferred", "segment_sum",
     "seg_scan", "claim_nodes", "canon_pick", "canon_commit",
     "turn_caps", "turn_fill", "pa_fit", "pa_shape",
+    "round_products", "union_fit", "window_gate", "stable_compact",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -32,7 +32,7 @@ EVICT_PHASE_RECLAIM = 3  # ops/allocate.EVICT_PHASE_RECLAIM
 SIGNATURES = {
     "kat_canon_commit": (
         P, P, P, P, P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-        P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P,
+        P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P, P,
     ),
 }
 
@@ -52,8 +52,10 @@ def _scatter_set(dst: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, value
 
 
 def canon_commit_plain(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, req,
-                       use_gang, use_prop):
+                       use_gang, use_prop, active=None, claimed_out=None):
     """The plain version, op for op in the kernel's order."""
+    if active is not None and not bool(active.reshape(())):
+        return
     N, W, J = st.num_nodes, st.rv_window, st.num_jobs
     dev = req.device
     i64 = torch.int64
@@ -61,6 +63,8 @@ def canon_commit_plain(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_
     n_star = torch.where(has_node, pick, 0).to(i64)
     claimed = pop & has_grp & has_node
     fail = pop & ~claimed
+    if claimed_out is not None:
+        claimed_out.copy_(claimed.reshape(claimed_out.shape))
     bstart = st.rv_block_start.to(i64)
     start = bstart[n_star]
     blen = bstart[n_star + 1] - start
@@ -125,12 +129,14 @@ def canon_commit_plain(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_
 
 
 def canon_commit(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, req,
-                 use_gang: bool, use_prop: bool) -> None:
-    """Commit one turn in place.  ``pick`` i32[1] from K7; ``q``/``j``/``g``
-    i32[1]; ``has_grp``/``pop``/``burn_now`` bool[1]; ``req`` f32[R].  CPU
+                 use_gang: bool, use_prop: bool, active=None, claimed_out=None) -> None:
+    """Commit one turn in place.  ``pick`` i32[1] from K7 or K14;
+    ``q``/``j``/``g`` i32[1]; ``has_grp``/``pop``/``burn_now`` bool[1];
+    ``req`` f32[R].  Optional bool[1] device flags: ``active`` (clear: do
+    nothing) and ``claimed_out`` (receives the turn's claimed bit).  CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     args = (st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, req,
-            use_gang, use_prop)
+            use_gang, use_prop, active, claimed_out)
     if req.device.type == "cpu":
         canon_commit_plain(*args)
         return
@@ -156,7 +162,7 @@ def canon_commit(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, r
         (state.node_num_tasks, torch.int32), (state.evict_claimant, torch.int32),
         (state.evict_phase, torch.int32), (state.evict_round, torch.int32),
         (state.progress, torch.bool),
-    ]
+    ] + [(t, torch.bool) for t in (active, claimed_out) if t is not None]
     for i, (t, dt) in enumerate(checks):
         build.require(t, dt, f"canon_commit.arg{i}", dev)
     W = st.rv_window
@@ -179,7 +185,7 @@ def canon_commit(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, r
         build.ptr(state.node_num_tasks), build.ptr(state.evict_claimant),
         build.ptr(state.evict_phase), build.ptr(state.evict_round), build.ptr(state.progress),
         st.num_nodes, W, state.node_ports.shape[1], state.rounds, EVICT_PHASE_RECLAIM,
-        build.stream(),
+        build.ptr(active), build.ptr(claimed_out), build.stream(),
     ), "canon_commit")
     canon_commit.launches += 1
 

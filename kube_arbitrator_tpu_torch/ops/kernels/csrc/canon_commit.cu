@@ -8,8 +8,11 @@
 // (:2137-2147), the W-wide job and queue stat sums and the accounting
 // they feed (:2149-2167), the claim-log slot (:2169-2174), the node
 // releasing / ports / pod-count updates and the audit aux (:2176-2196).
-// n_star comes from K7's pick on the device, so a turn needs no host
-// sync.
+// n_star comes from K7's pick (or K14's, in the batched and optimistic
+// engines) on the device, so a turn needs no host sync.  Two optional
+// device flags: active (clear: the launch does nothing; the optimistic
+// window's has_claim) and claimed_out (receives the turn's claimed
+// bit; the batched engine's refresh flag for K13).
 //
 // One block.  The window mask is evaluated by all threads from the
 // turn-entry state (the same definition K7 used), then thread 0 runs the
@@ -47,7 +50,11 @@ __global__ void canon_commit_kernel(
     int* __restrict__ node_ports, int* __restrict__ node_num_tasks,
     int* __restrict__ evict_claimant, int* __restrict__ evict_phase,
     int* __restrict__ evict_round, uint8_t* __restrict__ progress, int N, int W, int PW,
-    int rounds, int phase_code) {
+    int rounds, int phase_code, const uint8_t* __restrict__ active,
+    uint8_t* __restrict__ claimed_out) {
+  // a turn the caller switched off (an optimistic window with no claim)
+  // touches nothing
+  if (active != nullptr && *active == 0) return;
   extern __shared__ uint8_t smem[];
   uint8_t* m_w = smem;      // window victim mask
   uint8_t* ev_w = smem + W; // evicted in this turn
@@ -102,6 +109,7 @@ __global__ void canon_commit_kernel(
   __syncthreads();
 
   if (threadIdx.x != 0) return;
+  if (claimed_out != nullptr) *claimed_out = t.claimed ? 1 : 0;
   // ---- restore the carried scans over the window (segments are
   // node-contained and the window starts at a block start)
   float cnt = 0.f;
@@ -190,7 +198,7 @@ extern "C" int kat_canon_commit(
     int* log_g, int* log_n, int* log_r, int* n_claims, float* node_releasing,
     int* node_ports, int* node_num_tasks, int* evict_claimant, int* evict_phase,
     int* evict_round, uint8_t* progress, int N, int W, int PW, int rounds,
-    int phase_code, void* stream) {
+    int phase_code, const uint8_t* active, uint8_t* claimed_out, void* stream) {
   if (R > 8 || W <= 0) return (int)cudaErrorInvalidValue;
   // cand, the carried scans, the ready counts and the queue allocations
   // are read through the eligibility view and updated in place
@@ -203,6 +211,6 @@ extern "C" int kat_canon_commit(
       const_cast<int*>(job_ready_cnt_in), job_alloc, const_cast<float*>(queue_alloc_in),
       q_entries, job_consumed, group_placed, log_g, log_n, log_r, n_claims,
       node_releasing, node_ports, node_num_tasks, evict_claimant, evict_phase,
-      evict_round, progress, N, W, PW, rounds, phase_code);
+      evict_round, progress, N, W, PW, rounds, phase_code, active, claimed_out);
   return (int)cudaGetLastError();
 }

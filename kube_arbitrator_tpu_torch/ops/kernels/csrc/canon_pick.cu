@@ -8,9 +8,10 @@
 // candidates in one contiguous block rv_block_start[n]..[n+1], so one
 // thread per node adds its block's [count | resreq] of eligible slots in
 // slot order (the reference's scatter order; no float atomics), then
-// tests the claim's feasibility on that node: predicate class, host
-// ports, pod headroom, at least one victim, and the weak validateVictims
-// screen (not every resource strictly below the request).  The first
+// tests the claim's feasibility on that node: the node screens of
+// csrc/canon.cuh (predicate class, host ports, pod headroom), at least
+// one victim, and the weak validateVictims screen (not every resource
+// strictly below the request).  The first
 // feasible node is an integer atomicMin, exact in any order; *pick stays
 // N (the wrapper's fill) when no node is feasible.
 //
@@ -24,28 +25,14 @@
 namespace {
 
 __global__ void canon_pick_kernel(
-    CanonElig e, const int* __restrict__ bstart, const float* __restrict__ cres,
+    CanonElig e, NodeScreen ns, const int* __restrict__ bstart, const float* __restrict__ cres,
     const int* __restrict__ q_p, const int* __restrict__ g_p,
     const uint8_t* __restrict__ has_grp_p, const uint8_t* __restrict__ pop_p,
-    const float* __restrict__ req, const uint8_t* __restrict__ class_fit, int CN,
-    const int* __restrict__ node_klass, const uint8_t* __restrict__ node_valid,
-    const uint8_t* __restrict__ node_unsched, const int* __restrict__ node_max_tasks,
-    const int* __restrict__ node_num_tasks, const int* __restrict__ node_ports,
-    const int* __restrict__ group_klass, const int* __restrict__ group_ports, int N,
-    int PW, int preds_on, int* __restrict__ pick) {
+    const float* __restrict__ req, int N, int* __restrict__ pick) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N || !(*pop_p && *has_grp_p)) return;
   const int q = *q_p, g = *g_p;
-  bool node_ok;
-  if (preds_on) {
-    node_ok = class_fit[(size_t)group_klass[g] * CN + node_klass[n]] != 0 && node_valid[n] != 0 &&
-              node_unsched[n] == 0 && node_max_tasks[n] - node_num_tasks[n] > 0;
-    for (int w = 0; w < PW; ++w) {
-      node_ok = node_ok && (group_ports[(size_t)g * PW + w] & node_ports[(size_t)n * PW + w]) == 0;
-    }
-  } else {
-    node_ok = node_valid[n] != 0;
-  }
+  const bool node_ok = kat_reclaim_node_ok(ns, g, n);
   if (!node_ok) return;
   float cnt = 0.f;
   float res[8];
@@ -76,11 +63,11 @@ extern "C" int kat_canon_pick(
   if (R > 8) return (int)cudaErrorInvalidValue;
   CanonElig e{cand, rank_nj, cum_nq, cj, cq, deserved_c, job_ready_cnt, min_avail,
               queue_alloc, R, F, use_gang != 0, use_prop != 0};
+  NodeScreen ns{class_fit, CN, node_klass, node_valid, node_unsched, node_max_tasks,
+                node_num_tasks, node_ports, group_klass, group_ports, PW, preds_on != 0};
   if (N > 0) {
     canon_pick_kernel<<<(N + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        e, bstart, cres, q, g, has_grp, pop, req, class_fit, CN, node_klass,
-        node_valid, node_unsched, node_max_tasks, node_num_tasks, node_ports,
-        group_klass, group_ports, N, PW, preds_on, pick);
+        e, ns, bstart, cres, q, g, has_grp, pop, req, N, pick);
   }
   return (int)cudaGetLastError();
 }

@@ -11,26 +11,33 @@ preempt.py).
   tasks of other queues, gated by the Reclaimable verdicts (gang,
   proportion), one task claim per job per cycle.
 
-Engines ported: preempt's batched round (``_rounds_batched``, the
-default, with its incremental round gate) and sequential turn loop
-(``_rounds``, which pod-affinity packs take: the claim reads the group's
-affinity fit); reclaim's sequential canon walk over the pack's canon
-victim layout (``_reclaim_canon``, the reference's default) and, for
-packs without the canon pack or with pod affinity, ``_reclaim_fast``
-over victim layouts sorted at action entry (its claimant decode deferred
-to a claim log, or immediate under pod affinity).  The opt-in batched
-and optimistic reclaim engines raise NotImplementedError.
+Engines: preempt's batched round (``_rounds_batched``, the default,
+with its incremental round gate) and sequential turn loop (``_rounds``,
+which pod-affinity packs take: the claim reads the group's affinity
+fit); reclaim's sequential canon walk over the pack's canon victim
+layout (``_reclaim_canon``, the reference's default), the opt-in
+round-batched (``_reclaim_canon_batched``, ``turn_batch=True``) and
+optimistic (``_reclaim_canon_optimistic``, ``turn_batch="optimistic"``
+and the ``reclaim_optimistic`` action) engines over the same layout,
+and, for packs without the canon pack or with pod affinity,
+``_reclaim_fast`` over victim layouts sorted at action entry (its
+claimant decode deferred to a claim log, or immediate under pod
+affinity).  Every reclaim engine decides alike.
 
 Kernels: K5 ``seg_scan`` runs every victim-layout scan (two per verdict
 pass under the default tiers, three when drf's tier decides; two in the
 canon seed; one in ``_reclaim_fast``'s entry), K6 ``claim_nodes`` the
 node half of a preempt claim (with K11 ``pa_fit`` / K12 ``pa_shape``
 under pod affinity), K7 ``canon_pick`` / K8 ``canon_commit`` a canon
-reclaim turn; K2 picks jobs and groups and K4 sums per node, job and
-queue in slot order.  Host reads: one per round (the progress flag and
-the active-queue count together), one per preempt action for the
-victim-panel tier and one for the gated-round count.  A turn reads
-nothing on the host.
+reclaim turn, K13 ``round_products`` / K14 ``union_fit`` / K15
+``window_gate`` the opt-in engines' products, picks and commit gate
+(K8 commits their claims too), K16 ``stable_compact`` preempt's victim
+panel; K2 picks jobs and groups and K4 sums per node, job and queue in
+slot order.  Host reads: one per round (the progress flag and the
+active-queue count together), one per preempt action for the
+victim-panel tier and one for the gated-round count; the optimistic
+engine reads once per speculation window instead of per round.  A turn
+reads nothing on the host.
 """
 from __future__ import annotations
 
@@ -65,8 +72,14 @@ from .fairness import drf_shares
 from .kernels.canon_commit import _scatter_set, canon_commit
 from .kernels.canon_pick import canon_pick
 from .kernels.claim_nodes import claim_nodes
+from .kernels.round_products import new_products, round_products
 from .kernels.seg_scan import seg_scan
 from .kernels.segment_sum import segment_order, segment_sum
+from .kernels.stable_compact import stable_compact
+from .kernels.union_fit import union_fit
+from .kernels.window_gate import (
+    CONFLICTS, GATED, ROUND_DONE, START, TRIP, new_gate, window_gate,
+)
 from .ordering import Tiers, group_order_keys, job_order_keys
 from .podaffinity import pa_shape, pod_affinity_fit
 
@@ -83,15 +96,6 @@ TURN_BATCH_MAX_CELLS = 1 << 22
 # Active-queue panel of the batched round's selection; a round with more
 # active queues runs its overflow turns through the sequential turn.
 TURN_PANEL = 32
-
-RECLAIM_BATCHED = (
-    "reclaim turn_batch=True (the reference's _reclaim_canon_batched) is "
-    "port slice 5 (speed work)"
-)
-RECLAIM_OPTIMISTIC = (
-    "reclaim turn_batch='optimistic' (the reference's "
-    "_reclaim_canon_optimistic) is port slice 5 (speed work)"
-)
 
 
 # ---------------------------------------------------------------- victim view
@@ -164,16 +168,10 @@ class VictimView:
 
 
 def _build_view(st: SnapshotTensors, state: AllocState, qualify: torch.Tensor, P: int) -> VictimView:
-    """Stable-compact ``qualify`` into a [P] panel (callers guarantee the
-    count fits)."""
+    """Stable-compact ``qualify`` into a [P] panel through K16, padded
+    with T (callers guarantee the count fits)."""
     T, J, Q, N = st.num_tasks, st.num_jobs, st.num_queues, st.num_nodes
-    dev = st.device
-    dest = torch.cumsum(qualify.to(torch.int32), 0, dtype=torch.int32) - 1
-    slot = torch.where(qualify & (dest < P), dest, P).to(torch.int64)
-    idx = torch.full((P + 1,), T, dtype=torch.int32, device=dev)
-    # only slot P (dropped below) can receive more than one write
-    idx.scatter_(0, slot, torch.arange(T, dtype=torch.int32, device=dev))
-    idx = idx[:P].contiguous()
+    idx = stable_compact(qualify[None, :], P, T)[0][0]
     valid = idx < T
     idxc = idx.clamp(max=T - 1).to(torch.int64)
     job = torch.where(valid, st.task_job[idxc], J).to(torch.int32)
@@ -613,6 +611,13 @@ def _reclaim_verdict_names(tiers: Tiers):
     return ()
 
 
+def _reclaim_flags(tiers: Tiers):
+    """(use_gang, use_prop, preds_on) of a reclaim action under ``tiers``."""
+    names = _reclaim_verdict_names(tiers)
+    return ("gang" in names, "proportion" in names,
+            plugin_on(tiers, "predicates", "predicate_disabled"))
+
+
 def _claim_key_fits(num_groups: int, num_tasks: int) -> bool:
     """Does the claim log's (group, rank) join key fit int32?"""
     return num_groups * (num_tasks + 1) < 2**31
@@ -646,6 +651,11 @@ class _CanonCtx:
     cnode: torch.Tensor       # i32[Vp] slot -> node (N padding)
     cnode_order: tuple        # segment_order(cnode, N)
     min_avail: torch.Tensor   # i32[J] the session's gang floors
+    # ascending (node, queue) segment key node * (Q + 1) + queue of the
+    # valid slots (a contiguous prefix), a sentinel above every real key
+    # on the padding; meaningful where the key fits int32 (the batched
+    # engines' legality condition)
+    skey: torch.Tensor        # i32[Vp]
 
 
 def _canon_ctx(st: SnapshotTensors, sess: SessionCtx) -> _CanonCtx:
@@ -661,8 +671,10 @@ def _canon_ctx(st: SnapshotTensors, sess: SessionCtx) -> _CanonCtx:
         st.rv_block_start, torch.arange(Vp, dtype=torch.int32, device=st.device),
         right=True, out_int32=True,
     ) - 1
+    skey = torch.where(cvalid, cnode.to(torch.int64) * (Q + 1) + cq, N * (Q + 1) + Q)
     return _CanonCtx(cj=cj, cq=cq, cres=cres, deserved_c=deserved_c, cnode=cnode,
-                     cnode_order=segment_order(cnode, N), min_avail=sess.min_avail)
+                     cnode_order=segment_order(cnode, N), min_avail=sess.min_avail,
+                     skey=skey.to(torch.int32).contiguous())
 
 
 @dataclasses.dataclass
@@ -718,19 +730,37 @@ def _reclaim_shared(st, sess, state, tiers, job_consumed):
     return grp_elig, job_has_pending, jkeys, gkeys
 
 
-def _reclaim_pop(st, sess, state, tiers, shared, q, q_entry):
-    """One queue's pop: the OverusedFn row, the job pop over its
-    unconsumed jobs, the group pop (reclaim.go:54-105).  ``q`` i64[1]."""
+def _pops(st, sess, state, shared, q, q_entry):
+    """Reclaim pops of the queues ``q`` i64[S] with entry budgets
+    ``q_entry`` i32[S]: the OverusedFn row, the job pop over each queue's
+    unconsumed jobs, the group pop (reclaim.go:54-105), both argmins
+    batched through K2.  Returns (j, g, has_grp, req f32[S, R], pop,
+    burn_now)."""
     grp_elig, job_has_pending, jkeys, gkeys = shared
     q_over = (fair(sess.deserved[q]) < fair(state.queue_alloc[q]) + EPS).all(dim=-1)
     active = st.queue_valid[q] & (q_entry > 0)
-    jmask = (st.job_queue == q) & job_has_pending & st.job_valid & active & ~q_over
-    j, has_job = lex_argmin(jkeys, jmask[None, :])
+    jmask = ((st.job_queue[None, :] == q[:, None]) & (job_has_pending & st.job_valid)[None, :]
+             & (active & ~q_over)[:, None])
+    j, has_job = lex_argmin(jkeys, jmask)
     pop = active & ~q_over & has_job
     burn_now = active & (q_over | ~has_job)
-    gmask = (st.group_job == j) & grp_elig & pop
-    g, has_grp = lex_argmin(gkeys, gmask[None, :])
-    return j, g, has_grp, st.group_resreq[g.to(torch.int64)][0], pop, burn_now
+    gmask = (st.group_job[None, :] == j[:, None]) & grp_elig[None, :] & pop[:, None]
+    g, has_grp = lex_argmin(gkeys, gmask)
+    return j, g, has_grp, st.group_resreq[g.to(torch.int64)], pop, burn_now
+
+
+def _reclaim_pop(st, sess, state, tiers, shared, q, q_entry):
+    """One queue's pop (``q`` i64[1]); ``req`` comes back as f32[R]."""
+    j, g, has_grp, req, pop, burn_now = _pops(st, sess, state, shared, q, q_entry)
+    return j, g, has_grp, req[0], pop, burn_now
+
+
+def reclaim_select_turns(st, sess, state, tiers, shared, q_ids, q_entries):
+    """Every panel row's pop at once (the reference's vmapped
+    ``_reclaim_pop``, :2000-2010): ``q_ids`` i64[S], ``q_entries`` i32[Q].
+    One definition with the single-queue pop; the two argmins are one K2
+    launch each over [S, J] and [S, G]."""
+    return _pops(st, sess, state, shared, q_ids, q_entries[q_ids])
 
 
 def _canon_round_order(st, sess, tiers, state, carry):
@@ -758,10 +788,7 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     """Cross-queue reclaim over the canon layout, pop for pop: per turn
     the queue's job / group pop (K2), the eligibility + per-node sums +
     first-fit node (K7) and the window commit (K8), no host read."""
-    verdict_names = _reclaim_verdict_names(tiers)
-    preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
-    use_gang = "gang" in verdict_names
-    use_prop = "proportion" in verdict_names
+    use_gang, use_prop, preds_on = _reclaim_flags(tiers)
     ctx = _canon_ctx(st, sess)
     state.progress = torch.ones((), dtype=torch.bool, device=st.device)
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
@@ -788,6 +815,167 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
             canon_commit(st, ctx, state, carry, pick, q32, j32, g32, has_grp, pop, burn_now,
                          req, use_gang, use_prop)
         state.rounds += 1
+    return _canon_writeback(st, state, carry)
+
+
+def _reclaim_panel(st: SnapshotTensors) -> int:
+    """RP: the pop panel of the opt-in engines — every queue while the
+    [panel, max(J, G)] selection cells stay under TURN_BATCH_MAX_CELLS,
+    at least TURN_PANEL."""
+    return min(st.num_queues,
+               max(TURN_PANEL, TURN_BATCH_MAX_CELLS // max(st.num_jobs, st.num_groups, 1)))
+
+
+def _round_products(st, sess, state, ctx, carry, use_gang, use_prop, out, dirty=None):
+    """The union eligibility, per-node sums and (node, queue) segmented
+    scan of the current state into ``out`` (K13; the reference's
+    ``_round_products``, shared by both opt-in engines).  With ``dirty``,
+    only where that device flag is set."""
+    return round_products(st, ctx, carry.cand, carry.rank_nj, carry.cum_nq, state.job_ready_cnt,
+                          sess.min_avail, state.queue_alloc, use_gang, use_prop, out, dirty)
+
+
+def _union_fit(st, state, ctx, prods, preds_on, q, g, has_grp, req, pop):
+    """First feasible node per row (K14): the union sums minus each row's
+    own-queue segment totals (the reference's ``_union_minus_own``), then
+    ``_fit_feasible``.  ``q``/``g`` i32[S], ``req`` f32[S, R]."""
+    _, pn, segcum = prods
+    return union_fit(st, ctx.skey, segcum, pn, q, g, has_grp, pop, req, state.node_ports,
+                     state.node_num_tasks, preds_on)
+
+
+def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
+    """The round-batched canon reclaim engine (the reference's
+    ``_reclaim_canon_batched``, preempt.py:2384-2579), pop for pop equal
+    to the canon walk.
+
+    Per round: every panel queue's pop from round-start state (one K2
+    launch pair over [RP, J] and [RP, G]) and the round products (K13).
+    Per turn, in the round's queue order: the products refresh when the
+    previous turn claimed (K13 reads K8's claimed bit on the device and
+    returns at once otherwise); the turn takes its round-start pop until
+    a claim lands in the round (or its queue is past the panel), a live
+    pop after that (both are computed, ``torch.where`` picks); K14 picks
+    the first feasible node from the union sums minus the queue's own
+    segment totals; K8 commits.  A round with no claim and no turn past
+    the panel ran on round-start products only and counts in
+    ``rounds_gated``.  One host read per round, one per action for the
+    gated count; none per turn.  The subtraction is exact while the sums
+    of integral device units stay below 2^24, as in the reference."""
+    use_gang, use_prop, preds_on = _reclaim_flags(tiers)
+    ctx = _canon_ctx(st, sess)
+    RP = _reclaim_panel(st)
+    dev = st.device
+    i32 = torch.int32
+    state.progress = torch.ones((), dtype=torch.bool, device=dev)
+    state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
+    carry = _canon_seed(st, state, ctx)
+    Vp, R = ctx.cres.shape
+    prods = new_products(Vp, st.num_nodes, R, dev)
+    dirty = torch.zeros(1, dtype=torch.bool, device=dev)        # the last turn claimed
+    claimed_any = torch.zeros(1, dtype=torch.bool, device=dev)  # a turn of this round claimed
+    gated_rounds = torch.zeros((), dtype=i32, device=dev)
+    while True:
+        nq, perm = _canon_round_order(st, sess, tiers, state, carry)
+        go, nq_h = _host(state.progress, nq)
+        if not (go and state.rounds < max_rounds):
+            break
+        state.progress = torch.zeros((), dtype=torch.bool, device=dev)
+        trip = max(nq_h, 1)
+        panel = reclaim_select_turns(
+            st, sess, state, tiers, _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
+            perm[:RP], carry.q_entries,
+        )
+        _round_products(st, sess, state, ctx, carry, use_gang, use_prop, prods)
+        dirty.zero_()
+        claimed_any.zero_()
+        for qi in range(trip):
+            _round_products(st, sess, state, ctx, carry, use_gang, use_prop, prods, dirty)
+            q = perm[qi:qi + 1]
+            live = _reclaim_pop(st, sess, state, tiers,
+                                _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
+                                q, carry.q_entries[q])
+            if qi < RP:
+                rows = [x[qi:qi + 1] for x in panel]
+                rows[3] = rows[3][0]
+                live = [torch.where(claimed_any, lv, pv) for lv, pv in zip(live, rows)]
+            j, g, has_grp, req, pop, burn_now = live
+            q32, j32, g32 = q.to(i32), j.to(i32), g.to(i32)
+            pick = _union_fit(st, state, ctx, prods, preds_on, q32, g32, has_grp,
+                              req[None, :].contiguous(), pop)
+            canon_commit(st, ctx, state, carry, pick, q32, j32, g32, has_grp, pop, burn_now, req,
+                         use_gang, use_prop, claimed_out=dirty)
+            claimed_any |= dirty
+        state.rounds += 1
+        if trip <= RP:
+            gated_rounds += (~claimed_any).to(i32)[0]
+    state.rounds_gated = int(gated_rounds)
+    return _canon_writeback(st, state, carry)
+
+
+def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
+    """The optimistic canon reclaim engine (the reference's
+    ``_reclaim_canon_optimistic``, preempt.py:2623-2821), pop for pop
+    equal to the canon walk.
+
+    A speculation window is RP consecutive turns of the round's queue
+    order from position START.  From window-start state: every row's
+    pop (K2 over [RP, J] and [RP, G]), the products (K13) and every
+    row's first feasible node (K14 over RP rows; a row outside the
+    window does not pop).  The gate (K15) commits the burn / fail prefix
+    before the first speculative claim, counts the later speculative
+    claims as conflicts (discarded: the next window re-derives them from
+    post-claim state), advances START and ends the round; K8 commits the
+    accepted claim (nothing when the window has none).  A window that
+    starts a round re-derives the queue order and resets progress; a
+    continuation window keeps both, and runs whatever ``max_rounds``
+    says (the round is finished first).  A round finished in its first
+    window with no claim counts in ``rounds_gated``.  One host read per
+    window (START, the round end, progress and the counters)."""
+    use_gang, use_prop, preds_on = _reclaim_flags(tiers)
+    ctx = _canon_ctx(st, sess)
+    RP = _reclaim_panel(st)
+    Q, N = st.num_queues, st.num_nodes
+    dev = st.device
+    i32 = torch.int32
+    state.progress = torch.ones((), dtype=torch.bool, device=dev)
+    state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
+    carry = _canon_seed(st, state, ctx)
+    Vp, R = ctx.cres.shape
+    prods = new_products(Vp, N, R, dev)
+    ctl, sel = new_gate(R, dev)
+    sel_i, sel_b, sel_req = sel
+    w_iota = torch.arange(RP, dtype=torch.int64, device=dev)
+    perm = torch.arange(Q, dtype=torch.int64, device=dev)
+    start, progress, rounds, windows = 0, True, 0, 0
+    vals = [0] * ctl.shape[0]
+    while start > 0 or (progress and rounds < max_rounds):
+        if start == 0:
+            state.progress = torch.zeros((), dtype=torch.bool, device=dev)
+            nq, perm = _canon_round_order(st, sess, tiers, state, carry)
+            ctl[TRIP:TRIP + 1].copy_(nq.clamp(min=1).reshape(1))
+        pos = w_iota + start
+        q_panel = perm[pos.clamp(max=Q - 1)]
+        in_window = pos < ctl[TRIP]
+        jp, gp, hgp, reqp, popp, burnp = reclaim_select_turns(
+            st, sess, state, tiers, _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
+            q_panel, carry.q_entries,
+        )
+        _round_products(st, sess, state, ctx, carry, use_gang, use_prop, prods)
+        qp32 = q_panel.to(i32)
+        pick = _union_fit(st, state, ctx, prods, preds_on, qp32, gp, hgp, reqp, popp & in_window)
+        window_gate(pick, N, qp32, jp, gp, hgp, reqp, popp, burnp, ctl, carry.q_entries,
+                    carry.job_consumed, state.progress, sel)
+        state.rounds = rounds
+        canon_commit(st, ctx, state, carry, sel_i[3:4], sel_i[0:1], sel_i[1:2], sel_i[2:3],
+                     sel_b[0:1], sel_b[1:2], sel_b[2:3], sel_req, use_gang, use_prop,
+                     active=sel_b[3:4])
+        vals = torch.cat([ctl, state.progress.reshape(1).to(i32)]).tolist()
+        start, progress = vals[START], bool(vals[-1])
+        rounds += vals[ROUND_DONE]
+        windows += 1
+    state.rounds, state.windows = rounds, windows
+    state.rounds_gated, state.claim_conflicts = vals[GATED], vals[CONFLICTS]
     return _canon_writeback(st, state, carry)
 
 
@@ -983,6 +1171,41 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
     return state
 
 
+def _canon_pack_ok(st: SnapshotTensors) -> bool:
+    """Does the pack carry the reclaim canon layout (and fit the claim
+    log's int32 key)?"""
+    return (
+        st.rv_block_start.shape[0] == st.num_nodes + 1
+        and st.rv_idx.shape[0] > 0
+        and st.rv_window > 0
+        and _claim_key_fits(st.num_groups, st.num_tasks)
+    )
+
+
+def reclaim_batch_fallback_reason(st: SnapshotTensors, tiers: Tiers):
+    """Why ``reclaim_action``'s default dispatch degrades from the canon
+    walk to ``_reclaim_fast`` (None: it does not)."""
+    if not _canon_pack_ok(st):
+        return "no_canon_pack"
+    if plugin_on(tiers, "predicates", "predicate_disabled") and pa_enabled(st):
+        return "pod_affinity"
+    return None
+
+
+def reclaim_engine_fallback_reason(st: SnapshotTensors, tiers: Tiers):
+    """Why the opt-in engines (round-batched, optimistic) are illegal for
+    this pack (None: legal): the canon conditions above, plus the (node,
+    queue) segment key of the own-queue subtraction fitting int32.  The
+    ``reclaim_optimistic`` action degrades to the default dispatch on a
+    reason instead of raising."""
+    reason = reclaim_batch_fallback_reason(st, tiers)
+    if reason is not None:
+        return reason
+    if (st.num_nodes + 1) * (st.num_queues + 1) >= 2**31:
+        return "segment_key_overflow"
+    return None
+
+
 def reclaim_action(
     st: SnapshotTensors,
     sess: SessionCtx,
@@ -992,24 +1215,28 @@ def reclaim_action(
     max_rounds: int = 100_000,
     turn_batch=None,
 ) -> AllocState:
-    """The reference's default dispatch (``turn_batch`` None or False): the
+    """The reference's dispatch.  ``turn_batch`` None or False: the
     sequential canon walk over the pack's canon layout, or
     ``_reclaim_fast`` where the pack has none (or its key would overflow
-    int32) or pod affinity is on.  The opt-in batched / optimistic
-    engines raise NotImplementedError naming the slice that ports them.
-    ``s_max`` is accepted for the action signature; reclaim claims one
-    task at a time.  Returns a new state."""
+    int32) or pod affinity is on.  True: the round-batched engine;
+    ``"optimistic"``: the optimistic engine — both raise ValueError where
+    :func:`reclaim_engine_fallback_reason` gives a reason.  All decide
+    alike.  ``s_max`` is accepted for the action signature; reclaim
+    claims one task at a time.  Returns a new state."""
     del s_max
+    if turn_batch and reclaim_engine_fallback_reason(st, tiers) is not None:
+        raise ValueError(
+            f"turn_batch={turn_batch!r} but the round-batched/optimistic "
+            "reclaim engines are not legal for this snapshot/tiers "
+            "(missing canon pack, pod affinity, or the (node, queue) "
+            "segment key overflows int32)"
+        )
+    state = _copy(state)
+    state.windows = 0
     if turn_batch == "optimistic":
-        raise NotImplementedError(RECLAIM_OPTIMISTIC)
+        return _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds)
     if turn_batch:
-        raise NotImplementedError(RECLAIM_BATCHED)
-    pack_ok = (
-        st.rv_block_start.shape[0] == st.num_nodes + 1
-        and st.rv_idx.shape[0] > 0
-        and st.rv_window > 0
-        and _claim_key_fits(st.num_groups, st.num_tasks)
-    )
-    if pack_ok and not (plugin_on(tiers, "predicates", "predicate_disabled") and pa_enabled(st)):
-        return _reclaim_canon(st, sess, _copy(state), tiers, max_rounds)
-    return _reclaim_fast(st, sess, _copy(state), tiers, max_rounds)
+        return _reclaim_canon_batched(st, sess, state, tiers, max_rounds)
+    if reclaim_batch_fallback_reason(st, tiers) is None:
+        return _reclaim_canon(st, sess, state, tiers, max_rounds)
+    return _reclaim_fast(st, sess, state, tiers, max_rounds)

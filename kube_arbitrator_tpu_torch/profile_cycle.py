@@ -4,6 +4,8 @@ under ``torch.profiler``.
     python -m kube_arbitrator_tpu_torch.profile_cycle [--tasks 100000]
         [--nodes 10000] [--seed 42] [--running-fraction 0.0]
         [--actions allocate,backfill] [--node-order first_fit] [--pod-affinity]
+        (e.g. --tasks 50000 --nodes 5000 --queues 512 --running-fraction 0.5
+         --actions reclaim_optimistic,allocate,backfill,preempt)
         [--out profile_out]
 
 A first cycle (seed - 1) warms up the kernel builds and the allocator;
@@ -13,7 +15,9 @@ time (the union of kernel intervals on the card over the wall clock) and
 the count of kernel launches, and writes ``profile_cycle.json`` and a gzipped
 Chrome trace to ``--out``.  A last, unprofiled pass runs the same world
 action by action under ``torch.cuda.set_sync_debug_mode("warn")`` and
-counts each action's host syncs beside its rounds.  Needs a GPU.
+counts each action's host syncs beside its rounds, gated rounds, claim
+conflicts and (``reclaim_optimistic``) speculation windows, per round
+and per window.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -38,8 +42,10 @@ from .ops.ordering import NODE_ORDER_POLICIES, with_node_order
 
 def sync_counts(tasks, nodes, queues, tasks_per_job, seed, running_fraction, actions,
                 node_order="first_fit", pod_affinity=False):
-    """{action: (host syncs, rounds)}: each action of one cycle run alone
-    with every synchronising CUDA call reported as a warning."""
+    """{action: {syncs, rounds, rounds_gated, claim_conflicts, windows,
+    syncs_per_round, syncs_per_window}}: each action of one cycle run
+    alone with every synchronising CUDA call reported as a warning
+    (windows: the optimistic reclaim engine's; 0 for the others)."""
     arrays, _ = build_synthetic_arrays(tasks, nodes, queues, tasks_per_job, seed,
                                        running_fraction=running_fraction,
                                        pod_affinity=pod_affinity)
@@ -57,7 +63,13 @@ def sync_counts(tasks, nodes, queues, tasks_per_job, seed, running_fraction, act
         finally:
             torch.cuda.set_sync_debug_mode(0)
         n = sum(1 for w in caught if "synchroniz" in str(w.message))
-        out[action] = (n, state.rounds)
+        windows = state.windows if action.startswith("reclaim") else 0
+        out[action] = dict(
+            syncs=n, rounds=state.rounds, rounds_gated=state.rounds_gated,
+            claim_conflicts=state.claim_conflicts, windows=windows,
+            syncs_per_round=n / max(state.rounds, 1),
+            syncs_per_window=n / windows if windows else None,
+        )
     return out
 
 
@@ -125,7 +137,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         stages_ms={k[3:]: v for k, v in r["stats"].items() if k.startswith("ms.")},
         rounds=r["rounds"], device_busy_ms=busy_ms, device_span_ms=span_ms,
         device_kernels=len(dev_events), port_kernel_launches=launches,
-        host_syncs_and_rounds=syncs, top=rows[:30],
+        host_syncs=syncs, top=rows[:30],
     )
     out = Path(a.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -36,6 +36,8 @@ FIELDS = (
 )
 REF_TIERS = ref_ord.DEFAULT_TIERS
 TIERS = port_ord.DEFAULT_TIERS
+# the opt-in reclaim engines, by the reference's name, and their switch
+RECLAIM_ENGINES = {"_reclaim_canon_batched": True, "_reclaim_canon_optimistic": "optimistic"}
 
 
 def pack_arrays(st):
@@ -56,6 +58,8 @@ def _ref():
         "backfill": jax.jit(lambda st, se, s: ref_alloc.backfill_action(st, se, s, t)),
         "preempt": jax.jit(lambda st, se, s: ref_pre.preempt_action(st, se, s, t)),
         "commit": jax.jit(ref_cycle.commit_cycle),
+        **{name: jax.jit(lambda st, se, s, n=name: getattr(ref_pre, n)(st, se, s, t, 100_000))
+           for name in RECLAIM_ENGINES},
     }
 
 
@@ -87,6 +91,17 @@ def _entry_states(st):
 def test_evictive_matrix_matches_reference(q, seed):
     st = build_snapshot(_world(q, seed).cluster).tensors
     eng, (sess, state), (pst, psess, pstate) = _entry_states(st)
+    # the opt-in reclaim engines from the cycle's entry state: equal to
+    # the reference's engines of the same name (counters included) and
+    # to the port's canon walk
+    canon = port_pre.reclaim_action(pst, psess, pstate, TIERS)
+    for name, switch in RECLAIM_ENGINES.items():
+        ref = eng[name](st, sess, state)
+        port = port_pre.reclaim_action(pst, psess, pstate, TIERS, turn_batch=switch)
+        _assert_state_equal(ref, port, f"{name} q={q} seed={seed}")
+        _assert_state_equal(ref, canon, f"canon vs {name} q={q} seed={seed}")
+        assert (port.rounds_gated, port.claim_conflicts) == (
+            int(ref.rounds_gated), int(ref.claim_conflicts)), f"{name} counters q={q}"
     for action, port_fn in (
         ("reclaim", port_pre.reclaim_action),
         ("allocate", port_alloc.allocate_action),

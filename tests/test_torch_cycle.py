@@ -289,13 +289,18 @@ def test_pruned_panel_tiers_match_reference(pool_a, open_tasks, tier):
 
 
 def test_unported_paths_raise():
-    """Only the later slices' engines raise; binpack (the immediate path
-    this slice opens) decides equal to the reference, and the batched
-    round refuses a conf it cannot serve."""
+    """No action of the reference raises: ``reclaim_optimistic`` decides
+    equal to the reference and an unknown action raises ValueError;
+    binpack (the immediate path) decides equal to the reference, and the
+    batched round refuses a conf it cannot serve."""
     st = build_snapshot(_ports_world().cluster).tensors
     pst = from_numpy(pack_arrays(st), "cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port_cycle.schedule_cycle(pst, actions=("reclaim_optimistic", "allocate"))
+    ref = ref_cycle.schedule_cycle(st, actions=("reclaim_optimistic", "allocate"))
+    port = port_cycle.schedule_cycle(pst, actions=("reclaim_optimistic", "allocate"))
+    for f in dataclasses.fields(port):
+        assert np.array_equal(np.asarray(getattr(ref, f.name)), getattr(port, f.name).numpy()), f.name
+    with pytest.raises(ValueError, match="unknown action: reclaim_later"):
+        port_cycle.schedule_cycle(pst, actions=("reclaim_later", "allocate"))
     spec = [[("priority", {}), ("gang", {})],
             [("drf", {}), ("predicates", {}), ("proportion", {}),
              ("nodeorder", {"arguments": (("policy", "binpack"),)})]]

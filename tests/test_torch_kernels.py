@@ -1,4 +1,4 @@
-"""The plain versions of the port's eight kernels held against their JAX
+"""The plain versions of the port's kernels held against their JAX
 counterparts, the ctypes bindings against the CUDA sources, and (on a
 GPU only) each kernel against its plain version.
 
@@ -41,10 +41,14 @@ from kube_arbitrator_tpu_torch.ops.kernels import decode_deferred as k3
 from kube_arbitrator_tpu_torch.ops.kernels import lex_argmin as k2
 from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
 from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
+from kube_arbitrator_tpu_torch.ops.kernels import round_products as k13
 from kube_arbitrator_tpu_torch.ops.kernels import seg_scan as k5
 from kube_arbitrator_tpu_torch.ops.kernels import segment_sum as k4
+from kube_arbitrator_tpu_torch.ops.kernels import stable_compact as k16
 from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
 from kube_arbitrator_tpu_torch.ops.kernels import turn_fill as k10
+from kube_arbitrator_tpu_torch.ops.kernels import union_fit as k14
+from kube_arbitrator_tpu_torch.ops.kernels import window_gate as k15
 from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as PORT_TIERS
 
 GB = 1024**3
@@ -436,7 +440,7 @@ def _c_signatures():
 def test_ctypes_bindings_match_c_signatures():
     sigs = _c_signatures()
     declared = {}
-    for mod in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12):
+    for mod in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16):
         declared.update(mod.SIGNATURES)
     assert set(declared) == set(sigs)
     for name, types in declared.items():

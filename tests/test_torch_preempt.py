@@ -341,20 +341,28 @@ def test_reclaim_action_alone_matches_reference(seed):
 
 
 def test_unported_reclaim_engines_raise():
-    """The opt-in batched and optimistic engines (slice 5) raise; a pack
-    without the canon pack and a pod-affinity pack take ``_reclaim_fast``
-    and decide equal to the reference."""
+    """Every reclaim engine is ported: the opt-in batched and optimistic
+    engines and the ``reclaim_optimistic`` action decide equal to the
+    reference, an unknown action raises ValueError; a pack without the
+    canon pack and a pod-affinity pack take ``_reclaim_fast`` and decide
+    equal to the reference."""
+    import jax
+
     sim = _two_queue_contention_world()
     st = build_snapshot(sim.cluster).tensors
     pst = from_numpy(pack_arrays(st), "cpu")
     tiers = port_ord.DEFAULT_TIERS
     sess, state = port_cycle.open_session(pst, tiers)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port_cycle.schedule_cycle(pst, actions=("reclaim_optimistic", "allocate"))
-    with pytest.raises(NotImplementedError, match="_reclaim_canon_batched"):
-        port_pre.reclaim_action(pst, sess, state, tiers, turn_batch=True)
-    with pytest.raises(NotImplementedError, match="_reclaim_canon_optimistic"):
-        port_pre.reclaim_action(pst, sess, state, tiers, turn_batch="optimistic")
+    ref_open, _ = _ref_reclaim()
+    for switch in (True, "optimistic"):
+        ref = jax.jit(lambda st_, se, s: ref_pre.reclaim_action(
+            st_, se, s, ref_ord.DEFAULT_TIERS, turn_batch=switch))(st, *ref_open(st))
+        port = port_pre.reclaim_action(pst, sess, state, tiers, turn_batch=switch)
+        assert_state_equal(ref, port, f"turn_batch={switch!r}: ")
+        assert (port.evict_phase.numpy() == 3).sum() == 2
+    run_both(st, actions=("reclaim_optimistic", "allocate"))
+    with pytest.raises(ValueError, match="unknown action: reclaim_fastest"):
+        port_cycle.schedule_cycle(pst, actions=("reclaim_fastest", "allocate"))
     no_canon = pack_arrays(st)
     for k in ("rv_idx", "rv_valid", "rv_nj_start", "rv_nq_start", "rv_block_start"):
         no_canon[k] = no_canon[k][:0]
