@@ -6,7 +6,7 @@
 Needs a CUDA card and nvcc; imports nothing of JAX.  Phases (any failure
 exits non-zero):
 
-1. kernels — builds K1-K16 from kube_arbitrator_tpu_torch/ops/kernels/csrc
+1. kernels — builds K1-K18 from kube_arbitrator_tpu_torch/ops/kernels/csrc
    (one nvcc per source, in parallel) and holds each against its plain
    PyTorch version, requiring equality: K1-K4 on seeded inputs at the
    allocate path's shapes (100k tasks, 10k nodes, 1k groups, 8-slot
@@ -20,12 +20,15 @@ exits non-zero):
    speculation window of the q512_evict world (50k x 5k, 512 queues),
    K16 on its three callers' shapes (a commit list at T = 102,400 whose
    count passes the cap, allocate's feasibility cells at [K, 10,240],
-   preempt's full-width victim panel at 51,200).  Times the kernel, the
-   plain version and, where one PyTorch call computes the same function
-   (K4's, K7's, K11's, K12's and K13's sums: ``Tensor.index_add_``; K9's
-   order: ``torch.sort(stable=True)``; K16: ``torch.nonzero`` plus
-   padding), that call.  B3, still torch: one round's queue order at
-   Q = 512, card == CPU, timed beside one ``torch.sort``.
+   preempt's full-width victim panel at 51,200), K17 on the q512_evict
+   world's first reclaim round (Q = 512) and on key stacks of ties, -0.0,
+   NaN and BIG at Q = 8 / 512 / 4,096, K18 on every field dtype and rank
+   with duplicate rows, an empty epoch, and phase 7's first delta epoch of
+   the 50k x 5k pack.  Times the kernel, the plain version and, where one
+   PyTorch call computes the same function (K4's, K7's, K11's, K12's and
+   K13's sums: ``Tensor.index_add_``; K9's order and K17's:
+   ``torch.sort(stable=True)``; K16: ``torch.nonzero`` plus padding; K18:
+   ``index_copy_`` per field), that call.
 2. parity — worlds decided on the card and on the CPU by the port's
    ``schedule_cycle``, every CycleDecisions field equal: 1000 x 100
    (allocate, backfill), 5k x 500 and 20k x 2k under the evictive conf
@@ -63,6 +66,17 @@ exits non-zero):
    JAX package's (Q512_WORLD_42, ROUNDS_Q4_WORLD_42); card == CPU on the
    integer fields (rounds_q4 at full width, the q512 shape at 20k x 2k);
    K13-K16 launched.
+7. the serving path at full width — the evictive world (50k x 5k, seed
+   42) served for five epochs through ``framework.TorchDecider`` on the
+   card: epoch 1 uploads in full and decides like the JAX package
+   (EVICT_WORLD_42); before each later epoch 4% of the running tasks
+   complete and 1% of the nodes flip their cordon, and the epoch uploads
+   only the changed rows (K18).  After every epoch: the resident pack
+   equals the host pack bit for bit, the decisions equal a fresh
+   upload's, a repeated key reuses with 0 bytes, a delta uploads fewer
+   bytes than the full epoch and K18 ran.  The same epochs at 20k x 2k
+   decide equal on the card and on the CPU.  Prints each epoch's mode,
+   bytes, upload, decide and cycle ms.
 
 Each path's launch counts are taken over its first world (seed 42), with
 every count set to 0 just before it.
@@ -73,7 +87,6 @@ compiler's register and spill report goes to stderr.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import json
@@ -140,6 +153,16 @@ ROUNDS_Q4_WORLD_42 = dict(binds=5_427, evicts_by_phase=[0, 778, 0, 105],
 # card vs CPU for the q512 shape at a size the CPU decides quickly
 Q512_CPU_CHECK = dict(tasks=20_000, nodes=2_000, queues=512, tasks_per_job=100,
                       running_fraction=0.5, fit_fraction=1.2)
+# phase 7: the serving path — the evictive world served epoch by epoch
+# through the TorchDecider; before each epoch after the first, 4% of the
+# running tasks complete (the reference bench's BENCH_PIPE_CHURN default)
+# and 1% of the nodes flip their cordon
+SERVE_EPOCHS = 5
+SERVE_CHURN = 0.04
+SERVE_CORDON = 0.01
+# card vs CPU for the serving stream at a size the CPU decides quickly
+SERVE_CPU_CHECK = dict(tasks=20_000, nodes=2_000, queues=8, tasks_per_job=100,
+                       running_fraction=0.5, fit_fraction=1.2)
 # phase 2's world of the reference's sequential-vs-batched soak shape at
 # q = 64 (few tasks per job, more jobs than queues, oversubscribed)
 SOAK_Q64 = dict(tasks=4_000, nodes=400, queues=64, tasks_per_job=20, seed=1,
@@ -1066,26 +1089,137 @@ def k15_case(dev, fx):
                       f"decisions")
 
 
-def b3_case(dev, fx):
-    """B3, still torch: one round's queue order at Q = 512 (the queue
-    keys, then ``lexsort``: a stable sort per key), against the CPU."""
+def k17_case(dev, fx):
+    """K17 at one round's queue order of the q512_evict world (Q = 512,
+    three keys, built as ops/allocate.queue_perm builds them; the case
+    timed, and ``queue_perm`` card == CPU), and on key stacks of ties,
+    -0.0 beside +0.0, NaN and BIG at Q = 8 / 512 / 4,096 against the plain
+    version on the CPU (the card's own sort need not order -0.0 and NaN
+    the way jnp.lexsort does)."""
     from kube_arbitrator_tpu_torch.ops import allocate
+    from kube_arbitrator_tpu_torch.ops.fairness import queue_shares
+    from kube_arbitrator_tpu_torch.ops.kernels import queue_order as k17
     from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+    from kube_arbitrator_tpu_torch.ops.ordering import queue_order_keys
 
     st, s, sess = fx.st, fx.state, fx.sess
     q_active = st.queue_valid & (fx.carry.q_entries > 0)
     args = (q_active, s.queue_alloc, sess.deserved, st.queue_uid_rank)
     _, perm = allocate.queue_perm(tiers, *args)
     _, perm_cpu = allocate.queue_perm(tiers, *[a.cpu() for a in args])
-    expect(torch.equal(perm.cpu(), perm_cpu), "B3: the card's queue order differs from the CPU's")
-    ms = cuda_ms(lambda: allocate.queue_perm(tiers, *args))
-    key = torch.where(q_active, 0.0, 1.0)
-    lib_ms = cuda_ms(lambda: torch.sort(key, stable=True))
-    Q, K = st.num_queues, 3
-    b, by = bound_ms(K * Q * 4 + Q * 8, K * Q * int(np.ceil(np.log2(Q))))
-    return dict(name="queue_perm (B3, torch)", ms=ms, plain_ms=ms, bound_ms=b, bound_by=by,
-                library_ms=lib_ms, shape=f"[Q]={Q}, {K} keys; library: torch.sort(stable=True) "
-                                         f"of one key")
+    expect(torch.equal(perm.cpu(), perm_cpu), "K17: the card's queue order differs from the CPU's")
+    q_share = queue_shares(s.queue_alloc, sess.deserved)
+    keys = [torch.where(q_active, k, 3.0e38) for k in queue_order_keys(tiers, q_share, st.queue_uid_rank)]
+    keys = torch.stack([torch.where(q_active, 0.0, 1.0)] + [k.to(torch.float32) for k in keys])
+    got = k17.queue_order(keys, q_active)
+    want = k17.queue_order_plain(keys.cpu(), q_active.cpu())
+    expect(torch.equal(got[0].cpu(), want[0]) and int(got[1]) == int(want[1]),
+           "K17 differs from its plain version at the q512 round")
+    pool = np.array([0.0, -0.0, 1.0, 0.5, -2.0, np.nan, 3.0e38, 3.0], np.float32)
+    rng = np.random.default_rng(17)
+    for Q in (8, 512, 4096):
+        for _ in range(3):
+            kk = pool[rng.integers(0, len(pool), (3, Q))]
+            kk[0] = rng.random(Q) < 0.3
+            act = torch.from_numpy(kk[0] == 0)
+            g = k17.queue_order(torch.from_numpy(kk).to(dev), act.to(dev))
+            w = k17.queue_order_plain(torch.from_numpy(kk), act)
+            expect(torch.equal(g[0].cpu(), w[0]) and int(g[1]) == int(w[1]),
+                   f"K17 differs from its plain version on ties / -0.0 / NaN keys at Q = {Q}")
+    zeros = torch.tensor([[0.0, -0.0, float("nan"), 1.0, -0.0, 0.0]], device=dev)
+    order = k17.queue_order(zeros, torch.ones(6, dtype=torch.bool, device=dev))[0].tolist()
+    expect(order == [0, 1, 4, 5, 3, 2], f"K17 orders [0, -0, nan, 1, -0, 0] as {order}")
+    ms = cuda_ms(lambda: k17.queue_order(keys, q_active))
+    plain_ms = cuda_ms(lambda: k17.queue_order_plain(keys, q_active))
+    lib_ms = cuda_ms(lambda: torch.sort(keys[0], stable=True))
+    K, Q = keys.shape
+    b, by = bound_ms(K * Q * 4 + Q + Q * 8 + 4, K * Q * Q)
+    return dict(name="queue_order", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms,
+                shape=f"[K, Q] = [{K}, {Q}] (q512_evict's first reclaim round); ties / -0.0 / NaN "
+                      f"keys at Q = 8, 512, 4096; library: torch.sort(stable=True) of one key")
+
+
+def delta_plan(prev, new):
+    """The rows a DeviceResident scatters for the epoch ``prev`` ->
+    ``new`` (fields changed in at most half their rows): (names, indices,
+    rows)."""
+    from kube_arbitrator_tpu_torch.cache.arena import changed_fields, changed_rows
+
+    names, idxs, rows = [], [], []
+    for name in changed_fields(prev, new):
+        if name == "rv_window":
+            continue
+        r = changed_rows(new[name], prev[name])
+        if isinstance(r, str) or 2 * len(r) > max(new[name].shape[0], 1):
+            continue
+        names.append(name)
+        idxs.append(r.astype(np.int32))
+        rows.append(new[name][r])
+    return names, idxs, rows
+
+
+def k18_case(dev):
+    """K18 on every field dtype and rank with duplicate rows and on an
+    empty epoch, and at the serving path's shapes: the rows phase 7's
+    first delta epoch scatters into the 50k x 5k evictive pack (4% of
+    the running tasks completed, 1% of the nodes cordoned) — the case
+    timed."""
+    from kube_arbitrator_tpu_torch.ops.kernels import row_scatter as k18
+
+    rng = np.random.default_rng(18)
+    bufs, idxs, rows = [], [], []
+    for dtype, shape in ((np.bool_, (97,)), (np.int32, (97,)), (np.float32, (97,)),
+                         (np.bool_, (97, 3)), (np.bool_, (97, 8)), (np.int32, (97, 2)),
+                         (np.float32, (97, 4))):
+        bufs.append((rng.random(shape) * 100).astype(dtype))
+        i = np.sort(rng.choice(97, 20, replace=False)).astype(np.int32)
+        i = np.concatenate([i, i[-3:]])
+        r = (rng.random((len(i),) + shape[1:]) * 100).astype(dtype)
+        r[-3:] = r[-6:-3]
+        idxs.append(i)
+        rows.append(r)
+    card = [torch.from_numpy(b.copy()).to(dev) for b in bufs]
+    host = [torch.from_numpy(b.copy()) for b in bufs]
+    n0 = k18.row_scatter.launches
+    k18.row_scatter(card, idxs, rows)
+    k18.row_scatter_plain(host, idxs, rows)
+    expect(k18.row_scatter.launches == n0 + 1, "K18: one launch for seven fields")
+    expect(all(torch.equal(a.cpu(), b) for a, b in zip(card, host)),
+           "K18 differs from its plain version (field dtypes, ranks, duplicate rows)")
+    k18.row_scatter(card, [np.zeros(0, np.int32)] * len(card), [r[:0] for r in rows])
+    expect(k18.row_scatter.launches == n0 + 1 and all(torch.equal(a.cpu(), b) for a, b in zip(card, host)),
+           "K18: an empty epoch launched or wrote")
+
+    prev, new, _ = serve_epoch_pair()
+    names, idxs, rows = delta_plan(prev, new)
+    base = [torch.from_numpy(np.array(prev[n])).to(dev) for n in names]
+    card = [b.clone() for b in base]
+    plain = [b.clone() for b in base]
+    k18.row_scatter(card, idxs, rows)
+    k18.row_scatter_plain(plain, idxs, rows)
+    want = [torch.from_numpy(np.array(new[n])) for n in names]
+    expect(all(torch.equal(a.cpu(), w) and torch.equal(p.cpu(), w)
+               for a, p, w in zip(card, plain, want)), "K18 at the serving epoch differs")
+    ms = cuda_ms(lambda: k18.row_scatter(card, idxs, rows))
+    plain_ms = cuda_ms(lambda: k18.row_scatter_plain(plain, idxs, rows))
+    idx_dev = [torch.from_numpy(i.astype(np.int64)).to(dev) for i in idxs]
+    rows_dev = [torch.from_numpy(np.ascontiguousarray(r)).to(dev) for r in rows]
+
+    def library():
+        for c, i, r in zip(card, idx_dev, rows_dev):
+            c.index_copy_(0, i, r)
+
+    lib_ms = cuda_ms(library)
+    nrows = sum(len(i) for i in idxs)
+    rbytes = sum(r.nbytes for r in rows)
+    ibytes = sum(i.nbytes for i in idxs)
+    b, by = bound_ms(2 * rbytes + ibytes, 0)
+    return dict(name="row_scatter", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms,
+                shape=f"{len(names)} fields, {nrows} rows, {rbytes + ibytes} bytes (the 50k x 5k "
+                      f"evictive pack's first delta epoch: {', '.join(names)}); library: one "
+                      f"index_copy_ per field with rows and indices already on the card")
 
 
 def k16_case(dev, efx, tfx):
@@ -1199,9 +1333,11 @@ def decide_pack(device, w, stripped: bool) -> dict:
 
 
 def compare(a, b, fields) -> dict:
+    """Per field of ``fields``: equal in shape, dtype and value (tensor or
+    host numpy fields)."""
     out = {}
     for f in fields:
-        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+        x, y = torch.as_tensor(getattr(a, f)).cpu(), torch.as_tensor(getattr(b, f)).cpu()
         out[f] = x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
     return out
 
@@ -1250,24 +1386,31 @@ def evict_invariants(st, dec) -> None:
            "a node over its pod limit")
 
 
-@contextlib.contextmanager
-def count_queue_orders():
-    """Count the rounds' queue orders (B3's lexsorts) while the block
-    runs: ``queue_perm`` as ops/allocate and ops/preempt call it."""
-    from kube_arbitrator_tpu_torch.ops import allocate, preempt
+def serve_epochs(w, seed: int, n: int):
+    """Epochs 1..n of the serving stream on world ``w``: (epoch, host
+    pack, PackMeta), from cache/synth.epoch_stream with SERVE_CHURN of the
+    running tasks completing and SERVE_CORDON of the nodes flipping their
+    cordon before each epoch after the first."""
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays, epoch_stream
 
-    n = [0]
-    orig = allocate.queue_perm
+    arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"], w["tasks_per_job"], seed,
+                                       running_fraction=w["running_fraction"],
+                                       fit_fraction=w["fit_fraction"])
+    return epoch_stream(arrays, n, SERVE_CHURN, SERVE_CORDON, seed)
 
-    def counted(*a, **k):
-        n[0] += 1
-        return orig(*a, **k)
 
-    allocate.queue_perm = preempt.queue_perm = counted
-    try:
-        yield n
-    finally:
-        allocate.queue_perm = preempt.queue_perm = orig
+def serve_epoch_pair():
+    """(epoch 1's pack, epoch 2's pack, epoch 2's PackMeta) of the
+    serving stream on the 50k x 5k evictive world, seed 42."""
+    g = serve_epochs(EVICT_FULL, 42, 2)
+    _, prev, _ = next(g)
+    _, new, meta = next(g)
+    return prev, new, meta
+
+
+def differing(a, b) -> list:
+    """The CycleDecisions fields where ``a`` and ``b`` differ."""
+    return [f for f, ok in compare(a, b, [f.name for f in dataclasses.fields(a)]).items() if not ok]
 
 
 def reclaim_once(device, w, turn_batch, count_syncs=False):
@@ -1394,11 +1537,9 @@ def main() -> int:
     fx = window_fixture(dev)
     for case in (k13_case, k14_case, k15_case):
         report(case(dev, fx))
-    b3 = b3_case(dev, fx)
-    print(f"b3 {b3['name']}: card == CPU; {b3['ms']:.4f} ms (the plain torch path; bound "
-          f"{b3['bound_ms']:.6f} ms by {b3['bound_by']}, library {b3['library_ms']:.4f} ms) at "
-          f"{b3['shape']}", flush=True)
+    report(k17_case(dev, fx))
     del fx
+    report(k18_case(dev))
     fx = pa_fixture(dev)
     r, fits, seeds, caps = k11_case(dev, fx)
     report(r)
@@ -1493,7 +1634,7 @@ def main() -> int:
               f"{c['cycle_ms']:.0f} ms); integer decisions equal, f32 {eq_f32}", flush=True)
     print(f"launches on the allocate path (world seed 42): {counts}; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    for k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):
+    for k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum", "queue_order"):
         expect(counts[k] > 0, f"kernel {k} was not launched on the allocate path")
     print(f"phase 3 (allocate, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1526,7 +1667,7 @@ def main() -> int:
             expect(got == want, f"seed 42 differs from the JAX package's decisions: {got} vs {want}")
     print(f"launches on the evictive path (50k x 5k, seed 42): {evict_counts}; peak device "
           f"memory {epeak / 2**30:.2f} GiB", flush=True)
-    for k in SLICE2_KERNELS:
+    for k in SLICE2_KERNELS + ("queue_order",):
         expect(evict_counts[k] > 0, f"kernel {k} was not launched on the evictive path")
     print(f"phase 4 (evictive, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1590,9 +1731,9 @@ def main() -> int:
     print(f"launches on the pod-affinity path (50k x 5k, seed 42): {pa_counts}", flush=True)
     print(f"launches on the binpack path (100k x 10k, seed 42): {order_counts}", flush=True)
     for k in ("pa_fit", "pa_shape", "turn_caps", "turn_fill", "claim_nodes", "seg_scan",
-              "segment_sum", "lex_argmin"):
+              "segment_sum", "lex_argmin", "queue_order"):
         expect(pa_counts[k] > 0, f"kernel {k} was not launched on the pod-affinity path")
-    for k in ("turn_caps", "turn_fill", "lex_argmin"):
+    for k in ("turn_caps", "turn_fill", "lex_argmin", "queue_order"):
         expect(order_counts[k] > 0, f"kernel {k} was not launched on the binpack path")
     print(f"phase 5 (immediate path, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1611,11 +1752,10 @@ def main() -> int:
             torch.cuda.synchronize()
             if opt_counts is None:
                 kernels.reset_counts()
-                with count_queue_orders() as n_orders:
-                    g = decide_world(device=dev, actions=OPT_ACTIONS, seed=seed, **w)
+                g = decide_world(device=dev, actions=OPT_ACTIONS, seed=seed, **w)
                 opt_counts = kernels.counts()
-                print(f"{name} seed {seed}: B3 queue orders (torch lexsorts) in the cycle: "
-                      f"{n_orders[0]}", flush=True)
+                print(f"{name} seed {seed}: queue orders (K17 launches) in the cycle: "
+                      f"{opt_counts['queue_order']}", flush=True)
             else:
                 g = decide_world(device=dev, actions=OPT_ACTIONS, seed=seed, **w)
             dec = g["decisions"]
@@ -1651,10 +1791,76 @@ def main() -> int:
               flush=True)
     print(f"launches on the optimistic reclaim path (q512_evict, seed 42): {opt_counts}", flush=True)
     for k in ("round_products", "union_fit", "window_gate", "stable_compact", "canon_commit",
-              "lex_argmin", "segment_sum"):
+              "lex_argmin", "segment_sum", "queue_order"):
         expect(opt_counts[k] > 0, f"kernel {k} was not launched on the optimistic reclaim path")
     print(f"phase 6 (opt-in reclaim engines, full width) {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # ---- phase 7: the serving path at full width — the evictive world
+    # (seed 42) served for SERVE_EPOCHS epochs through the TorchDecider
+    t0 = time.perf_counter()
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.framework import SchedulerConfig, TorchDecider
+    from kube_arbitrator_tpu_torch.ops.cycle import schedule_cycle
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS
+
+    conf = SchedulerConfig(actions=EVICT_ACTIONS, tiers=DEFAULT_TIERS)
+    serve_counts = dict.fromkeys(kernels.counts(), 0)
+    decider = TorchDecider(dev)
+    full_bytes = None
+    for e, host, meta in serve_epochs(EVICT_FULL, 42, SERVE_EPOCHS):
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        dec, decide_ms = decider.decide(host, conf, meta)
+        c = kernels.counts()
+        for k, v in c.items():
+            serve_counts[k] += v
+        row = dict(epoch=e, mode=decider.last_mode, upload_bytes=decider.last_upload_bytes,
+                   upload_ms=decider.last_upload_ms, decide_ms=decide_ms,
+                   cycle_ms=decider.last_cycle_ms, k18_launches=c["row_scatter"],
+                   k17_launches=c["queue_order"], changed_fields=len(meta.changed_fields),
+                   binds=int(dec.bind_mask.sum()), evicts=int(dec.evict_mask.sum()))
+        diff = decider.resident.first_difference(host)
+        expect(diff is None, f"serving epoch {e}: the resident {diff} differs from the host pack")
+        fresh = schedule_cycle(from_numpy(host, dev), tiers=DEFAULT_TIERS, actions=EVICT_ACTIONS)
+        bad = differing(dec, fresh)
+        expect(not bad, f"serving epoch {e}: decisions differ from a fresh upload's in {bad}")
+        again, _ = decider.decide(host, conf, meta)
+        expect(decider.last_mode == "reuse" and decider.last_upload_bytes == 0,
+               f"serving epoch {e}: a repeated key gave {decider.last_mode}, "
+               f"{decider.last_upload_bytes} bytes")
+        expect(not differing(dec, again), f"serving epoch {e}: the reused pack decides otherwise")
+        if e == 1:
+            expect(row["mode"] == "full", f"serving epoch 1 uploaded {row['mode']}")
+            full_bytes = row["upload_bytes"]
+            phases = np.bincount(dec.evict_phase[dec.evict_mask], minlength=4).tolist()
+            got = dict(binds=row["binds"], evicts_by_phase=phases,
+                       digest=decision_digest(dec.bind_mask, dec.evict_mask))
+            expect(got == EVICT_WORLD_42, f"serving epoch 1 differs from the JAX package: {got} "
+                   f"vs {EVICT_WORLD_42}")
+        else:
+            expect(row["mode"] == "delta", f"serving epoch {e} uploaded {row['mode']}")
+            expect(row["upload_bytes"] < full_bytes,
+                   f"serving epoch {e}: {row['upload_bytes']} bytes, not fewer than {full_bytes}")
+            expect(row["k18_launches"] > 0, f"serving epoch {e}: K18 was not launched")
+        print(f"serving 50k x 5k seed 42 epoch {json.dumps(row)}; resident == host, decisions == "
+              f"a fresh upload's, a repeated key reuses", flush=True)
+    for k in SLICE2_KERNELS + ("queue_order", "row_scatter"):
+        expect(serve_counts[k] > 0, f"kernel {k} was not launched on the serving path")
+    print(f"launches on the serving path (50k x 5k, seed 42, {SERVE_EPOCHS} epochs): {serve_counts}",
+          flush=True)
+    gpu_d, cpu_d = TorchDecider(dev), TorchDecider("cpu")
+    for e, host, meta in serve_epochs(SERVE_CPU_CHECK, 42, SERVE_EPOCHS):
+        a, _ = gpu_d.decide(host, conf, meta)
+        b, _ = cpu_d.decide(host, conf, meta)
+        bad = differing(a, b)
+        expect(not bad and gpu_d.last_mode == cpu_d.last_mode,
+               f"serving {SERVE_CPU_CHECK['tasks']} epoch {e}: card vs CPU differ in {bad} "
+               f"({gpu_d.last_mode} / {cpu_d.last_mode})")
+        print(f"serving {SERVE_CPU_CHECK['tasks']}x{SERVE_CPU_CHECK['nodes']} epoch {e}: card == CPU in "
+              f"every field ({gpu_d.last_mode}, {gpu_d.last_upload_bytes} bytes; card cycle "
+              f"{gpu_d.last_cycle_ms:.1f} ms, CPU {cpu_d.last_cycle_ms:.0f} ms)", flush=True)
+    print(f"phase 7 (serving path, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
@@ -1689,6 +1895,10 @@ def main() -> int:
                         "kube_arbitrator_tpu/ops/preempt.py:2735"),
         "stable_compact": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/stable_compact.cu",
                            "kube_arbitrator_tpu/ops/cycle.py:181"),
+        "queue_order": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/queue_order.cu",
+                        "kube_arbitrator_tpu/ops/allocate.py:1043"),
+        "row_scatter": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/row_scatter.cu",
+                        "kube_arbitrator_tpu/cache/arena.py:156"),
     }
     kline = []
     for k, r in rows.items():
@@ -1700,6 +1910,8 @@ def main() -> int:
             n = pa_counts[k]
         elif k in ("round_products", "union_fit", "window_gate", "stable_compact"):
             n = opt_counts[k]
+        elif k in ("queue_order", "row_scatter"):
+            n = serve_counts[k]
         else:
             n = evict_counts[k]
         kline.append(dict(name=k, route="cuda", source=replaces[k][0], replaces=replaces[k][1],

@@ -7,9 +7,12 @@ the reference so each counterpart is easy to find:
 
 * ``cache/snapshot.py`` — :class:`SnapshotTensors` and ``from_numpy``;
 * ``cache/synth.py``    — the synthetic world generator;
-* ``ops/cycle.py``      — ``schedule_cycle`` (allocate + backfill);
+* ``cache/arena.py``    — the epoch-keyed device-resident pack;
+* ``ops/cycle.py``      — ``schedule_cycle`` (the conf's actions);
 * ``ops/kernels/``      — the hand-written CUDA kernels and their plain
-  PyTorch versions.
+  PyTorch versions;
+* ``framework/``        — ``TorchDecider``, the decider a scheduler's
+  session calls, and the port's ``SchedulerConfig``.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (:func:`resolve_device`).

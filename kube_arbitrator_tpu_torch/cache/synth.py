@@ -14,6 +14,7 @@ layout of the reference's ``_build_pod_affinity`` (cache/snapshot.py:
 from __future__ import annotations
 
 import dataclasses
+import random
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -438,3 +439,97 @@ def build_synthetic_snapshot(
         running_fraction, gang_fraction, fit_fraction, max_tasks_per_node, pod_affinity,
     )
     return Snapshot(tensors=from_numpy(arrays, device), index=index)
+
+
+# ---------------------------------------------------------------------------
+# the serving path's delta stream: array-level churn between epochs
+
+
+def _no_pod_affinity(arrays: Dict[str, np.ndarray]) -> None:
+    if (arrays["group_aff_terms"].shape[1] or arrays["group_anti_terms"].shape[1]
+            or arrays["symm_ok"].shape[0]):
+        raise ValueError("the pack carries pod-affinity terms, whose per-domain counts "
+                         "move with every completion; rebuild it instead")
+
+
+def pick_churn(arrays: Dict[str, np.ndarray], frac: float, cycle: int) -> np.ndarray:
+    """Ascending rows of the RUNNING tasks to complete before epoch
+    ``cycle``: ``max(1, int(frac * running))`` of them, drawn by the seeded
+    sample of the reference bench's ``_pipe_churn`` (bench.py:717-744)
+    over the running rows in ordinal order."""
+    running = np.nonzero((arrays["task_status"] == int(TaskStatus.RUNNING))
+                         & arrays["task_valid"])[0]
+    if not len(running):
+        return running
+    k = min(len(running), max(1, int(len(running) * frac)))
+    pick = random.Random(f"kat-pipe-churn:{cycle}").sample(range(len(running)), k)
+    return np.sort(running[np.asarray(pick, np.int64)])
+
+
+def complete_running(arrays: Dict[str, np.ndarray], rows: np.ndarray) -> Dict[str, np.ndarray]:
+    """The pack after the RUNNING tasks at ``rows`` complete, as a
+    reference arena packs it: they turn SUCCEEDED and keep their node
+    ordinal; each node gets their requests back in idle, loses them from
+    its task count and recomputes its host-port mask from the tasks left
+    on it; the reclaim canon pack is rebuilt.  Returns a new mapping that
+    shares the unchanged arrays.  Packs with pod-affinity terms raise."""
+    _no_pod_affinity(arrays)
+    rows = np.asarray(rows, np.int64)
+    status = arrays["task_status"]
+    if len(np.unique(rows)) != len(rows):
+        raise ValueError("complete_running: a row repeats")
+    if not ((status[rows] == int(TaskStatus.RUNNING)) & arrays["task_valid"][rows]
+            & (arrays["task_node"][rows] >= 0)).all():
+        raise ValueError("complete_running: a row is not a placed RUNNING task")
+    out = dict(arrays)
+    status = out["task_status"] = status.copy()
+    status[rows] = int(TaskStatus.SUCCEEDED)
+    nodes = arrays["task_node"][rows].astype(np.int64)
+    idle = out["node_idle"] = arrays["node_idle"].copy()
+    np.add.at(idle, nodes, arrays["task_resreq"][rows])
+    num = out["node_num_tasks"] = arrays["node_num_tasks"].copy()
+    np.subtract.at(num, nodes, 1)
+    touched = np.unique(nodes)
+    ports = out["node_ports"] = arrays["node_ports"].copy()
+    ports[touched] = 0
+    on_node = (arrays["task_valid"] & np.isin(arrays["task_node"], touched)
+               & (status != int(TaskStatus.SUCCEEDED)) & (status != int(TaskStatus.FAILED)))
+    t = np.nonzero(on_node)[0]
+    np.bitwise_or.at(ports, arrays["task_node"][t].astype(np.int64), arrays["task_ports"][t])
+    rv = build_reclaim_pack(status, out["task_node"], out["task_valid"], out["task_job"],
+                            out["task_priority"], out["task_uid_rank"], out["job_queue"],
+                            idle.shape[0])
+    out.update(rv)
+    return out
+
+
+def cordon(arrays: Dict[str, np.ndarray], rows: np.ndarray) -> Dict[str, np.ndarray]:
+    """The pack with ``node_unsched`` flipped at node ``rows`` (a cordon
+    or an uncordon); a new mapping sharing the other arrays."""
+    out = dict(arrays)
+    unsched = out["node_unsched"] = arrays["node_unsched"].copy()
+    unsched[rows] = ~unsched[rows]
+    return out
+
+
+def epoch_stream(arrays: Dict[str, np.ndarray], epochs: int, churn: float = 0.04,
+                 cordon_frac: float = 0.0, seed: int = 0):
+    """Epochs 1..``epochs`` of a served world from its pack ``arrays``:
+    (epoch, pack, PackMeta).  Epoch 1 has no base; before each later epoch
+    e the ``churn`` share of the running tasks that ``pick_churn(pack,
+    churn, e)`` draws complete, and ``cordon_frac`` of the valid nodes
+    (drawn from ``seed``) flip their cordon; its PackMeta names the fields
+    that changed."""
+    from .arena import PackMeta, changed_fields
+
+    rng = np.random.default_rng(seed)
+    nodes = np.nonzero(arrays["node_valid"])[0]
+    meta = PackMeta(key="epoch-1", base_key=None, changed_fields=())
+    yield 1, arrays, meta
+    for e in range(2, epochs + 1):
+        new = complete_running(arrays, pick_churn(arrays, churn, e))
+        if cordon_frac:
+            new = cordon(new, rng.choice(nodes, int(len(nodes) * cordon_frac), replace=False))
+        meta = PackMeta(key=f"epoch-{e}", base_key=meta.key, changed_fields=changed_fields(arrays, new))
+        arrays = new
+        yield e, arrays, meta

@@ -7,6 +7,8 @@
         [--pod-affinity] [--node-order {first_fit,binpack,spread}]
     python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 --queues 512 \\
         --running-fraction 0.5 --actions reclaim_optimistic,allocate,backfill,preempt
+    python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 \\
+        --running-fraction 0.5 --actions reclaim,allocate,backfill,preempt --epochs 5
 
 Each cycle decides a fresh world (seed, seed+1, ...) with the default
 tiers (``--node-order`` sets their nodeorder plugin's policy) and the
@@ -18,6 +20,13 @@ actions, and the reclaim actions' claim conflicts) and the wall time.
 world's nodes with hostname, rack and zone domains and gives its jobs
 the pod-(anti-)affinity mix of cache/synth.py.  Building the world and
 copying it to the device is set-up and is timed apart from the cycle.
+
+``--epochs E`` (E > 1) serves each world for E epochs through the
+scheduler-facing decider (framework.TorchDecider): epoch 1 uploads the
+pack in full, and before each later epoch e the seeded 4% of its RUNNING
+tasks that ``cache/synth.pick_churn(pack, 0.04, e)`` draws complete, so
+only the changed rows reach the resident pack.  Each epoch prints its
+upload mode, bytes, upload ms and cycle ms.
 """
 from __future__ import annotations
 
@@ -30,11 +39,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .cache.decode import decode_binds
-from .cache.synth import build_synthetic_arrays
+from .cache.synth import build_synthetic_arrays, epoch_stream
 from .cache.snapshot import from_numpy
 from .device import resolve_device
+from .framework import SchedulerConfig, TorchDecider
 from .ops.cycle import schedule_cycle
 from .ops.ordering import DEFAULT_ACTIONS, NODE_ORDER_POLICIES, with_node_order
+
+CHURN = 0.04  # the reference bench's BENCH_PIPE_CHURN default (bench.py:866)
 
 
 def _sync(device: torch.device) -> None:
@@ -84,6 +96,37 @@ def decide_world(
     )
 
 
+def serve_world(
+    tasks: int,
+    nodes: int,
+    epochs: int,
+    queues: int = 8,
+    tasks_per_job: int = 100,
+    seed: int = 42,
+    running_fraction: float = 0.0,
+    fit_fraction: float = 1.2,
+    device=None,
+    actions: Tuple[str, ...] = DEFAULT_ACTIONS,
+    node_order: str = "first_fit",
+) -> List[Dict]:
+    """Serve one synthetic world for ``epochs`` epochs through a
+    TorchDecider on ``device``, completing ``CHURN`` of the running tasks
+    before each epoch after the first.  One row per epoch: upload mode,
+    bytes and ms, cycle ms, decide ms, binds and evicts."""
+    arrays, _ = build_synthetic_arrays(tasks, nodes, queues, tasks_per_job, seed,
+                                       running_fraction=running_fraction,
+                                       fit_fraction=fit_fraction)
+    decider = TorchDecider(device)
+    conf = SchedulerConfig(actions=tuple(actions), tiers=with_node_order(node_order))
+    out = []
+    for e, pack, meta in epoch_stream(arrays, epochs, CHURN):
+        dec, ms = decider.decide(pack, conf, meta)
+        out.append(dict(epoch=e, mode=decider.last_mode, upload_bytes=decider.last_upload_bytes,
+                        upload_ms=decider.last_upload_ms, cycle_ms=decider.last_cycle_ms,
+                        decide_ms=ms, binds=int(dec.bind_count), evicts=int(dec.evict_count)))
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m kube_arbitrator_tpu_torch", description=__doc__.split("\n\n")[0])
     ap.add_argument("--tasks", type=int, default=100_000)
@@ -101,13 +144,33 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="the nodeorder plugin's policy")
     ap.add_argument("--pod-affinity", action="store_true",
                     help="topology labels and the pod-(anti-)affinity mix of cache/synth.py")
+    ap.add_argument("--epochs", type=int, default=1,
+                    help="serve each world for this many epochs through the TorchDecider, "
+                         f"completing {CHURN:.0%} of its running tasks between epochs")
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the GPU)")
     ap.add_argument("--json", action="store_true", help="one JSON object per cycle")
     a = ap.parse_args(argv)
     actions = tuple(x.strip() for x in a.actions.split(",") if x.strip())
     dev = resolve_device(a.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if a.epochs < 1:
+        ap.error("--epochs must be at least 1")
+    if a.epochs > 1 and a.pod_affinity:
+        ap.error("--epochs serves worlds without pod affinity")
     for c in range(a.cycles):
+        if a.epochs > 1:
+            for row in serve_world(a.tasks, a.nodes, a.epochs, a.queues, a.tasks_per_job,
+                                   a.seed + c, running_fraction=a.running_fraction, device=dev,
+                                   actions=actions, node_order=a.node_order):
+                row = dict(cycle=c, seed=a.seed + c, device=name, **row)
+                if a.json:
+                    print(json.dumps(row), flush=True)
+                else:
+                    print(f"world {c} seed {a.seed + c} epoch {row['epoch']} on {name}: upload "
+                          f"{row['mode']} {row['upload_bytes']} bytes in {row['upload_ms']:.1f} "
+                          f"ms, cycle {row['cycle_ms']:.1f} ms, decide {row['decide_ms']:.1f} ms, "
+                          f"{row['binds']} binds, {row['evicts']} evicts", flush=True)
+            continue
         r = decide_world(a.tasks, a.nodes, a.queues, a.tasks_per_job, a.seed + c,
                          running_fraction=a.running_fraction, device=dev, actions=actions,
                          node_order=a.node_order, pod_affinity=a.pod_affinity)

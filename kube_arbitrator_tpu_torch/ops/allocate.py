@@ -35,10 +35,11 @@ from typing import Optional, Tuple
 import torch
 
 from ..cache.snapshot import SnapshotTensors, pa_enabled
-from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, lexsort, plugin_on, safe_share, to_i32
+from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, plugin_on, safe_share, to_i32
 from .fairness import drf_shares, overused, queue_shares
 from .kernels.admit_chunk import admit_chunk
 from .kernels.decode_deferred import decode_deferred
+from .kernels.queue_order import queue_order
 from .kernels.stable_compact import FeasCells, stable_compact
 from .kernels.turn_caps import turn_caps
 from .kernels.turn_fill import turn_fill
@@ -174,11 +175,12 @@ def queue_has_live_job(st, grp_live, job_extra=None):
 
 def queue_perm(tiers, q_active, queue_alloc, deserved, queue_uid_rank):
     """(nq, perm): the active-queue count (a device scalar) and a round's
-    queue order — active queues first, by the tiered queue keys."""
+    queue order — active queues first, by the tiered queue keys.  K17."""
     q_share = queue_shares(queue_alloc, deserved)
     keys = [torch.where(q_active, k, BIG) for k in queue_order_keys(tiers, q_share, queue_uid_rank)]
     keys.insert(0, torch.where(q_active, 0.0, 1.0))
-    return q_active.sum(dtype=torch.int32), lexsort(keys[::-1])
+    perm, nq = queue_order(torch.stack([k.to(torch.float32) for k in keys]), q_active)
+    return nq, perm
 
 
 def turn_budget(st, sess, tiers, j, q, req, job_share, job_ready, jmask, state, s_max,

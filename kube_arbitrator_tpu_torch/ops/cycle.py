@@ -12,6 +12,7 @@ import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..api.types import TaskStatus
@@ -88,6 +89,13 @@ class CycleDecisions:
     evict_idx: torch.Tensor       # i32[E] evict task ordinals
     bind_count: torch.Tensor      # i32[] full bind population
     evict_count: torch.Tensor     # i32[] full evict population
+
+
+def decisions_to_host(dec: CycleDecisions) -> CycleDecisions:
+    """``dec`` with every field a host numpy array the caller owns (a
+    copy), as a remote decider hands decisions to a scheduler's session."""
+    return CycleDecisions(**{f.name: np.array(getattr(dec, f.name).cpu().numpy())
+                             for f in dataclasses.fields(dec)})
 
 
 def _plugin_enabled(tiers: Tiers, name: str) -> bool:

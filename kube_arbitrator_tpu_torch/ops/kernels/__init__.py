@@ -17,14 +17,16 @@ PyTorch version and with a launch counter:
 * K14 :func:`union_fit.union_fit`            — opt-in reclaim: own-queue subtraction, first fit
 * K15 :func:`window_gate.window_gate`        — optimistic reclaim: the window's commit gate
 * K16 :func:`stable_compact.stable_compact`  — commit lists, allocate's panel, preempt's panel
+* K17 :func:`queue_order.queue_order`        — a round's queue order (ops/allocate.queue_perm)
+* K18 :func:`row_scatter.row_scatter`        — an epoch's changed rows into the resident pack
 
 A wrapper takes the plain version only for CPU tensors; on CUDA tensors
 it launches its kernel (built on first use, see build.py) or raises.
 """
 from . import (
     admit_chunk, canon_commit, canon_pick, claim_nodes, decode_deferred, lex_argmin, pa_fit,
-    pa_shape, round_products, seg_scan, segment_sum, stable_compact, turn_caps, turn_fill,
-    union_fit, window_gate,
+    pa_shape, queue_order, round_products, row_scatter, seg_scan, segment_sum, stable_compact,
+    turn_caps, turn_fill, union_fit, window_gate,
 )
 
 # kernel name -> wrapper (each wrapper carries its ``launches`` count)
@@ -45,6 +47,8 @@ KERNELS = {
     "union_fit": union_fit.union_fit,
     "window_gate": window_gate.window_gate,
     "stable_compact": stable_compact.stable_compact,
+    "queue_order": queue_order.queue_order,
+    "row_scatter": row_scatter.row_scatter,
 }
 
 

@@ -30,6 +30,7 @@ SOURCES = (
     "seg_scan", "claim_nodes", "canon_pick", "canon_commit",
     "turn_caps", "turn_fill", "pa_fit", "pa_shape",
     "round_products", "union_fit", "window_gate", "stable_compact",
+    "queue_order", "row_scatter",
 )
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
