@@ -6,7 +6,7 @@
 Needs a CUDA card and nvcc; imports nothing of JAX.  Phases (any failure
 exits non-zero):
 
-1. kernels — builds K1-K18 from kube_arbitrator_tpu_torch/ops/kernels/csrc
+1. kernels — builds K1-K20 from kube_arbitrator_tpu_torch/ops/kernels/csrc
    (one nvcc per source, in parallel) and holds each against its plain
    PyTorch version, requiring equality: K1-K4 on seeded inputs at the
    allocate path's shapes (100k tasks, 10k nodes, 1k groups, 8-slot
@@ -24,11 +24,17 @@ exits non-zero):
    world's first reclaim round (Q = 512) and on key stacks of ties, -0.0,
    NaN and BIG at Q = 8 / 512 / 4,096, K18 on every field dtype and rank
    with duplicate rows, an empty epoch, and phase 7's first delta epoch of
-   the 50k x 5k pack.  Times the kernel, the plain version and, where one
-   PyTorch call computes the same function (K4's, K7's, K11's, K12's and
-   K13's sums: ``Tensor.index_add_``; K9's order and K17's:
+   the 50k x 5k pack, K19 on preempt's (node, queue) victim lexsort at
+   P = 51,200 (negative priorities, INT_MAX padding, ties), the claim-log
+   join (J = 512, T = 51,200) and segment_order (102,400 slots -> 1,024
+   segments with out-of-range slots, and one segment), K20 on
+   _reclaim_fast's cumulatives at [51,200, 3 / 4 / 1] whose totals pass
+   2^24.  K17, K19 and K20 are held against their plain versions run on
+   the CPU.  Times the kernel, the plain version and, where one PyTorch
+   call computes the same function (K4's, K7's, K11's, K12's and K13's
+   sums: ``Tensor.index_add_``; K9's order, K17's and K19's:
    ``torch.sort(stable=True)``; K16: ``torch.nonzero`` plus padding; K18:
-   ``index_copy_`` per field), that call.
+   ``index_copy_`` per field; K20: ``torch.cumsum``), that call.
 2. parity — worlds decided on the card and on the CPU by the port's
    ``schedule_cycle``, every CycleDecisions field equal: 1000 x 100
    (allocate, backfill), 5k x 500 and 20k x 2k under the evictive conf
@@ -54,7 +60,10 @@ exits non-zero):
    each self-affinity job's pods in one rack); card == CPU on the
    integer fields (the allocate worlds at full width, the pod-affinity
    world at 20k x 2k); seed 42's counts and digests equal the JAX
-   package's (PA_WORLD_42, BINPACK_WORLD_42); K9-K12 launched.
+   package's (PA_WORLD_42, BINPACK_WORLD_42); K9-K12, K19 and K20
+   launched, K20 once per ``mm_cumsum`` of each ``_reclaim_fast`` turn
+   (one a turn under the default tiers, whose reclaim verdict is gang's;
+   two where proportion is a reclaim verdict).
 6. the opt-in reclaim engines at full width — q512_evict (50k x 5k, 512
    queues, half the jobs running; seeds 42 and 43) and rounds_q4 (20k x
    2k, 4 queues, 70% running; seed 42): the canon walk, the round-batched
@@ -77,9 +86,23 @@ exits non-zero):
    bytes than the full epoch and K18 ran.  The same epochs at 20k x 2k
    decide equal on the card and on the CPU.  Prints each epoch's mode,
    bytes, upload, decide and cycle ms.
+8. the evictive cycle under the priority mix at full width — 50k x 5k,
+   64 queues, capacity equal to the demand, job / group / task
+   priorities 1-3 and pending tails on half the running jobs
+   (cache/synth.py ``priority_mix``), seed 45: preempt evicts in phase 2
+   and gates at least one round; invariants; the counts and digest equal
+   the JAX package's (MIX_WORLD_45); card == CPU in every CycleDecisions
+   field at 20k x 2k (seed 43; queue_deserved within its standing rtol
+   1e-5).
+9. no library sort — the evictive and pod-affinity evictive cycles (50k
+   x 5k, seed 42) under torch.profiler: no ``aten::sort`` or
+   ``aten::argsort`` event; prints those counts, ``aten::searchsorted``'s
+   and the device kernels of each cycle.
 
-Each path's launch counts are taken over its first world (seed 42), with
-every count set to 0 just before it.
+Each path's launch counts are taken over its first world (seed 42; the
+priority-mix path's over seed 45), with every count set to 0 just
+before it.  The kernels line counts K19's launches over the evictive
+and the pod-affinity evictive cycles, and K20's over the latter.
 
 Prints each phase's wall time, the card's name and power limit, a JSON
 line of per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``; the
@@ -100,6 +123,7 @@ import torch
 
 MEM_BW = 3.35e12       # H100 SXM HBM3, bytes/s
 F32_PEAK = 67e12       # H100 SXM f32 (non-tensor-core) op/s
+INT_MAX = 2**31 - 1
 INT_FIELDS = (
     "task_node", "task_status", "bind_mask", "evict_mask", "job_ready",
     "unready_alloc", "node_num_tasks", "node_ports", "evict_claimant",
@@ -124,6 +148,18 @@ EVICT_PARITY = (
 # decides it, from tests/test_torch_evict_fullwidth.py (the port's CPU run
 # equals it in every CycleDecisions field); the digest is decision_digest's.
 EVICT_WORLD_42 = dict(binds=23_937, evicts_by_phase=[0, 1139, 0, 426], digest="ef1edee61d169ef5")
+# The priority-mix evictive world (cache/synth.py ``priority_mix``: job,
+# group and task priorities 1-3, a pending tail on half the running jobs),
+# 64 queues at capacity equal to the demand, so preempt evicts in phase 2
+# and gates a round; seed 45 under EVICT_ACTIONS as the JAX package
+# decides it, from tests/test_torch_evict_fullwidth.py (the port's CPU
+# run equals it in every integer CycleDecisions field).
+MIX_FULL = dict(tasks=50_000, nodes=5_000, queues=64, tasks_per_job=100,
+                running_fraction=0.5, fit_fraction=1.0, priority_mix=True)
+MIX_WORLD_45 = dict(binds=26_933, evicts_by_phase=[0, 1524, 24, 549], digest="85cf57ccd87b81bf")
+# card vs CPU on the priority-mix world at a size the CPU decides quickly
+# (seed 43: both preempt phases evict and a round is gated there too)
+MIX_CPU_CHECK = dict(MIX_FULL, tasks=20_000, nodes=2_000, seed=43)
 SLICE2_KERNELS = ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum", "seg_scan",
                   "claim_nodes", "canon_pick", "canon_commit")
 # The immediate path's full-width worlds as the JAX package decides them,
@@ -1222,6 +1258,109 @@ def k18_case(dev):
                       f"index_copy_ per field with rows and indices already on the card")
 
 
+def k19_case(dev, fx):
+    """K19 at its three callers' shapes in the 50k x 5k evictive world,
+    each against its plain version run on the CPU (never against the
+    card's own torch.sort): preempt's (node, queue) victim lexsort over
+    the full-width panel, P = 51,200 (uid, priority, queue, node; seeded
+    priorities in -3..3 on the real slots, INT_MAX on the padding; the
+    case timed); the claim-log join, J = 512 claims sorted and T = 51,200
+    task keys looked up; segment_order at 102,400 slots -> 1,024 segments
+    with out-of-range slots, and the one-segment case of ordered_sum."""
+    from kube_arbitrator_tpu_torch.api.types import TaskStatus
+    from kube_arbitrator_tpu_torch.ops import preempt
+    from kube_arbitrator_tpu_torch.ops.kernels import segment_sum as k4
+    from kube_arbitrator_tpu_torch.ops.kernels import stable_sort as k19
+
+    st, s = fx.st, fx.state
+    T = st.num_tasks
+    rng = np.random.default_rng(19)
+    running0 = (s.task_status == int(TaskStatus.RUNNING)) & st.task_valid & (s.task_node >= 0)
+    view = preempt._build_view(st, s, running0, T)
+    idx = view.idx.clamp(max=T - 1).to(torch.int64)
+    uid = torch.where(view.valid, st.task_uid_rank[idx], INT_MAX).to(torch.int32)
+    prio = torch.from_numpy(rng.integers(-3, 4, T).astype(np.int32)).to(dev)
+    prio = torch.where(view.valid, prio, INT_MAX).to(torch.int32)
+    keys = (uid, prio, view.queue, view.node)
+    got = k19.stable_sort(keys, want_sorted=True)
+    want = k19.stable_sort_plain([k.cpu() for k in keys], want_sorted=True)
+    expect(torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]),
+           "K19 victim lexsort differs from its plain version")
+    expect(bool((prio < 0).any()) and bool((prio == INT_MAX).any()), "K19 keys lack negatives / padding")
+    # the claim-log join: one claim per job, 3/4 of the rows used
+    J = 512
+    G = int(st.group_valid.sum())
+    n = min(J, G) * 3 // 4
+    log_g = np.full(J, -1, np.int64)
+    log_g[:n] = rng.permutation(G)[:n]
+    size = st.group_size.cpu().numpy()
+    log_r = np.where(log_g >= 0, rng.integers(0, np.maximum(size[np.maximum(log_g, 0)], 1)), 0)
+    claim_key = torch.from_numpy(np.where(log_g >= 0, log_g * (T + 1) + log_r, INT_MAX)
+                                 .astype(np.int32)[rng.permutation(J)]).to(dev)
+    task_key = (st.task_group.clamp(0, st.num_groups - 1) * (T + 1) + st.task_group_rank).to(torch.int32)
+
+    def join(ck, tk, sort, lookup):
+        order, ks = sort((ck,), want_sorted=True)
+        return (order, ks) + tuple(lookup(ks, tk))
+
+    gj = join(claim_key, task_key, k19.stable_sort, k19.sorted_lookup)
+    wj = join(claim_key.cpu(), task_key.cpu(), k19.stable_sort_plain, k19.sorted_lookup_plain)
+    expect(all(torch.equal(a.cpu(), b) for a, b in zip(gj, wj)), "K19 claim join differs from its plain version")
+    expect(int(gj[3].sum()) > 0, "K19 claim join found no task")
+    # segment_order: out-of-range slots, then one segment (ordered_sum's)
+    S, Ts = 1024, 102_400
+    sidx = torch.from_numpy(rng.integers(-3, S + 4, Ts).astype(np.int32))
+    for ix, nseg in ((sidx, S), (torch.zeros(Ts, dtype=torch.int32), 1)):
+        a, b = k4.segment_order(ix.to(dev), nseg), k4.segment_order(ix, nseg)
+        expect(torch.equal(a[0].cpu(), b[0]) and torch.equal(a[1].cpu(), b[1]),
+               f"K19 segment_order differs from its plain version at S = {nseg}")
+    sidx_d = sidx.to(dev)
+    ms = cuda_ms(lambda: k19.stable_sort(keys))
+    join_ms = cuda_ms(lambda: join(claim_key, task_key, k19.stable_sort, k19.sorted_lookup))
+    seg_ms = cuda_ms(lambda: k4.segment_order(sidx_d, S))
+    plain_ms = cuda_ms(lambda: k19.stable_sort_plain(keys), reps=5)
+    lib_ms = cuda_ms(lambda: torch.sort(view.node, stable=True))
+    b, by = bound_ms(len(keys) * T * 4 + T * 4, 0)
+    print(f"kernel stable_sort: claim join (J={J} sort + T={T} lookups) {join_ms:.4f} ms, "
+          f"segment_order {Ts} -> {S} {seg_ms:.4f} ms", flush=True)
+    return dict(name="stable_sort", max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms, join_ms=join_ms, segment_order_ms=seg_ms,
+                shape=f"4 keys i32[{T}] (preempt's by_node_queue victim layout); library: "
+                      f"torch.sort(stable=True) of one key")
+
+
+def k20_case(dev):
+    """K20 at _reclaim_fast's cumulative shapes, [51,200, 3] (the fair
+    resources, the case timed) and [51,200, 4], and a [V] column, on
+    fractional values whose totals pass 2^24 with -0.0 among them:
+    bit for bit its plain version run on the CPU."""
+    from kube_arbitrator_tpu_torch.ops import common
+    from kube_arbitrator_tpu_torch.ops.kernels import ordered_scan as k20
+
+    rng = np.random.default_rng(20)
+    V = 51_200
+    err = 0.0
+    for C in (3, 4, 1):
+        x = (rng.integers(1, 64_000, (V, C)) * rng.random((V, C))).astype(np.float32)
+        x[rng.random((V, C)) < 0.02] = -0.0
+        xc = torch.from_numpy(x)
+        want = k20.ordered_scan_plain(xc)
+        got = (k20.ordered_scan(xc.to(dev)) if C > 1 else common.mm_cumsum(xc[:, 0].to(dev))[:, None]).cpu()
+        err = max(err, max_err(got, want))
+        expect(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+               f"K20 differs from its plain version at [{V}, {C}]")
+        expect(float(want[-1, 0]) > 2**24, "K20 inputs: the total does not pass 2^24")
+    x = torch.from_numpy((rng.integers(1, 64_000, (V, 3)) * rng.random((V, 3))).astype(np.float32)).to(dev)
+    ms = cuda_ms(lambda: k20.ordered_scan(x))
+    plain_ms = cuda_ms(lambda: k20.ordered_scan_plain(x), reps=5)
+    lib_ms = cuda_ms(lambda: torch.cumsum(x, dim=0))
+    b, by = bound_ms(2 * V * 3 * 4, V * 3)
+    return dict(name="ordered_scan", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms,
+                shape=f"f32[{V},3] (_reclaim_fast's proportion cumulative); library: "
+                      f"torch.cumsum (another add order)")
+
+
 def k16_case(dev, efx, tfx):
     """B7 at T = 102,400 (the case timed), B4 on the allocate world's
     feasibility cells at [K, 10,240], B11 on the evictive world's running
@@ -1533,6 +1672,8 @@ def main() -> int:
     report(k9_case(dev, tfx))
     report(k10_case(dev, tfx))
     report(k16_case(dev, fx, tfx))
+    report(k19_case(dev, fx))
+    report(k20_case(dev))
     del fx, tfx
     fx = window_fixture(dev)
     for case in (k13_case, k14_case, k15_case):
@@ -1667,7 +1808,7 @@ def main() -> int:
             expect(got == want, f"seed 42 differs from the JAX package's decisions: {got} vs {want}")
     print(f"launches on the evictive path (50k x 5k, seed 42): {evict_counts}; peak device "
           f"memory {epeak / 2**30:.2f} GiB", flush=True)
-    for k in SLICE2_KERNELS + ("queue_order",):
+    for k in SLICE2_KERNELS + ("queue_order", "stable_sort"):
         expect(evict_counts[k] > 0, f"kernel {k} was not launched on the evictive path")
     print(f"phase 4 (evictive, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1675,12 +1816,23 @@ def main() -> int:
     # evictive world and the binpack / spread allocate worlds
     t0 = time.perf_counter()
     pa_counts = order_counts = None
+    from kube_arbitrator_tpu_torch.ops import preempt as preempt_mod
+    reclaim_pop, fast_turns = preempt_mod._reclaim_pop, [0]
+
+    def counting_pop(*a, **kw):  # one call per _reclaim_fast turn
+        fast_turns[0] += 1
+        return reclaim_pop(*a, **kw)
+
     for seed in (42, 43):
         torch.cuda.synchronize()
         if seed == 42:
             kernels.reset_counts()
-        g = decide_world(device=dev, actions=EVICT_ACTIONS, seed=seed, pod_affinity=True,
-                         **EVICT_FULL)
+            preempt_mod._reclaim_pop = counting_pop
+        try:
+            g = decide_world(device=dev, actions=EVICT_ACTIONS, seed=seed, pod_affinity=True,
+                             **EVICT_FULL)
+        finally:
+            preempt_mod._reclaim_pop = reclaim_pop
         if seed == 42:
             pa_counts = kernels.counts()
         dec = g["decisions"]
@@ -1728,11 +1880,19 @@ def main() -> int:
             got = dict(binds=int(bind.sum()), digest=digest)
             expect(got == BINPACK_WORLD_42, f"binpack seed 42 differs from the JAX package: "
                    f"{got} vs {BINPACK_WORLD_42}")
-    print(f"launches on the pod-affinity path (50k x 5k, seed 42): {pa_counts}", flush=True)
+    print(f"launches on the pod-affinity path (50k x 5k, seed 42): {pa_counts}; "
+          f"_reclaim_fast turns {fast_turns[0]}", flush=True)
     print(f"launches on the binpack path (100k x 10k, seed 42): {order_counts}", flush=True)
     for k in ("pa_fit", "pa_shape", "turn_caps", "turn_fill", "claim_nodes", "seg_scan",
-              "segment_sum", "lex_argmin", "queue_order"):
+              "segment_sum", "lex_argmin", "queue_order", "stable_sort", "ordered_scan"):
         expect(pa_counts[k] > 0, f"kernel {k} was not launched on the pod-affinity path")
+    # one cumulative a turn for the covering prefix, and one for
+    # proportion's victim check when proportion is a reclaim verdict
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+    per_turn = 1 + ("proportion" in preempt_mod._reclaim_verdict_names(tiers))
+    expect(pa_counts["ordered_scan"] == per_turn * fast_turns[0],
+           f"K20 launched {pa_counts['ordered_scan']} times over {fast_turns[0]} _reclaim_fast "
+           f"turns, not {per_turn} a turn")
     for k in ("turn_caps", "turn_fill", "lex_argmin", "queue_order"):
         expect(order_counts[k] > 0, f"kernel {k} was not launched on the binpack path")
     print(f"phase 5 (immediate path, full width) {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1862,6 +2022,75 @@ def main() -> int:
               f"{gpu_d.last_cycle_ms:.1f} ms, CPU {cpu_d.last_cycle_ms:.0f} ms)", flush=True)
     print(f"phase 7 (serving path, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 8: the evictive cycle under the priority mix at full width
+    # — preempt's phase 2 and the gated round on the card
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    g = decide_world(device=dev, actions=EVICT_ACTIONS, seed=45, **MIX_FULL)
+    mix_counts = kernels.counts()
+    dec = g["decisions"]
+    invariants(g["pack"], dec, g["binds"])
+    evict_invariants(g["pack"], dec)
+    bind, ev = dec.bind_mask.cpu().numpy(), dec.evict_mask.cpu().numpy()
+    phases = np.bincount(dec.evict_phase.cpu().numpy()[ev], minlength=4).tolist()
+    digest = decision_digest(bind, ev)
+    stages = {k[3:]: round(v, 1) for k, v in g["stats"].items() if k.startswith("ms.")}
+    gated = g["stats"]["rounds_gated.preempt"]
+    print(f"priority-mix full width {MIX_FULL['tasks']}x{MIX_FULL['nodes']} q{MIX_FULL['queues']} "
+          f"seed 45: {int(bind.sum())} binds, evicts by phase {phases}, digest {digest}, rounds "
+          f"{g['rounds']}, card cycle {g['cycle_ms']:.1f} ms {stages}", flush=True)
+    expect(phases[1] > 0 and phases[2] > 0 and phases[3] > 0,
+           f"priority-mix world: a phase evicted nothing: {phases}")
+    expect(gated > 0, "priority-mix world: preempt gated no round")
+    got = dict(binds=int(bind.sum()), evicts_by_phase=phases, digest=digest)
+    expect(got == MIX_WORLD_45, f"priority-mix seed 45 differs from the JAX package: {got} vs "
+           f"{MIX_WORLD_45}")
+    print(f"launches on the priority-mix path (50k x 5k, seed 45): {mix_counts}", flush=True)
+    for k in SLICE2_KERNELS + ("queue_order", "stable_sort", "stable_compact"):
+        expect(mix_counts[k] > 0, f"kernel {k} was not launched on the priority-mix path")
+    gs = decide_world(device=dev, actions=EVICT_ACTIONS, **MIX_CPU_CHECK)
+    c = decide_world(device="cpu", actions=EVICT_ACTIONS, **MIX_CPU_CHECK)
+    fields = [f.name for f in dataclasses.fields(CycleDecisions)]
+    eq = compare(gs["decisions"], c["decisions"], fields)
+    # the standing tolerance of queue_deserved (ROADMAP queue C): rtol 1e-5
+    qd = (gs["decisions"].queue_deserved.cpu(), c["decisions"].queue_deserved.cpu())
+    qd_close = torch.allclose(qd[0], qd[1], rtol=1e-5, atol=0.0)
+    bad = [f for f, ok in eq.items() if not ok and f != "queue_deserved"]
+    expect(not bad and qd_close, f"priority-mix {MIX_CPU_CHECK['tasks']}: card vs CPU differ in "
+           f"{bad} (queue_deserved within rtol 1e-5: {qd_close})")
+    expect(gs["rounds"] == c["rounds"], f"priority-mix: rounds {gs['rounds']} vs {c['rounds']}")
+    cph = np.bincount(c["decisions"].evict_phase.numpy()[c["decisions"].evict_mask.numpy()],
+                      minlength=4).tolist()
+    print(f"priority-mix {MIX_CPU_CHECK['tasks']}x{MIX_CPU_CHECK['nodes']} seed "
+          f"{MIX_CPU_CHECK['seed']}: card == CPU in every field (queue_deserved exactly equal: "
+          f"{eq['queue_deserved']}), evicts by phase {cph}, rounds {gs['rounds']} (card "
+          f"{gs['cycle_ms']:.0f} ms, CPU {c['cycle_ms']:.0f} ms)", flush=True)
+    print(f"phase 8 (priority mix, full width) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 9: no library sort on the evictive paths — the evictive
+    # and pod-affinity evictive cycles (50k x 5k, seed 42) under the profiler
+    t0 = time.perf_counter()
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, kw in (("evictive", {}), ("pa_evict", dict(pod_affinity=True))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            g = decide_world(device=dev, actions=EVICT_ACTIONS, seed=42, **kw, **EVICT_FULL)
+            torch.cuda.synchronize()
+        ops = dict.fromkeys(("aten::sort", "aten::argsort", "aten::searchsorted"), 0)
+        for e in prof.key_averages():
+            if e.key in ops:
+                ops[e.key] = e.count
+        dev_ev = [e for e in prof.events()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        n_kern = sum(1 for e in dev_ev if not e.name.startswith(("Memcpy", "Memset")))
+        print(f"profiled {name} cycle (50k x 5k, seed 42): {ops}, {n_kern} device kernels "
+              f"({len(dev_ev)} device events), profiled cycle {g['cycle_ms']:.1f} ms", flush=True)
+        expect(ops["aten::sort"] == 0 and ops["aten::argsort"] == 0,
+               f"the {name} cycle ran a library sort: {ops}")
+    print(f"phase 9 (profiled, no library sort) {time.perf_counter() - t0:.1f} s", flush=True)
+
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
                         "kube_arbitrator_tpu/ops/allocate.py:793"),
@@ -1899,6 +2128,10 @@ def main() -> int:
                         "kube_arbitrator_tpu/ops/allocate.py:1043"),
         "row_scatter": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/row_scatter.cu",
                         "kube_arbitrator_tpu/cache/arena.py:156"),
+        "stable_sort": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/stable_sort.cu",
+                        "kube_arbitrator_tpu/ops/preempt.py:118"),
+        "ordered_scan": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/ordered_scan.cu",
+                         "kube_arbitrator_tpu/ops/common.py:102"),
     }
     kline = []
     for k, r in rows.items():
@@ -1912,6 +2145,10 @@ def main() -> int:
             n = opt_counts[k]
         elif k in ("queue_order", "row_scatter"):
             n = serve_counts[k]
+        elif k == "stable_sort":
+            n = evict_counts[k] + pa_counts[k]
+        elif k == "ordered_scan":
+            n = pa_counts[k]
         else:
             n = evict_counts[k]
         kline.append(dict(name=k, route="cuda", source=replaces[k][0], replaces=replaces[k][1],

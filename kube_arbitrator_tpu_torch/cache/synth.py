@@ -10,6 +10,12 @@ from ``seed`` and equal the reference's field for field.
 (anti-)affinity terms (:func:`pod_affinity_tables`), encoded in the
 layout of the reference's ``_build_pod_affinity`` (cache/snapshot.py:
 503-636); the other arrays are the same as without it.
+
+``priority_mix=True`` draws job, pending-group and running-task
+priorities from ``PRIORITIES`` and leaves a pending tail on a share of
+the running jobs (:func:`priority_tables`), so preempt's phase 2 (a
+pending group evicting lower-priority running tasks of its own job) has
+work.  With it off every array is the same as before the mix existed.
 """
 from __future__ import annotations
 
@@ -38,6 +44,12 @@ PA_MIX = ((0.2, "self_aff_rack"), (0.4, "self_anti_host"), (0.5, "aff_zone_cache
 PA_CACHE_RUNNING = 0.05    # RUNNING jobs labelled tier=cache
 PA_NOISY_RUNNING = 0.05    # RUNNING jobs labelled tier=noisy (with an anti term)
 PA_LATENCY_PENDING = 0.10  # pending jobs labelled tier=latency
+# the priority mix: pod priorities 1-3 as the reference bench's ingest row
+# draws them (bench.py:991); the running jobs that scale up keep the last
+# quarter of their tasks pending as one group of their own
+PRIORITIES = (1, 3)
+PRIO_SCALE_UP = 0.5
+PRIO_TAIL = 0.25
 
 # (cpu milli, memory bytes, gpu milli) request profiles
 _PROFILES = np.array(
@@ -78,11 +90,16 @@ def build_synthetic_arrays(
     fit_fraction: float = 1.2,
     max_tasks_per_node: Optional[int] = None,
     pod_affinity: bool = False,
+    priority_mix: bool = False,
 ) -> Tuple[Dict[str, np.ndarray], SynthIndex]:
     """The pack of a ``num_tasks`` x ``num_nodes`` world as numpy arrays.
     ``fit_fraction`` sizes node capacity as that multiple of total demand;
     ``running_fraction`` of JOBS are pre-placed RUNNING; ``pod_affinity``
-    adds the affinity mix of :func:`pod_affinity_tables`."""
+    adds the affinity mix of :func:`pod_affinity_tables`, ``priority_mix``
+    the priorities of :func:`priority_tables` (not both)."""
+    if pod_affinity and priority_mix:
+        raise ValueError("the priority mix gives running jobs pending groups, which the "
+                         "pod-affinity mix does not label; pick one")
     rng = np.random.default_rng(seed)
     T_real, N_real = int(num_tasks), int(num_nodes)
     J_real = max(1, -(-T_real // tasks_per_job))
@@ -107,6 +124,9 @@ def build_synthetic_arrays(
 
     running_job = rng.random(J_real) < running_fraction
     gang_job = rng.random(J_real) < gang_fraction
+    prio = priority_tables(seed, running_job, job_len) if priority_mix else None
+    # pending tasks at the end of each running job (none without the mix)
+    tail = prio["tail"] if prio else np.zeros(J_real, np.int64)
 
     # ---- node capacity from total demand ----
     total_dev = (job_req_dev.astype(np.float64) * job_len[:, None]).sum(axis=0)
@@ -121,7 +141,7 @@ def build_synthetic_arrays(
     task_job = np.zeros(T, dtype=np.int32)
     task_job[:T_real] = tjob
     task_status = np.full(T, int(TaskStatus.UNKNOWN), dtype=np.int32)
-    run_task = running_job[tjob]
+    run_task = running_job[tjob] & (task_ids < job_start[tjob] + job_len[tjob] - tail[tjob])
     task_status[:T_real] = np.where(
         run_task, int(TaskStatus.RUNNING), int(TaskStatus.PENDING)
     )
@@ -134,16 +154,19 @@ def build_synthetic_arrays(
     task_valid = np.zeros(T, dtype=bool)
     task_valid[:T_real] = True
 
-    # ---- groups: one per PENDING job ----
-    pending_job = ~running_job
+    # ---- groups: one per job with pending tasks ----
+    pending_job = ~running_job | (tail > 0)
     g_of_job = np.cumsum(pending_job) - 1
     G_real = int(pending_job.sum())
+    # first pending task of each job, relative to the job's start
+    group_first = np.where(running_job, job_len - tail, 0)
     G = _bucket(max(G_real, 1), 32, 32)
     task_group = np.full(T, -1, dtype=np.int32)
     pend_rows = np.nonzero(~run_task)[0]
     task_group[pend_rows] = g_of_job[tjob[pend_rows]]
     task_group_rank = np.zeros(T, dtype=np.int32)
     task_group_rank[:T_real] = task_ids - job_start[tjob]
+    task_group_rank[pend_rows] -= group_first[tjob[pend_rows]].astype(np.int32)
 
     pjobs = np.nonzero(pending_job)[0]
     group_job = np.zeros(G, dtype=np.int32)
@@ -151,9 +174,9 @@ def build_synthetic_arrays(
     group_resreq = np.zeros((G, R), dtype=np.float32)
     group_resreq[:G_real] = job_req_dev[pjobs]
     group_size = np.zeros(G, dtype=np.int32)
-    group_size[:G_real] = job_len[pjobs]
+    group_size[:G_real] = (job_len - group_first)[pjobs]
     group_uid_rank = np.zeros(G, dtype=np.int32)
-    group_uid_rank[:G_real] = job_start[pjobs]
+    group_uid_rank[:G_real] = (job_start + group_first)[pjobs]
     group_valid = np.zeros(G, dtype=bool)
     group_valid[:G_real] = True
 
@@ -193,11 +216,19 @@ def build_synthetic_arrays(
     queue_valid = np.zeros(Q, dtype=bool)
     queue_valid[:Q_real] = True
 
+    task_priority = np.zeros(T, dtype=np.int32)
+    group_priority = np.zeros(G, dtype=np.int32)
+    job_priority = np.zeros(J, dtype=np.int32)
+    if prio:
+        job_priority[:J_real] = prio["job"]
+        group_priority[:G_real] = prio["group"][pjobs]
+        task_priority[:T_real] = np.where(run_task, prio["task"], prio["group"][tjob])
+
     arrays = dict(
         task_resreq=task_resreq,
         task_job=task_job,
         task_status=task_status,
-        task_priority=np.zeros(T, dtype=np.int32),
+        task_priority=task_priority,
         task_uid_rank=task_uid_rank,
         task_klass=np.zeros(T, dtype=np.int32),
         task_node=task_node,
@@ -211,7 +242,7 @@ def build_synthetic_arrays(
         group_klass=np.zeros(G, dtype=np.int32),
         group_ports=np.zeros((G, W), dtype=np.int32),
         group_size=group_size,
-        group_priority=np.zeros(G, dtype=np.int32),
+        group_priority=group_priority,
         group_uid_rank=group_uid_rank,
         group_best_effort=np.zeros(G, dtype=bool),
         group_valid=group_valid,
@@ -226,7 +257,7 @@ def build_synthetic_arrays(
         node_valid=node_valid,
         job_queue=job_queue,
         job_min_available=job_min_available,
-        job_priority=np.zeros(J, dtype=np.int32),
+        job_priority=job_priority,
         job_creation_rank=job_creation_rank,
         job_valid=job_valid,
         queue_weight=queue_weight,
@@ -236,7 +267,7 @@ def build_synthetic_arrays(
         others_used=np.zeros(R, dtype=np.float32),
         **build_reclaim_pack(
             task_status, task_node, task_valid, task_job,
-            np.zeros(T, dtype=np.int32), task_uid_rank, job_queue, N,
+            task_priority, task_uid_rank, job_queue, N,
         ),
     )
     if pod_affinity:
@@ -247,6 +278,25 @@ def build_synthetic_arrays(
     else:
         arrays.update(trivial_pod_affinity(T, N, G))
     return arrays, SynthIndex(T_real, N_real)
+
+
+def priority_tables(seed: int, running_job: np.ndarray, job_len: np.ndarray) -> Dict[str, np.ndarray]:
+    """The priority mix of a world, drawn from ``seed`` with a generator of
+    its own (the base world's draws are unchanged): per job a priority
+    and its pending group's priority, per task a priority that its
+    running tasks keep (pending tasks take their group's), all in
+    ``PRIORITIES``; and per job the length of its pending tail —
+    ``PRIO_TAIL`` of the tasks (at least one, never all) of a
+    ``PRIO_SCALE_UP`` share of the running jobs, 0 elsewhere."""
+    rng = np.random.default_rng([seed, 0x9B])
+    lo, hi = PRIORITIES
+    J_real = running_job.shape[0]
+    job = rng.integers(lo, hi + 1, J_real)
+    group = rng.integers(lo, hi + 1, J_real)
+    task = rng.integers(lo, hi + 1, int(job_len.sum()))
+    scale_up = running_job & (rng.random(J_real) < PRIO_SCALE_UP)
+    tail = np.where(scale_up, np.minimum(np.ceil(job_len * PRIO_TAIL), job_len - 1), 0)
+    return dict(job=job, group=group, task=task, tail=tail.astype(np.int64))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -432,11 +482,13 @@ def build_synthetic_snapshot(
     max_tasks_per_node: Optional[int] = None,
     pod_affinity: bool = False,
     device: DeviceLike = None,
+    priority_mix: bool = False,
 ) -> Snapshot:
     """:func:`build_synthetic_arrays` packed onto ``device``."""
     arrays, index = build_synthetic_arrays(
         num_tasks, num_nodes, num_queues, tasks_per_job, seed,
         running_fraction, gang_fraction, fit_fraction, max_tasks_per_node, pod_affinity,
+        priority_mix,
     )
     return Snapshot(tensors=from_numpy(arrays, device), index=index)
 

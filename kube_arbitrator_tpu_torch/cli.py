@@ -4,7 +4,8 @@
         --queues 8 --tasks-per-job 100 --cycles 3 --seed 42 [--device cpu] [--json]
     python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 \\
         --running-fraction 0.5 --actions reclaim,allocate,backfill,preempt \\
-        [--pod-affinity] [--node-order {first_fit,binpack,spread}]
+        [--pod-affinity | --priority-mix] [--node-order {first_fit,binpack,spread}]
+        [--fit-fraction 1.2]
     python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 --queues 512 \\
         --running-fraction 0.5 --actions reclaim_optimistic,allocate,backfill,preempt
     python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 \\
@@ -16,10 +17,15 @@ tiers (``--node-order`` sets their nodeorder plugin's policy) and the
 (task uid, node name) pairs, and prints the bind and evict counts, the
 rounds per action (with the gated rounds of preempt and the reclaim
 actions, and the reclaim actions' claim conflicts) and the wall time.
-``reclaim_optimistic`` is reclaim through the optimistic engine.  ``--pod-affinity`` labels the
+``reclaim_optimistic`` is reclaim through the optimistic engine.
+``--json`` adds the evictions by phase (none, preempt phase 1, phase 2,
+reclaim).  ``--pod-affinity`` labels the
 world's nodes with hostname, rack and zone domains and gives its jobs
-the pod-(anti-)affinity mix of cache/synth.py.  Building the world and
-copying it to the device is set-up and is timed apart from the cycle.
+the pod-(anti-)affinity mix of cache/synth.py.  ``--priority-mix`` draws
+job, group and task priorities 1-3 and leaves a pending tail on half the
+running jobs (cache/synth.priority_tables), so preempt evicts in its
+phase 2 too.  Building the world and copying it to the device is set-up
+and is timed apart from the cycle.
 
 ``--epochs E`` (E > 1) serves each world for E epochs through the
 scheduler-facing decider (framework.TorchDecider): epoch 1 uploads the
@@ -66,6 +72,7 @@ def decide_world(
     actions: Tuple[str, ...] = DEFAULT_ACTIONS,
     node_order: str = "first_fit",
     pod_affinity: bool = False,
+    priority_mix: bool = False,
 ) -> Dict:
     """Build one synthetic world, decide it on ``device`` with ``actions``
     under the default tiers with ``node_order``, and decode its binds.
@@ -76,6 +83,7 @@ def decide_world(
     arrays, index = build_synthetic_arrays(
         tasks, nodes, queues, tasks_per_job, seed,
         running_fraction=running_fraction, fit_fraction=fit_fraction, pod_affinity=pod_affinity,
+        priority_mix=priority_mix,
     )
     st = from_numpy(arrays, dev)
     _sync(dev)
@@ -108,6 +116,7 @@ def serve_world(
     device=None,
     actions: Tuple[str, ...] = DEFAULT_ACTIONS,
     node_order: str = "first_fit",
+    priority_mix: bool = False,
 ) -> List[Dict]:
     """Serve one synthetic world for ``epochs`` epochs through a
     TorchDecider on ``device``, completing ``CHURN`` of the running tasks
@@ -115,7 +124,7 @@ def serve_world(
     bytes and ms, cycle ms, decide ms, binds and evicts."""
     arrays, _ = build_synthetic_arrays(tasks, nodes, queues, tasks_per_job, seed,
                                        running_fraction=running_fraction,
-                                       fit_fraction=fit_fraction)
+                                       fit_fraction=fit_fraction, priority_mix=priority_mix)
     decider = TorchDecider(device)
     conf = SchedulerConfig(actions=tuple(actions), tiers=with_node_order(node_order))
     out = []
@@ -137,6 +146,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--running-fraction", type=float, default=0.0,
                     help="fraction of jobs pre-placed RUNNING (the evictive actions' victims)")
+    ap.add_argument("--fit-fraction", type=float, default=1.2,
+                    help="node capacity as a multiple of the total demand")
     ap.add_argument("--actions", default=",".join(DEFAULT_ACTIONS),
                     help="comma list of actions, e.g. reclaim,allocate,backfill,preempt "
                          "(reclaim_optimistic: reclaim through the optimistic engine)")
@@ -144,6 +155,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="the nodeorder plugin's policy")
     ap.add_argument("--pod-affinity", action="store_true",
                     help="topology labels and the pod-(anti-)affinity mix of cache/synth.py")
+    ap.add_argument("--priority-mix", action="store_true",
+                    help="priorities 1-3 and pending tails on running jobs (cache/synth.py)")
     ap.add_argument("--epochs", type=int, default=1,
                     help="serve each world for this many epochs through the TorchDecider, "
                          f"completing {CHURN:.0%} of its running tasks between epochs")
@@ -160,8 +173,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     for c in range(a.cycles):
         if a.epochs > 1:
             for row in serve_world(a.tasks, a.nodes, a.epochs, a.queues, a.tasks_per_job,
-                                   a.seed + c, running_fraction=a.running_fraction, device=dev,
-                                   actions=actions, node_order=a.node_order):
+                                   a.seed + c, running_fraction=a.running_fraction,
+                                   fit_fraction=a.fit_fraction, device=dev,
+                                   actions=actions, node_order=a.node_order,
+                                   priority_mix=a.priority_mix):
                 row = dict(cycle=c, seed=a.seed + c, device=name, **row)
                 if a.json:
                     print(json.dumps(row), flush=True)
@@ -172,11 +187,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                           f"{row['binds']} binds, {row['evicts']} evicts", flush=True)
             continue
         r = decide_world(a.tasks, a.nodes, a.queues, a.tasks_per_job, a.seed + c,
-                         running_fraction=a.running_fraction, device=dev, actions=actions,
-                         node_order=a.node_order, pod_affinity=a.pod_affinity)
+                         running_fraction=a.running_fraction, fit_fraction=a.fit_fraction,
+                         device=dev, actions=actions,
+                         node_order=a.node_order, pod_affinity=a.pod_affinity,
+                         priority_mix=a.priority_mix)
+        dec = r["decisions"]
         row = dict(
             cycle=c, seed=a.seed + c, device=name, binds=len(r["binds"]),
-            evicts=int(r["decisions"].evict_count),
+            evicts=int(dec.evict_count),
+            evicts_by_phase=torch.bincount(dec.evict_phase[dec.evict_mask].cpu().long(),
+                                           minlength=4).tolist(),
             dense_fallback=r["binds"].overflowed, rounds=r["rounds"],
             stages_ms={k[3:]: v for k, v in r["stats"].items() if k.startswith("ms.")},
             cycle_ms=r["cycle_ms"], decode_ms=r["decode_ms"], setup_ms=r["setup_ms"],

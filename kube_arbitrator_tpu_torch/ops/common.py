@@ -16,8 +16,10 @@ from ..api.resource import NUM_FAIR_RESOURCES
 from ..cache.snapshot import DEVICE_EPSILON
 from .kernels.lex_argmin import lex_argmin as _lex_argmin_k2
 from .kernels.admit_chunk import to_i32
+from .kernels.ordered_scan import ordered_scan
 from .kernels.seg_scan import seg_scan
 from .kernels.segment_sum import ordered_sum, segment_sum
+from .kernels.stable_sort import stable_sort
 
 EPS = DEVICE_EPSILON
 BIG = 3.0e38  # rounds to the reference's float32 BIG (effectively +inf)
@@ -69,11 +71,8 @@ def lex_argmin(keys: Sequence[torch.Tensor], mask: torch.Tensor) -> Tuple[torch.
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """i64 permutation of ``jnp.lexsort(keys)`` (the LAST key primary,
-    ties kept in index order): stable sorts, least significant key first."""
-    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for k in keys:
-        perm = perm[torch.sort(k[perm], stable=True).indices]
-    return perm
+    ties kept in index order) of one to six i32 keys, through K19."""
+    return stable_sort(tuple(keys))[0].to(torch.int64)
 
 
 def ceil_div_pos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -93,44 +92,19 @@ def seg_cumsum(x: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
     return out[:, 0] if squeeze else out
 
 
-SCAN_BLOCK = 16
-
-
 def mm_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 prefix sum along axis 0 of ``x`` [V] or [V, C], added
     in the order of the reference's ``mm_cumsum`` on the CPU
     (kube_arbitrator_tpu/ops/common.py:118-119: ``jnp.cumsum``, which XLA
-    rewrites into a two-level scan): blocks of SCAN_BLOCK summed left to
-    right, plus the inclusive scan (the same recursion) of the previous
-    blocks' totals.  Elementwise f32 adds only, so the card and the CPU
-    give the reference's bits (``torch.cumsum`` would add in double on
-    the CPU and in another order on the card)."""
+    rewrites into a two-level scan): blocks of 16 summed left to right,
+    plus the inclusive scan (the same recursion) of the previous blocks'
+    totals.  Plain f32 adds only, so the card and the CPU give the
+    reference's bits (``torch.cumsum`` would add in double on the CPU and
+    in another order on the card).  Through K20."""
     squeeze = x.dim() == 1
     v = (x[:, None] if squeeze else x).to(torch.float32)
-    out = _blocked_scan(v)
+    out = ordered_scan(v)
     return out[:, 0] if squeeze else out
-
-
-def _blocked_scan(v: torch.Tensor) -> torch.Tensor:
-    n, c = v.shape
-    B = SCAN_BLOCK
-    if n == 0:
-        return v
-    if n <= B:
-        cols = [v[0]]
-        for i in range(1, n):
-            cols.append(cols[-1] + v[i])
-        return torch.stack(cols)
-    nb = -(-n // B)
-    vp = torch.cat([v, v.new_zeros((nb * B - n, c))]) if nb * B != n else v
-    blocks = vp.reshape(nb, B, c)
-    cols = [blocks[:, 0]]
-    for i in range(1, B):
-        cols.append(cols[-1] + blocks[:, i])
-    inner = torch.stack(cols, dim=1)                      # [nb, B, c]
-    outer = _blocked_scan(inner[:, -1].contiguous())      # inclusive over blocks
-    excl = torch.cat([v.new_zeros((1, c)), outer[:-1]])
-    return (inner + excl[:, None, :]).reshape(nb * B, c)[:n]
 
 
 def plugin_on(tiers, name: str, attr: str) -> bool:

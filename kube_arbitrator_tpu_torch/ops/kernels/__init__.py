@@ -19,14 +19,16 @@ PyTorch version and with a launch counter:
 * K16 :func:`stable_compact.stable_compact`  — commit lists, allocate's panel, preempt's panel
 * K17 :func:`queue_order.queue_order`        — a round's queue order (ops/allocate.queue_perm)
 * K18 :func:`row_scatter.row_scatter`        — an epoch's changed rows into the resident pack
+* K19 :func:`stable_sort.stable_sort`        — victim lexsorts, K4's segment order, the claim join
+* K20 :func:`ordered_scan.ordered_scan`      — ops/common.mm_cumsum in XLA:CPU's add order
 
 A wrapper takes the plain version only for CPU tensors; on CUDA tensors
 it launches its kernel (built on first use, see build.py) or raises.
 """
 from . import (
-    admit_chunk, canon_commit, canon_pick, claim_nodes, decode_deferred, lex_argmin, pa_fit,
-    pa_shape, queue_order, round_products, row_scatter, seg_scan, segment_sum, stable_compact,
-    turn_caps, turn_fill, union_fit, window_gate,
+    admit_chunk, canon_commit, canon_pick, claim_nodes, decode_deferred, lex_argmin,
+    ordered_scan, pa_fit, pa_shape, queue_order, round_products, row_scatter, seg_scan,
+    segment_sum, stable_compact, stable_sort, turn_caps, turn_fill, union_fit, window_gate,
 )
 
 # kernel name -> wrapper (each wrapper carries its ``launches`` count)
@@ -49,6 +51,8 @@ KERNELS = {
     "stable_compact": stable_compact.stable_compact,
     "queue_order": queue_order.queue_order,
     "row_scatter": row_scatter.row_scatter,
+    "stable_sort": stable_sort.stable_sort,
+    "ordered_scan": ordered_scan.ordered_scan,
 }
 
 

@@ -18,6 +18,7 @@ import torch
 
 from . import build
 from .build import I, P
+from .stable_sort import run_starts, stable_sort
 
 _F = {torch.float32: "kat_segment_sum_f32", torch.int32: "kat_segment_sum_i32"}
 # C signatures of csrc/segment_sum.cu
@@ -26,16 +27,15 @@ SIGNATURES = {name: (P, P, P, I, I, I, P, P) for name in _F.values()}
 
 
 def segment_order(idx: torch.Tensor, num_segments: int):
-    """(perm, seg_start): slots stably sorted by segment, and the start of
-    every segment's contiguous run (out-of-range slots sort last and fall
-    outside every run).  A caller that sums over the same ``idx`` many
-    times computes this once and passes it as ``order=``."""
+    """(perm i32[T], seg_start i32[S+1]): slots stably sorted by segment,
+    and the start of every segment's contiguous run (out-of-range slots
+    sort last and fall outside every run), through K19 with the key's
+    range [0, S].  A caller that sums over the same ``idx`` many times
+    computes this once and passes it as ``order=``."""
     valid = (idx >= 0) & (idx < num_segments)
-    key = torch.where(valid, idx.to(torch.int64), num_segments)
-    sorted_key, perm = torch.sort(key, stable=True)
-    bounds = torch.arange(num_segments + 1, device=idx.device)
-    seg_start = torch.searchsorted(sorted_key, bounds, right=False)
-    return perm, seg_start
+    key = torch.where(valid, idx, num_segments).to(torch.int32)
+    perm, sorted_key = stable_sort((key,), bounds=(num_segments,), want_sorted=True)
+    return perm, run_starts(sorted_key, num_segments)
 
 
 def _as_rows(val, idx, num_segments, out):
@@ -108,6 +108,10 @@ segment_sum.launches = 0
 
 def ordered_sum(val: torch.Tensor) -> torch.Tensor:
     """Sum over axis 0 in row order (one segment) — the order the port
-    owns for every f32 reduction that feeds a decision."""
-    idx = torch.zeros(val.shape[0], dtype=torch.int32, device=val.device)
-    return segment_sum(val, idx, 1)[0]
+    owns for every f32 reduction that feeds a decision.  Every slot is in
+    the one segment, so its order is the identity (no sort)."""
+    n, dev = val.shape[0], val.device
+    idx = torch.zeros(n, dtype=torch.int32, device=dev)
+    order = (torch.arange(n, dtype=torch.int32, device=dev),
+             torch.arange(2, dtype=torch.int32, device=dev) * n)
+    return segment_sum(val, idx, 1, order=order)[0]

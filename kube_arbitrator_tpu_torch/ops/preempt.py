@@ -76,6 +76,7 @@ from .kernels.round_products import new_products, round_products
 from .kernels.seg_scan import seg_scan
 from .kernels.segment_sum import segment_order, segment_sum
 from .kernels.stable_compact import stable_compact
+from .kernels.stable_sort import sorted_lookup, stable_sort
 from .kernels.union_fit import union_fit
 from .kernels.window_gate import (
     CONFLICTS, GATED, ROUND_DONE, START, TRIP, new_gate, window_gate,
@@ -630,12 +631,11 @@ def _replay_claim_log(st, task_status, task_node, log_g, log_n, log_r):
     T = st.num_tasks
     J = log_g.shape[0]
     claim_key = torch.where(log_g >= 0, log_g * (T + 1) + log_r, INT_MAX).to(torch.int32)
-    key_order = torch.argsort(claim_key, stable=True)
-    keys_sorted = claim_key[key_order].contiguous()
+    key_order, keys_sorted = stable_sort((claim_key,), want_sorted=True)  # K19
     task_key = (st.task_group.clamp(0, st.num_groups - 1) * (T + 1) + st.task_group_rank).to(torch.int32)
-    pos = torch.searchsorted(keys_sorted, task_key)
+    pos, found = sorted_lookup(keys_sorted, task_key)  # K19
     pos_c = pos.clamp(0, J - 1)
-    hit = (keys_sorted[pos_c] == task_key) & (st.task_group >= 0) & st.task_valid
+    hit = found & (st.task_group >= 0) & st.task_valid
     tnode = log_n[key_order][pos_c]
     return torch.where(hit, PIPELINED, task_status), torch.where(hit, tnode, task_node)
 

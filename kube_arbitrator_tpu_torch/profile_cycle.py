@@ -12,7 +12,9 @@ A first cycle (seed - 1) warms up the kernel builds and the allocator;
 the profiled cycle then runs alone.  Prints the stage times, the top
 operations by device time, the device-busy share of the cycle's wall
 time (the union of kernel intervals on the card over the wall clock) and
-the count of kernel launches, and writes ``profile_cycle.json`` and a gzipped
+the count of kernel launches and of the library sort and search calls
+(``aten::sort``, ``aten::argsort``, ``aten::searchsorted``; K19 took
+over the port's sorts), and writes ``profile_cycle.json`` and a gzipped
 Chrome trace to ``--out``.  A last, unprofiled pass runs the same world
 action by action under ``torch.cuda.set_sync_debug_mode("warn")`` and
 counts each action's host syncs beside its rounds, gated rounds, claim
@@ -73,6 +75,9 @@ def sync_counts(tasks, nodes, queues, tasks_per_job, seed, running_fraction, act
     return out
 
 
+LIBRARY_OPS = ("aten::sort", "aten::argsort", "aten::searchsorted")
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -122,7 +127,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         span_ms = (max(e.time_range.end for e in dev_events)
                    - min(e.time_range.start for e in dev_events)) / 1e3
     rows = []
+    library = dict.fromkeys(LIBRARY_OPS, 0)
     for ev in prof.key_averages():
+        if ev.key in library:
+            library[ev.key] = ev.count
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -136,7 +144,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         profiled_wall_ms=wall_ms, cycle_ms=r["cycle_ms"], decode_ms=r["decode_ms"],
         stages_ms={k[3:]: v for k, v in r["stats"].items() if k.startswith("ms.")},
         rounds=r["rounds"], device_busy_ms=busy_ms, device_span_ms=span_ms,
-        device_kernels=len(dev_events), port_kernel_launches=launches,
+        device_kernels=len(dev_events), port_kernel_launches=launches, library_ops=library,
         host_syncs=syncs, top=rows[:30],
     )
     out = Path(a.out)

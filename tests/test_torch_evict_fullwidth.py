@@ -69,3 +69,83 @@ def test_fullwidth_evictive_world_matches_reference():
           f"f32 fields equal {f32_equal}")
     assert not diverged, f"integer decision fields diverged: {diverged}"
     assert phases[1] > 0 and phases[3] > 0
+
+
+# The priority-mix evictive world (cache/synth.py ``priority_mix``): 64
+# queues, capacity equal to the demand, seed 45 — preempt evicts in both
+# phases and gates a round.  chip_smoke.py pins its counts and digest as
+# ``MIX_WORLD_45``.  The reference gets the port synth's arrays.
+MIX_WORLD = dict(num_tasks=50_000, num_nodes=5_000, num_queues=64, tasks_per_job=100, seed=45,
+                 running_fraction=0.5, fit_fraction=1.0)
+
+
+@pytest.mark.slow
+def test_fullwidth_priority_mix_world_matches_reference():
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+
+    arrays, _ = build_synthetic_arrays(**MIX_WORLD, priority_mix=True)
+    st = dataclasses.replace(ref_synth(**MIX_WORLD).tensors, **arrays)
+    t0 = time.perf_counter()
+    ref = ref_cycle.schedule_cycle(st, actions=FULL)
+    np.asarray(ref.evict_mask)
+    t1 = time.perf_counter()
+    stats = {}
+    port = port_cycle.schedule_cycle(from_numpy(arrays, "cpu"), actions=FULL, stats=stats)
+    t2 = time.perf_counter()
+    diverged = [f.name for f in dataclasses.fields(port) if f.name not in F32_FIELDS
+                and not np.array_equal(np.asarray(getattr(ref, f.name)), getattr(port, f.name).numpy())]
+    f32_equal = {f: bool(np.array_equal(np.asarray(getattr(ref, f)), getattr(port, f).numpy()))
+                 for f in F32_FIELDS}
+    bind, evict = port.bind_mask.numpy(), port.evict_mask.numpy()
+    phases = np.bincount(port.evict_phase.numpy()[evict], minlength=4).tolist()
+    print(f"\nreference {t1 - t0:.1f} s, port {t2 - t1:.1f} s (CPU); binds {int(bind.sum())}, "
+          f"evicts by phase {phases}, digest {decision_digest(bind, evict)}, preempt rounds "
+          f"{stats['rounds.preempt']} (gated {stats['rounds_gated.preempt']}), "
+          f"f32 fields equal {f32_equal}")
+    assert not diverged, f"integer decision fields diverged: {diverged}"
+    assert phases[1] > 0 and phases[2] > 0 and phases[3] > 0
+    assert stats["rounds_gated.preempt"] > 0
+
+
+# A priority-mix world where the standing f32 difference decides
+# (ROADMAP queue C): fractional capacity at 16 queues, fit 0.75, seed 44.
+FRACTIONAL_MIX_WORLD = dict(MIX_WORLD, num_queues=16, fit_fraction=0.75, seed=44)
+
+
+@pytest.mark.slow
+def test_fullwidth_fractional_mix_world_differs_in_session_sums_only():
+    """The session opens with every integer field equal to the
+    reference's; the f32 cluster sums may differ (XLA's reduction order
+    against the port's slot order), and here that parts allocate.  Prints
+    the differences the ROADMAP's standing entry quotes."""
+    import jax
+
+    from kube_arbitrator_tpu.ops.ordering import DEFAULT_TIERS as REF_TIERS
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as PORT_TIERS
+
+    arrays, _ = build_synthetic_arrays(**FRACTIONAL_MIX_WORLD, priority_mix=True)
+    st = dataclasses.replace(ref_synth(**FRACTIONAL_MIX_WORLD).tensors, **arrays)
+    pst = from_numpy(arrays, "cpu")
+    rs, rstate = jax.jit(lambda s: ref_cycle.open_session(s, REF_TIERS))(st)
+    ps, pstate = port_cycle.open_session(pst, PORT_TIERS)
+    f32_diff = {}
+    for f in dataclasses.fields(ps):
+        a, b = getattr(rs, f.name, None), getattr(ps, f.name)
+        if a is None or not hasattr(b, "numpy"):
+            continue
+        a, b = np.asarray(a), b.numpy()
+        if a.dtype.kind == "f":
+            if not np.array_equal(a, b):
+                f32_diff[f.name] = float(np.abs(a.astype(np.float64) - b).max())
+        else:
+            assert np.array_equal(a, b), f"session field {f.name}"
+    rounds = {}
+    for act in ("reclaim", "allocate"):
+        rstate = jax.jit(lambda s, se, a, act=act: ref_cycle.ACTION_KERNELS[act](s, se, a, REF_TIERS))(
+            st, rs, rstate)
+        pstate = port_cycle.ACTION_KERNELS[act](pst, ps, pstate, PORT_TIERS)
+        rounds[act] = (int(rstate.rounds), pstate.rounds,
+                       bool(np.array_equal(np.asarray(rstate.task_node), pstate.task_node.numpy())))
+    print(f"\nsession f32 max |reference - port|: {f32_diff}; (reference rounds, port rounds, "
+          f"task_node equal) by action: {rounds}")

@@ -39,6 +39,7 @@ from kube_arbitrator_tpu_torch.ops.kernels import canon_pick as k7
 from kube_arbitrator_tpu_torch.ops.kernels import claim_nodes as k6
 from kube_arbitrator_tpu_torch.ops.kernels import decode_deferred as k3
 from kube_arbitrator_tpu_torch.ops.kernels import lex_argmin as k2
+from kube_arbitrator_tpu_torch.ops.kernels import ordered_scan as k20
 from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
 from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
 from kube_arbitrator_tpu_torch.ops.kernels import queue_order as k17
@@ -47,6 +48,7 @@ from kube_arbitrator_tpu_torch.ops.kernels import row_scatter as k18
 from kube_arbitrator_tpu_torch.ops.kernels import seg_scan as k5
 from kube_arbitrator_tpu_torch.ops.kernels import segment_sum as k4
 from kube_arbitrator_tpu_torch.ops.kernels import stable_compact as k16
+from kube_arbitrator_tpu_torch.ops.kernels import stable_sort as k19
 from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
 from kube_arbitrator_tpu_torch.ops.kernels import turn_fill as k10
 from kube_arbitrator_tpu_torch.ops.kernels import union_fit as k14
@@ -442,7 +444,8 @@ def _c_signatures():
 def test_ctypes_bindings_match_c_signatures():
     sigs = _c_signatures()
     declared = {}
-    for mod in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16, k17, k18):
+    for mod in (k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11, k12, k13, k14, k15, k16, k17, k18,
+                k19, k20):
         declared.update(mod.SIGNATURES)
     assert set(declared) == set(sigs)
     for name, types in declared.items():

@@ -340,7 +340,7 @@ def test_reclaim_action_alone_matches_reference(seed):
     assert torch.equal(pstate.task_status, pst.task_status)  # the caller's state is left alone
 
 
-def test_unported_reclaim_engines_raise():
+def test_every_reclaim_engine_decides_equal_to_reference():
     """Every reclaim engine is ported: the opt-in batched and optimistic
     engines and the ``reclaim_optimistic`` action decide equal to the
     reference, an unknown action raises ValueError; a pack without the
