@@ -1,0 +1,87 @@
+"""Time the port's cycle on two trees in turns, on one card.
+
+    python -m kube_arbitrator_tpu_torch.cycle_turns --parent DIR [--order PCCPCP] \\
+        [--worlds allocate,evictive,pa_evict] [--out FILE]
+
+DIR is a second checkout of the repository (for example the parent
+commit, unpacked with ``git archive``).  For each letter of ``--order``
+(P: DIR, C: this tree) and each world, one process runs the port's CLI
+(``python -m kube_arbitrator_tpu_torch ... --json``) from that tree and
+decides ``cycles`` fresh worlds (seeds seed, seed + 1, ...).  The first
+cycle of a process pays for loading the kernels and warming the card, so
+only the later ("warm") cycles are compared.  Prints one JSON line per
+process and, last, per world and tree the median and range of the warm
+cycles' wall time and of each stage.  Needs the GPU, as the CLI does.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+from typing import Dict, List
+
+HERE = Path(__file__).resolve().parents[1]
+
+# the worlds of PERF.md section 4, as CLI arguments
+WORLDS = {
+    "allocate": ["--tasks", "100000", "--nodes", "10000", "--cycles", "4", "--seed", "42"],
+    "evictive": ["--tasks", "50000", "--nodes", "5000", "--running-fraction", "0.5",
+                 "--actions", "reclaim,allocate,backfill,preempt", "--cycles", "3",
+                 "--seed", "42"],
+    "pa_evict": ["--tasks", "50000", "--nodes", "5000", "--running-fraction", "0.5",
+                 "--actions", "reclaim,allocate,backfill,preempt", "--pod-affinity",
+                 "--cycles", "3", "--seed", "42"],
+}
+
+
+def run_once(tree: Path, world: str, timeout: float) -> List[Dict]:
+    out = subprocess.run([sys.executable, "-m", "kube_arbitrator_tpu_torch", *WORLDS[world],
+                          "--json"], cwd=tree, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise RuntimeError(f"{tree} {world}: exit {out.returncode}\n{out.stderr[-4000:]}")
+    return [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+
+
+def summary(rows: List[Dict]) -> Dict:
+    warm = [r for r in rows if r["cycle"] > 0]
+    cyc = [r["cycle_ms"] for r in warm]
+    stages = sorted({k for r in warm for k in r["stages_ms"]})
+    return dict(
+        runs=len(warm), cycle_ms_median=statistics.median(cyc), cycle_ms_min=min(cyc),
+        cycle_ms_max=max(cyc), cycle_ms=cyc,
+        stages_ms_median={k: statistics.median(r["stages_ms"].get(k, 0.0) for r in warm)
+                          for k in stages},
+    )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m kube_arbitrator_tpu_torch.cycle_turns",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, help="the other tree's root")
+    ap.add_argument("--order", default="PCCPCP")
+    ap.add_argument("--worlds", default="allocate,evictive,pa_evict")
+    ap.add_argument("--timeout", type=float, default=600.0, help="seconds per process")
+    ap.add_argument("--out", default=None, help="also write the summary JSON here")
+    a = ap.parse_args(argv)
+    trees = {"P": Path(a.parent).resolve(), "C": HERE}
+    worlds = [w for w in a.worlds.split(",") if w]
+    rows: Dict[str, Dict[str, List[Dict]]] = {w: {"P": [], "C": []} for w in worlds}
+    for turn, which in enumerate(a.order):
+        for w in worlds:
+            got = run_once(trees[which], w, a.timeout)
+            rows[w][which].extend(got)
+            print(json.dumps(dict(turn=turn, tree=which, world=w,
+                                  cycles=[(r["seed"], round(r["cycle_ms"], 1)) for r in got])),
+                  flush=True)
+    result = {w: {t: summary(r) for t, r in by.items() if r} for w, by in rows.items()}
+    if a.out:
+        Path(a.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

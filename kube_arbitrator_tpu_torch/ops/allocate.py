@@ -37,7 +37,7 @@ import torch
 from ..cache.snapshot import SnapshotTensors, pa_enabled
 from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, plugin_on, safe_share, to_i32
 from .fairness import drf_shares, overused, queue_shares
-from .kernels.admit_chunk import admit_chunk
+from .kernels.admit_chunk import AdmitPlan
 from .kernels.decode_deferred import decode_deferred
 from .kernels.queue_order import queue_order
 from .kernels.stable_compact import FeasCells, stable_compact
@@ -342,11 +342,12 @@ def select_turns(st, sess, state, tiers, s_max, mode, shared, q_ids, q_ok):
 TURN_CHUNK = 8  # queue turns selected per batched chunk
 
 
-def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, prune_idx=None):
+def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, admit):
     """One round: chunks of TURN_CHUNK turns, each selected together and
-    admitted by K1; node state and the [G, N] counts are updated in
-    place.  Bit-exact with the sequential turn loop because a turn's
-    selection reads only rows its own queue owns."""
+    admitted by K1 (``admit``, the action's AdmitPlan over the node state
+    and the [G, N] counts, which it updates in place).  Bit-exact with
+    the sequential turn loop because a turn's selection reads only rows
+    its own queue owns."""
     Q = st.num_queues
     S = TURN_CHUNK
     dev = st.device
@@ -373,13 +374,9 @@ def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, tr
         else:
             ports_s = torch.zeros((S, W), dtype=torch.int32, device=dev)
             has_ports_s = torch.zeros(S, dtype=torch.bool, device=dev)
-        n_slots = torch.full((1,), min(trip - c * S, S), dtype=torch.int32, device=dev)
-        placed_v, use_rel_v = admit_chunk(
-            st, state.node_idle, state.node_releasing, state.node_ports,
-            state.node_num_tasks, gn_a, gn_p, n_slots, g_sel.to(torch.int32),
-            req_s.contiguous(), budget_s, ports_s.contiguous(), has_ports_s, prune_idx,
-            s_max, best_effort_pass, preds_on,
-        )
+        placed_v, use_rel_v = admit(min(trip - c * S, S), g_sel.to(torch.int32),
+                                    req_s.contiguous(), budget_s, ports_s.contiguous(),
+                                    has_ports_s)
         # ---- aggregate commit: the slots are distinct queues, hence
         # distinct job/group rows; empty slots add exact zeros ----
         if best_effort_pass:
@@ -399,7 +396,7 @@ def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, tr
     return (gn_a, gn_p, any_a, any_p)
 
 
-def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, prune_idx=None):
+def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit):
     """One round over the ACTIVE queues in queue order (inactive ones
     sort last and are not visited)."""
     grp_live = group_live_mask(st, sess, state.group_placed, state.group_unfit, best_effort_pass)
@@ -408,7 +405,7 @@ def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, prune_idx=None):
         q_active = q_active & ~overused(state.queue_alloc, sess.deserved)
     nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank)
     trip = max(int(nq), 1)
-    gn = _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, prune_idx)
+    gn = _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, admit)
     state.rounds += 1
     return gn
 
@@ -550,9 +547,13 @@ def allocate_action(
     gn_p = None if best_effort_pass else torch.zeros((G, N), dtype=torch.int32, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     gn = (gn_a, gn_p, no, no)
+    # K1's launches over this action: checked and bound once
+    admit = AdmitPlan(st, state.node_idle, state.node_releasing, state.node_ports,
+                      state.node_num_tasks, gn_a, gn_p, prune_idx, s_max, best_effort_pass,
+                      plugin_on(tiers, "predicates", "predicate_disabled"), TURN_CHUNK)
     while state.rounds < max_rounds and bool(state.progress):
         state.progress = torch.zeros((), dtype=torch.bool, device=dev)
-        gn = _round(st, sess, state, tiers, s_max, best_effort_pass, gn, prune_idx)
+        gn = _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit)
     gn_a, gn_p, any_a, any_p = gn
     if bool(any_a | any_p):
         _decode_deferred(st, state, entry_placed, gn_a, gn_p if bool(any_p) else None)

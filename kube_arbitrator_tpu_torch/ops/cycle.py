@@ -21,6 +21,7 @@ from .allocate import AllocState, SessionCtx, allocate_action, backfill_action
 from .common import fair, ordered_sum, safe_share, segment_sum
 from .fairness import drf_equilibrium_levels_per_job, drf_shares, proportion_deserved
 from .kernels.stable_compact import stable_compact
+from .kernels.stable_sort import segment_order
 from .ordering import DEFAULT_ACTIONS, DEFAULT_TIERS, Tiers
 from .preempt import (
     preempt_action,
@@ -142,14 +143,18 @@ def open_session(st: SnapshotTensors, tiers: Tiers) -> Tuple[SessionCtx, AllocSt
     def res_or_0(m):
         return torch.where(m[:, None], st.task_resreq, 0.0)
 
+    # every per-job sum runs over task_job, every per-queue sum over
+    # job_queue: each order is sorted once (K19) and shared
     tj = st.task_job
-    job_alloc = segment_sum(res_or_0(alloc_now), tj, J)
-    job_req = segment_sum(res_or_0(alloc_now | pending_now), tj, J)
-    job_ready_cnt = segment_sum(ready_now.to(torch.int32), tj, J)
-    job_valid_cnt = segment_sum(valid_now.to(torch.int32), tj, J)
+    tj_order = segment_order(tj, J)
+    job_alloc = segment_sum(res_or_0(alloc_now), tj, J, order=tj_order)
+    job_req = segment_sum(res_or_0(alloc_now | pending_now), tj, J, order=tj_order)
+    job_ready_cnt = segment_sum(ready_now.to(torch.int32), tj, J, order=tj_order)
+    job_valid_cnt = segment_sum(valid_now.to(torch.int32), tj, J, order=tj_order)
     jv = st.job_valid[:, None]
-    queue_alloc = segment_sum(torch.where(jv, job_alloc, 0.0), st.job_queue, Q)
-    queue_req = segment_sum(torch.where(jv, job_req, 0.0), st.job_queue, Q)
+    jq_order = segment_order(st.job_queue, Q)
+    queue_alloc = segment_sum(torch.where(jv, job_alloc, 0.0), st.job_queue, Q, order=jq_order)
+    queue_req = segment_sum(torch.where(jv, job_req, 0.0), st.job_queue, Q, order=jq_order)
 
     gang_ready_on = any(
         p.name == "gang" and not p.job_ready_disabled for t in tiers for p in t.plugins
@@ -165,8 +170,8 @@ def open_session(st: SnapshotTensors, tiers: Tiers) -> Tuple[SessionCtx, AllocSt
     else:
         deserved = torch.full((Q, st.task_resreq.shape[1]), 3.0e38, dtype=torch.float32, device=dev)
 
-    job_pending_cnt = segment_sum(pending_now.to(torch.int32), tj, J)
-    job_pending_req = segment_sum(res_or_0(pending_now), tj, J)
+    job_pending_cnt = segment_sum(pending_now.to(torch.int32), tj, J, order=tj_order)
+    job_pending_req = segment_sum(res_or_0(pending_now), tj, J, order=tj_order)
     mean_req = job_pending_req / job_pending_cnt.clamp(min=1)[:, None]
     job_share0 = drf_shares(job_alloc, drf_total)
     job_delta = safe_share(fair(mean_req), fair(drf_total)[None, :]).amax(dim=-1)

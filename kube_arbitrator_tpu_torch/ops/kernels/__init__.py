@@ -19,7 +19,7 @@ PyTorch version and with a launch counter:
 * K16 :func:`stable_compact.stable_compact`  — commit lists, allocate's panel, preempt's panel
 * K17 :func:`queue_order.queue_order`        — a round's queue order (ops/allocate.queue_perm)
 * K18 :func:`row_scatter.row_scatter`        — an epoch's changed rows into the resident pack
-* K19 :func:`stable_sort.stable_sort`        — victim lexsorts, K4's segment order, the claim join
+* K19 :func:`stable_sort.stable_sort`        — victim lexsorts, K4's segment order, the claim join, searches
 * K20 :func:`ordered_scan.ordered_scan`      — ops/common.mm_cumsum in XLA:CPU's add order
 
 A wrapper takes the plain version only for CPU tensors; on CUDA tensors
@@ -59,7 +59,16 @@ KERNELS = {
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants = dict.fromkeys(fn.variants, 0)
 
 
 def counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def variant_counts() -> dict:
+    """Launches by variant of the kernels that have more than one (K1's
+    panel / full width, one CTA / cluster; K19's one-CTA / tiled sort,
+    counting segment order, run starts and lookups)."""
+    return {name: dict(fn.variants) for name, fn in KERNELS.items() if hasattr(fn, "variants")}

@@ -18,24 +18,12 @@ import torch
 
 from . import build
 from .build import I, P
-from .stable_sort import run_starts, stable_sort
+from .stable_sort import segment_order  # K19: the slots sorted by segment
 
 _F = {torch.float32: "kat_segment_sum_f32", torch.int32: "kat_segment_sum_i32"}
 # C signatures of csrc/segment_sum.cu
 # (val, perm, seg_start, nseg, C, accumulate, out, stream)
 SIGNATURES = {name: (P, P, P, I, I, I, P, P) for name in _F.values()}
-
-
-def segment_order(idx: torch.Tensor, num_segments: int):
-    """(perm i32[T], seg_start i32[S+1]): slots stably sorted by segment,
-    and the start of every segment's contiguous run (out-of-range slots
-    sort last and fall outside every run), through K19 with the key's
-    range [0, S].  A caller that sums over the same ``idx`` many times
-    computes this once and passes it as ``order=``."""
-    valid = (idx >= 0) & (idx < num_segments)
-    key = torch.where(valid, idx, num_segments).to(torch.int32)
-    perm, sorted_key = stable_sort((key,), bounds=(num_segments,), want_sorted=True)
-    return perm, run_starts(sorted_key, num_segments)
 
 
 def _as_rows(val, idx, num_segments, out):

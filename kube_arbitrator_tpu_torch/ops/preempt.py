@@ -294,7 +294,7 @@ def _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, re
     # ---- claimant decode (the identity when nothing is placed)
     placed_before = state.group_placed[g]
     slots = torch.arange(s_max, dtype=torch.int32, device=st.device)
-    node_of_slot = torch.searchsorted(cum, slots, right=True, out_int32=True)
+    node_of_slot = sorted_lookup(cum, slots, side="right", out_int32=True)[0]  # K19
     slot_of_task = st.task_group_rank - placed_before
     assigned = (
         (st.task_group == g) & (slot_of_task >= 0) & (slot_of_task < placed_total) & st.task_valid
@@ -667,10 +667,10 @@ def _canon_ctx(st: SnapshotTensors, sess: SessionCtx) -> _CanonCtx:
     cq = torch.where(cvalid, st.job_queue[cj.clamp(0, J - 1).to(torch.int64)], Q - 1).to(torch.int32)
     cres = torch.where(cvalid[:, None], st.task_resreq[vidx], 0.0).contiguous()
     deserved_c = fair(sess.deserved)[cq.to(torch.int64)].contiguous()
-    cnode = torch.searchsorted(
+    cnode = sorted_lookup(  # K19
         st.rv_block_start, torch.arange(Vp, dtype=torch.int32, device=st.device),
-        right=True, out_int32=True,
-    ) - 1
+        side="right", out_int32=True,
+    )[0] - 1
     skey = torch.where(cvalid, cnode.to(torch.int64) * (Q + 1) + cq, N * (Q + 1) + Q)
     return _CanonCtx(cj=cj, cq=cq, cres=cres, deserved_c=deserved_c, cnode=cnode,
                      cnode_order=segment_order(cnode, N), min_avail=sess.min_avail,

@@ -12,7 +12,8 @@ A first cycle (seed - 1) warms up the kernel builds and the allocator;
 the profiled cycle then runs alone.  Prints the stage times, the top
 operations by device time, the device-busy share of the cycle's wall
 time (the union of kernel intervals on the card over the wall clock) and
-the count of kernel launches and of the library sort and search calls
+the count of kernel launches (K1's and K19's by variant) and of the
+library sort and search calls
 (``aten::sort``, ``aten::argsort``, ``aten::searchsorted``; K19 took
 over the port's sorts), and writes ``profile_cycle.json`` and a gzipped
 Chrome trace to ``--out``.  A last, unprofiled pass runs the same world
@@ -138,13 +139,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             rows.append(dict(name=ev.key, device_ms=dev_us / 1e3, count=ev.count))
     rows.sort(key=lambda x: -x["device_ms"])
     launches = kernels.counts()
+    by_variant = kernels.variant_counts()
     syncs = sync_counts(seed=a.seed, **world)
     report = dict(
         device=torch.cuda.get_device_name(0), world=dict(seed=a.seed, **world),
         profiled_wall_ms=wall_ms, cycle_ms=r["cycle_ms"], decode_ms=r["decode_ms"],
         stages_ms={k[3:]: v for k, v in r["stats"].items() if k.startswith("ms.")},
         rounds=r["rounds"], device_busy_ms=busy_ms, device_span_ms=span_ms,
-        device_kernels=len(dev_events), port_kernel_launches=launches, library_ops=library,
+        device_kernels=len(dev_events), port_kernel_launches=launches,
+        port_kernel_variants=by_variant, library_ops=library,
         host_syncs=syncs, top=rows[:30],
     )
     out = Path(a.out)

@@ -128,6 +128,9 @@ def test_round_matches_reference_slot_body(seed, pruned):
           jnp.array(False), jnp.array(False))
     pgn = (torch.zeros((G, N), dtype=torch.int32), torch.zeros((G, N), dtype=torch.int32),
            torch.tensor(False), torch.tensor(False))
+    admit = k1.AdmitPlan(pst, pstate.node_idle, pstate.node_releasing, pstate.node_ports,
+                         pstate.node_num_tasks, pgn[0], pgn[1], pan, 4096, False, True,
+                         port_alloc.TURN_CHUNK)
     for _ in range(3):
         state = dataclasses.replace(state, progress=jnp.array(False))
         pstate.progress = torch.tensor(False)
@@ -136,7 +139,7 @@ def test_round_matches_reference_slot_body(seed, pruned):
             prune_idx=panel,
         )
         pgn = port_alloc._round_batched(
-            pst, psess, pstate, PORT_TIERS, 4096, False, pgn, torch.arange(Q), trip, pan,
+            pst, psess, pstate, PORT_TIERS, 4096, False, pgn, torch.arange(Q), trip, admit,
         )
         for f in ROUND_FIELDS:
             assert np.array_equal(np.asarray(getattr(state, f)), getattr(pstate, f).numpy()), f
