@@ -20,9 +20,14 @@ rows):
    50k-task x 5k-node world (its preempt victim panel, its first preempt
    turn, its first claiming reclaim turn), K9-K10 on the binpack world's
    turns (100k x 10k: the all-idle entry, where the binpack keys tie at
-   -0.0, and a turn after two rounds, binpack and spread), K11-K12 on
-   the pod-affinity world's groups after reclaim and three allocate
-   rounds (50k x 5k), K13-K15 on the optimistic reclaim engine's first
+   -0.0, and a turn after two rounds, binpack and spread; K9 through its
+   plans in every variant — one CTA and tiles, first fit, best effort,
+   three groups back to back through one plan, N = 10,003, and the
+   binpack world at N = 20,480 under binpack and spread, past the
+   one-CTA sort — each variant timed), K11-K12 on the pod-affinity
+   world's groups after reclaim and three allocate rounds (50k x 5k;
+   K11 through one plan, the groups back to back, one launch a call),
+   K13-K15 on the optimistic reclaim engine's first
    speculation window of the q512_evict world (50k x 5k, 512 queues),
    K16 on its three callers' shapes (a commit list at T = 102,400 whose
    count passes the cap, allocate's feasibility cells at [K, 10,240],
@@ -44,7 +49,8 @@ rows):
    call computes the same function (K4's, K7's, K11's, K12's and K13's
    sums: ``Tensor.index_add_``; K9's order, K17's and K19's:
    ``torch.sort(stable=True)``; K16: ``torch.nonzero`` plus padding; K18:
-   ``index_copy_`` per field; K20: ``torch.cumsum``), that call.  Each
+   the upload of each field's rows and indices and one ``index_copy_``
+   per field; K20: ``torch.cumsum``), that call.  Each
    row has three times: ``ms``, one wrapper call between CUDA events;
    ``device_us``, the kernels' own device time per call (torch.profiler);
    ``host_us``, the wrapper's host time per call with the stream busy.
@@ -74,7 +80,10 @@ rows):
    integer fields (the allocate worlds at full width, the pod-affinity
    world at 20k x 2k); seed 42's counts and digests equal the JAX
    package's (PA_WORLD_42, BINPACK_WORLD_42); K9-K12, K19 and K20
-   launched, K20 once per ``mm_cumsum`` of each ``_reclaim_fast`` turn
+   launched (K9 by variant: one CTA on binpack, first fit on the
+   pod-affinity path); binpack at 40k x 20k (N = 20,480) decides equal on
+   the card and on the CPU through K9's tiled route; K20 once per
+   ``mm_cumsum`` of each ``_reclaim_fast`` turn
    (one a turn under the default tiers, whose reclaim verdict is gang's;
    two where proportion is a reclaim verdict).
 6. the opt-in reclaim engines at full width — q512_evict (50k x 5k, 512
@@ -114,7 +123,7 @@ rows):
 
 Each path's launch counts are taken over its first world (seed 42; the
 priority-mix path's over seed 45), with every count set to 0 just
-before it; K1's and K19's are also taken by variant (phases 3-5 require
+before it; K1's, K9's and K19's are also taken by variant (phases 3-5 require
 K19's counting segment order on the allocate path and its tiled sort on
 the evictive paths).  The kernels line counts K19's launches over the
 evictive and the pod-affinity evictive cycles, and K20's over the
@@ -148,6 +157,8 @@ INT_FIELDS = (
     "bind_count", "evict_count",
 )
 FULL = dict(tasks=100_000, nodes=10_000, queues=8, tasks_per_job=100)
+# binpack past K9's one-CTA sort: N = 20,480 (K9's tiled route)
+WIDE_BINPACK = dict(tasks=40_000, nodes=20_000, queues=8, tasks_per_job=100)
 WORLDS = (
     dict(seed=42, running_fraction=0.0, fit_fraction=1.2),
     dict(seed=43, running_fraction=0.0, fit_fraction=1.2),
@@ -280,18 +291,21 @@ def device_us(fn, setup=None, calls: int = 50) -> tuple:
         setup()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            if setup:
-                setup()
-            fn()
-        torch.cuda.synchronize()
-    own = [e for e in prof.events()
-           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-           and e.name.startswith(("(anonymous namespace)::", "void (anonymous namespace)::"))]
-    if own:
-        return (sum(e.time_range.elapsed_us() for e in own) / calls, len(own) / calls,
-                "profiler")
+    # two tries: a profile of a kernel that showed on the card in a fresh
+    # process once came back without its events late in a phase-1 run
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if setup:
+                    setup()
+                fn()
+            torch.cuda.synchronize()
+        own = [e for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and e.name.startswith(("(anonymous namespace)::", "void (anonymous namespace)::"))]
+        if own:
+            return (sum(e.time_range.elapsed_us() for e in own) / calls, len(own) / calls,
+                    "profiler")
     if setup:
         setup()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -929,20 +943,26 @@ def first_turn(st, sess, tiers, state):
 def turn_fixture(dev):
     """The binpack world at full width, seed 42: its entry state (every
     node idle: the binpack keys tie at -0.0) and the state after two
-    allocate rounds."""
+    allocate rounds; and the same for the binpack world at WIDE_BINPACK
+    (N = 20,480, past the one-CTA sort)."""
     from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
     from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
     from kube_arbitrator_tpu_torch.ops import allocate, cycle
     from kube_arbitrator_tpu_torch.ops.ordering import with_node_order
 
-    arrays, _ = build_synthetic_arrays(FULL["tasks"], FULL["nodes"], FULL["queues"],
-                                       FULL["tasks_per_job"], 42)
-    st = from_numpy(arrays, dev)
-    tiers = with_node_order("binpack")
-    sess, state0 = cycle.open_session(st, tiers)
-    mid = allocate.allocate_action(st, sess, state0, tiers, max_rounds=2)
-    return types.SimpleNamespace(st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess, tiers=tiers,
-                                 state0=state0, mid=mid)
+    def world(w):
+        arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"],
+                                           w["tasks_per_job"], 42)
+        st = from_numpy(arrays, dev)
+        tiers = with_node_order("binpack")
+        sess, state0 = cycle.open_session(st, tiers)
+        mid = allocate.allocate_action(st, sess, state0, tiers, max_rounds=2)
+        return types.SimpleNamespace(st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess,
+                                     tiers=tiers, state0=state0, mid=mid)
+
+    fx = world(FULL)
+    fx.wide = world(WIDE_BINPACK)
+    return fx
 
 
 def turn_caps_args(fx, state, policy):
@@ -951,35 +971,115 @@ def turn_caps_args(fx, state, policy):
             None, 4096, False, True, policy)
 
 
+def node_slice(st, state, n):
+    """(a pack view, node arrays) cut to the first ``n`` nodes: K9 at an
+    N that is no multiple of a tile or a warp."""
+    view = types.SimpleNamespace(
+        node_alloc=st.node_alloc[:n].contiguous(), class_fit=st.class_fit,
+        node_klass=st.node_klass[:n].contiguous(), node_valid=st.node_valid[:n].contiguous(),
+        node_unsched=st.node_unsched[:n].contiguous(),
+        node_max_tasks=st.node_max_tasks[:n].contiguous(), group_klass=st.group_klass,
+        group_ports=st.group_ports)
+    nodes = tuple(getattr(state, f)[:n].contiguous()
+                  for f in ("node_idle", "node_releasing", "node_ports", "node_num_tasks"))
+    return view, nodes
+
+
 def k9_case(dev, fx):
+    """K9 through its plans, every variant against turn_caps_plain bit for
+    bit: the all-idle entry (binpack keys all -0.0), the state after two
+    rounds under binpack and spread (one CTA and tiles), first fit, best
+    effort, three groups back to back through one plan, N = 10,003, and
+    N = 20,480 under binpack and spread (the tiled route).  Times each
+    variant; the row is the main path's (one CTA at N = 10,240)."""
     from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
 
     err = 0.0
-    for state, policy in ((fx.state0, "binpack"), (fx.mid, "binpack"), (fx.mid, "spread")):
-        args = turn_caps_args(fx, state, policy)
-        k, nperm = k9.turn_caps(fx.st, *args)
-        kp, pp = k9.turn_caps_plain(fx.st_cpu, *to_cpu(args))
-        err = max(err, max_err(k, kp), max_err(nperm, pp))
+
+    def check(st, st_cpu, nodes, g, req, policy, variant, best_effort=False, what=""):
+        nonlocal err
+        plan = k9.TurnCapsPlan(st, *nodes, 4096, best_effort, True, policy, variant)
+        expect(plan.variant == (variant or k9.turn_caps_variant(policy, nodes[0].shape[0])),
+               f"K9 {what}: variant {plan.variant}")
+        n0, v0 = k9.turn_caps.launches, k9.turn_caps.variants[plan.variant]
+        k, nperm = plan(g, req, None)
+        expect(k9.turn_caps.launches == n0 + plan.per_call
+               and k9.turn_caps.variants[plan.variant] == v0 + 1, f"K9 {what}: launch count")
+        kp, pp = k9.turn_caps_plain(st_cpu, *to_cpu(nodes), g.cpu(), req.cpu(), None, 4096,
+                                    best_effort, True, policy)
+        err = max(err, max_err(k, kp))
+        expect(torch.equal(k.cpu(), kp), f"K9 {what} {plan.variant}: capacities differ from plain")
+        if policy == "first_fit":
+            expect(nperm is None and pp is None, f"K9 {what}: first fit gave an order")
+        else:
+            err = max(err, max_err(nperm, pp))
+            expect(torch.equal(nperm.cpu(), pp), f"K9 {what} {plan.variant}: order differs from plain")
+        expect(int(kp[0].sum()) > 0 or best_effort, f"K9 {what}: no capacity")
+        return plan, k
+
+    def nodes_of(state):
+        return (state.node_idle, state.node_releasing, state.node_ports, state.node_num_tasks)
+
+    cases = [(fx, fx.state0, "binpack", "entry"), (fx, fx.mid, "binpack", "2 rounds"),
+             (fx, fx.mid, "spread", "2 rounds")]
+    for w, state, policy, what in cases:
+        g, req, _ = first_turn(w.st, w.sess, w.tiers, state)
+        for variant in ("one_cta", "tiles"):
+            check(w.st, w.st_cpu, nodes_of(state), g, req, policy, variant, what=f"{policy} {what}")
+    g, req, _ = first_turn(fx.st, fx.sess, fx.tiers, fx.mid)
+    check(fx.st, fx.st_cpu, nodes_of(fx.mid), g, req, "first_fit", None, what="first fit")
+    check(fx.st, fx.st_cpu, nodes_of(fx.mid), g, req, "binpack", None, best_effort=True,
+          what="best effort")
+    # three groups back to back through one plan (its outputs reused)
+    plan = k9.TurnCapsPlan(fx.st, *nodes_of(fx.mid), 4096, False, True, "binpack")
+    for gg in (int(g), 3, fx.st.num_groups // 4):
+        gt = torch.tensor([gg], dtype=torch.int32 if gg % 2 else torch.int64, device=dev)
+        rq = fx.st.group_resreq[gg].contiguous()
+        k, nperm = plan(gt, rq, None)
+        kp, pp = k9.turn_caps_plain(fx.st_cpu, *to_cpu(nodes_of(fx.mid)), gt.cpu(), rq.cpu(),
+                                    None, 4096, False, True, "binpack")
         expect(torch.equal(k.cpu(), kp) and torch.equal(nperm.cpu(), pp),
-               f"K9 {policy} differs from its plain version")
-        expect(int(k[0].sum()) > 0, f"K9 {policy}: no capacity")
+               f"K9 group {gg} through a reused plan differs from plain")
+    view, nodes = node_slice(fx.st, fx.mid, 10_003)
+    view_cpu = types.SimpleNamespace(**{k: v.cpu() for k, v in vars(view).items()})
+    for policy in ("binpack", "spread"):
+        for variant in ("one_cta", "tiles"):
+            check(view, view_cpu, nodes, g, req, policy, variant, what=f"{policy} N=10,003")
+    w = fx.wide
+    for state, what in ((w.state0, "entry"), (w.mid, "2 rounds")):
+        gw, reqw, _ = first_turn(w.st, w.sess, w.tiers, state)
+        for policy in ("binpack", "spread"):
+            check(w.st, w.st_cpu, nodes_of(state), gw, reqw, policy, None,
+                  what=f"{policy} N={w.st.num_nodes} {what}")
+
+    # times: each variant at the main path's N, and the tiled route at N = 20,480
+    timed = {}
+    for label, w, policy, variant in (("first_fit", fx, "first_fit", None),
+                                      ("one_cta", fx, "binpack", "one_cta"),
+                                      ("tiles", fx, "binpack", "tiles"),
+                                      ("tiles_wide", w, "binpack", None)):
+        gw, reqw, _ = first_turn(w.st, w.sess, w.tiers, w.mid)
+        plan = k9.TurnCapsPlan(w.st, *nodes_of(w.mid), 4096, False, True, policy, variant)
+        t = kernel_times(lambda: plan(gw, reqw, None))
+        keyf = k9.packing_key_f32(w.st, w.mid.node_idle, "binpack")
+        lib = cuda_ms(lambda: torch.sort(keyf, stable=True)) if policy != "first_fit" else None
+        timed[label] = dict(variant=plan.variant, n=w.st.num_nodes, policy=policy,
+                            launches_per_call=plan.per_call, library_ms=lib, **t)
+    g, req, _ = first_turn(fx.st, fx.sess, fx.tiers, fx.mid)
     args = turn_caps_args(fx, fx.mid, "binpack")
-    t = kernel_times(lambda: k9.turn_caps(fx.st, *args))
     plain_ms = cuda_ms(lambda: k9.turn_caps_plain(fx.st, *args), reps=5)
-    # the library call for the order: one stable sort of the same keys
-    F = 3
-    total = fx.st.node_alloc[:, :F]
-    used = (total - fx.mid.node_idle[:, :F]).clamp(min=0.0)
-    key = torch.where(fx.st.node_valid, -(used / total.clamp(min=1e-30)).amax(dim=-1), 3.0e38)
-    lib_ms = cuda_ms(lambda: torch.sort(key, stable=True))
+    main = timed["one_cta"]
     N, R = fx.mid.node_idle.shape
     W = fx.mid.node_ports.shape[1]
     # idle, releasing and allocatable, ports, counts, limits, class and
     # flags read once; two capacity rows and the order written
     nbytes = N * (3 * 4 * R + 4 * W + 4 + 4 + 4 + 2) + N * 4 * 3
     b, by = bound_ms(nbytes, N * (6 * R + 14))
-    return dict(name="turn_caps", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms, shape=f"N={N}, R={R}, binpack order")
+    return dict(name="turn_caps", max_abs_err=err, ms=main["ms"], device_us=main["device_us"],
+                kernels_per_call=main["kernels_per_call"], device_by=main["device_by"],
+                host_us=main["host_us"], plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=main["library_ms"], variants=list(timed.values()),
+                shape=f"N={N}, R={R}, binpack order, one CTA")
 
 
 def k10_case(dev, fx):
@@ -1063,15 +1163,23 @@ def pa_fixture(dev):
 
 
 def k11_case(dev, fx):
+    """K11 through one plan: the self-affinity groups at the cycle's entry
+    and a spread of groups after reclaim and three allocate rounds,
+    launched back to back (the group alternately i64 and i32), each equal
+    to pa_fit_plain right after its launch (scratch left dirty by one
+    launch would show in the next), one launch a call; and the functional
+    pa_fit (a plan of its own) once."""
     from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
 
     st, state = fx.st, fx.state
     err, seeds, caps, blocked, fits = 0.0, [], [], 0, {}
     cases = [(fx.entry, g) for g in fx.self_aff[:4]]
     cases += [(state, g) for g in sorted(set(fx.groups[::4] + fx.groups[1:40:4]))]
-    for state, g in cases:
-        gt = torch.tensor([g], device=dev)
-        got = k11.pa_fit(st, gt, state.task_status, state.task_node)
+    plan = k11.PaFitPlan(st)
+    n0 = k11.pa_fit.launches
+    for i, (state, g) in enumerate(cases):
+        gt = torch.tensor([g], dtype=torch.int64 if i % 2 else torch.int32, device=dev)
+        got = plan(gt, state.task_status, state.task_node)
         want = k11.pa_fit_plain(fx.st_cpu, gt.cpu(), state.task_status.cpu(), state.task_node.cpu())
         for name in want._fields:
             a, b = getattr(got, name), getattr(want, name)
@@ -1082,11 +1190,17 @@ def k11_case(dev, fx):
             seeds.append((g, state))
         if bool(want.cap_flags.any()):
             caps.append((g, state))
-        fits[g, id(state)] = got
+        fits[g, id(state)] = k11.PodAffinityFit(*[x.clone() for x in got])  # the plan reuses its outputs
+    expect(k11.pa_fit.launches == n0 + len(cases),
+           f"K11: {k11.pa_fit.launches - n0} launches for {len(cases)} calls")
     expect(blocked > 0 and seeds and caps, f"K11 inputs: blocked {blocked}, seeds {seeds}, caps {caps}")
+    g0, s0 = cases[-1][1], cases[-1][0]
+    got = k11.pa_fit(st, torch.tensor([g0], device=dev), s0.task_status, s0.task_node)
+    expect(all(torch.equal(getattr(got, f), getattr(fits[g0, id(s0)], f)) for f in got._fields),
+           "K11: the functional pa_fit differs from the plan's launch")
     state = fx.state
     g = torch.tensor([caps[0][0]], device=dev)
-    t = kernel_times(lambda: k11.pa_fit(st, g, state.task_status, state.task_node))
+    t = kernel_times(lambda: plan(g, state.task_status, state.task_node))
     plain_ms = cuda_ms(lambda: k11.pa_fit_plain(st, g, state.task_status, state.task_node), reps=5)
     # the library call for the counts: one index_add_ of the placed pods'
     # hostname domains
@@ -1438,12 +1552,12 @@ def k18_case(dev):
                for a, p, w in zip(card, plain, want)), "K18 at the serving epoch differs")
     t = kernel_times(lambda: k18.row_scatter(card, idxs, rows))
     plain_ms = cuda_ms(lambda: k18.row_scatter_plain(plain, idxs, rows))
-    idx_dev = [torch.from_numpy(i.astype(np.int64)).to(dev) for i in idxs]
-    rows_dev = [torch.from_numpy(np.ascontiguousarray(r)).to(dev) for r in rows]
-
     def library():
-        for c, i, r in zip(card, idx_dev, rows_dev):
-            c.index_copy_(0, i, r)
+        # the same function from the same host rows: each field's rows and
+        # indices uploaded, then one index_copy_ per field
+        for c, i, r in zip(card, idxs, rows):
+            c.index_copy_(0, torch.as_tensor(i.astype(np.int64), device=dev),
+                          torch.as_tensor(np.ascontiguousarray(r), device=dev))
 
     lib_ms = cuda_ms(library)
     nrows = sum(len(i) for i in idxs)
@@ -1453,8 +1567,8 @@ def k18_case(dev):
     return dict(name="row_scatter", max_abs_err=0.0, **t, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=lib_ms,
                 shape=f"{len(names)} fields, {nrows} rows, {rbytes + ibytes} bytes (the 50k x 5k "
-                      f"evictive pack's first delta epoch: {', '.join(names)}); library: one "
-                      f"index_copy_ per field with rows and indices already on the card")
+                      f"evictive pack's first delta epoch: {', '.join(names)}); library: per field "
+                      f"the rows and indices uploaded, then one index_copy_")
 
 
 def k19_grid(dev) -> dict:
@@ -1967,6 +2081,8 @@ def main(kernels_only: bool = False) -> int:
         report(case(dev, fx) if case in (k5_case, k6_case, k7_case, k8_case) else case(dev))
     tfx = turn_fixture(dev)
     report(k9_case(dev, tfx))
+    for v in rows["turn_caps"]["variants"]:
+        print(f"kernel turn_caps variant {json.dumps(v)}", flush=True)
     report(k10_case(dev, tfx))
     report(k16_case(dev, fx, tfx))
     report(k19_case(dev, fx))
@@ -2195,6 +2311,22 @@ def main(kernels_only: bool = False) -> int:
             got = dict(binds=int(bind.sum()), digest=digest)
             expect(got == BINPACK_WORLD_42, f"binpack seed 42 differs from the JAX package: "
                    f"{got} vs {BINPACK_WORLD_42}")
+    # the repaired gap: binpack past K9's one-CTA sort, card == CPU
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    g = decide_world(device=dev, node_order="binpack", seed=42, **WIDE_BINPACK)
+    wide_variants = kernels.variant_counts()["turn_caps"]
+    c = decide_world(device="cpu", node_order="binpack", seed=42, **WIDE_BINPACK)
+    invariants(g["pack"], g["decisions"], g["binds"])
+    eq_int = compare(g["decisions"], c["decisions"], INT_FIELDS)
+    expect(all(eq_int.values()), f"binpack at {WIDE_BINPACK['nodes']} nodes: card vs CPU integer "
+           f"decisions differ: {[f for f, ok in eq_int.items() if not ok]}")
+    expect(wide_variants["tiles"] > 0 and wide_variants["one_cta"] == 0,
+           f"binpack at N = {g['pack'].num_nodes}: K9 variants {wide_variants}")
+    print(f"binpack {WIDE_BINPACK['tasks']}x{WIDE_BINPACK['nodes']} (N = {g['pack'].num_nodes}) "
+          f"seed 42: {int(g['decisions'].bind_count)} binds, rounds {g['rounds']}, card cycle "
+          f"{g['cycle_ms']:.1f} ms (CPU cycle {c['cycle_ms']:.0f} ms); integer decisions equal; "
+          f"K9 by variant {wide_variants}", flush=True)
     print(f"launches on the pod-affinity path (50k x 5k, seed 42): {pa_counts}; "
           f"_reclaim_fast turns {fast_turns[0]}", flush=True)
     print(f"launches on the binpack path (100k x 10k, seed 42): {order_counts}", flush=True)
@@ -2214,6 +2346,11 @@ def main(kernels_only: bool = False) -> int:
            f"turns, not {per_turn} a turn")
     for k in ("turn_caps", "turn_fill", "lex_argmin", "queue_order"):
         expect(order_counts[k] > 0, f"kernel {k} was not launched on the binpack path")
+    print(f"launches by variant on the binpack path (seed 42): {by_variant['binpack']}", flush=True)
+    expect(by_variant["binpack"]["turn_caps"]["one_cta"] > 0,
+           "K9's one-CTA sort was not launched on the binpack path")
+    expect(by_variant["pa_evict"]["turn_caps"]["first_fit"] > 0,
+           "K9's first-fit pass was not launched on the pod-affinity path")
     print(f"phase 5 (immediate path, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 6: the opt-in reclaim engines at full width — q512_evict

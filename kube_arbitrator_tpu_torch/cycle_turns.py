@@ -1,7 +1,7 @@
 """Time the port's cycle on two trees in turns, on one card.
 
     python -m kube_arbitrator_tpu_torch.cycle_turns --parent DIR [--order PCCPCP] \\
-        [--worlds allocate,evictive,pa_evict] [--out FILE]
+        [--worlds allocate,evictive,pa_evict,binpack] [--out FILE]
 
 DIR is a second checkout of the repository (for example the parent
 commit, unpacked with ``git archive``).  For each letter of ``--order``
@@ -34,6 +34,8 @@ WORLDS = {
     "pa_evict": ["--tasks", "50000", "--nodes", "5000", "--running-fraction", "0.5",
                  "--actions", "reclaim,allocate,backfill,preempt", "--pod-affinity",
                  "--cycles", "3", "--seed", "42"],
+    "binpack": ["--tasks", "100000", "--nodes", "10000", "--node-order", "binpack",
+                "--cycles", "3", "--seed", "42"],
 }
 
 

@@ -41,10 +41,10 @@ from .kernels.admit_chunk import AdmitPlan
 from .kernels.decode_deferred import decode_deferred
 from .kernels.queue_order import queue_order
 from .kernels.stable_compact import FeasCells, stable_compact
-from .kernels.turn_caps import turn_caps
+from .kernels.turn_caps import TurnCapsPlan
 from .kernels.turn_fill import turn_fill
 from .ordering import Tiers, group_order_keys, job_order_keys, node_order_policy, queue_order_keys
-from .podaffinity import pa_shape, pod_affinity_fit
+from .podaffinity import PaFitPlan, pa_shape
 
 # Eviction-phase codes carried by AllocState.evict_phase (the reference's
 # ops/allocate.py:69-72; stable wire values of the audit records)
@@ -410,11 +410,26 @@ def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit):
     return gn
 
 
-def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, preds_on, pa_on):
+def _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on):
+    """(K9's plan over ``state``'s node arrays, K11's plan or None): the
+    immediate turn's kernels, bound once for a run of turns on one state
+    (K10 updates those node arrays in place)."""
+    caps = TurnCapsPlan(st, state.node_idle, state.node_releasing, state.node_ports,
+                        state.node_num_tasks, s_max, best_effort_pass, preds_on, policy)
+    return caps, (PaFitPlan(st) if pa_on else None)
+
+
+def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, preds_on, pa_on,
+                   plans=None):
     """One queue's turn on the immediate path, in place (the reference's
     _process_queue, :553-706): selection from the current aggregates,
     then K11 / K9 / K12 / K10 and the aggregate commit.  ``q`` is i64[1];
-    a padding or drained queue's turn places nothing."""
+    a padding or drained queue's turn places nothing.  ``plans`` is the
+    action's (K9 plan, K11 plan or None) from :func:`_turn_plans`; None
+    builds them for this turn alone."""
+    if plans is None:
+        plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
+    caps_plan, fit_plan = plans
     if best_effort_pass:
         q_ok = st.queue_valid[q]  # backfill has no queue-fairness gate
     else:
@@ -425,11 +440,8 @@ def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, p
         shared, q, q_ok,
     )
     req1 = req[0].contiguous()
-    fit = pod_affinity_fit(st, g, state.task_status, state.task_node) if pa_on else None
-    k, nperm = turn_caps(
-        st, state.node_idle, state.node_releasing, state.node_ports, state.node_num_tasks, g,
-        req1, None if fit is None else fit.ok, s_max, best_effort_pass, preds_on, policy,
-    )
+    fit = None if fit_plan is None else fit_plan(g, state.task_status, state.task_node)
+    k, nperm = caps_plan(g, req1, None if fit is None else fit.ok)
     if fit is not None:
         k = pa_shape(st, fit, k, nperm)
     placed, use_rel = turn_fill(
@@ -458,6 +470,8 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
     policy = node_order_policy(tiers)
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     pa_on = preds_on and pa_enabled(st)
+    # K9's and K11's launches over this action: checked and bound once
+    plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
     while True:
         grp_live = group_live_mask(st, sess, state.group_placed, state.group_unfit,
                                    best_effort_pass)
@@ -472,7 +486,7 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
         state.progress = torch.zeros_like(state.progress)
         for qi in range(max(trip, 1)):
             _process_queue(perm[qi:qi + 1], st, sess, state, tiers, s_max, best_effort_pass,
-                           policy, preds_on, pa_on)
+                           policy, preds_on, pa_on, plans)
         state.rounds += 1
 
 

@@ -69,6 +69,7 @@ def counts() -> dict:
 
 def variant_counts() -> dict:
     """Launches by variant of the kernels that have more than one (K1's
-    panel / full width, one CTA / cluster; K19's one-CTA / tiled sort,
-    counting segment order, run starts and lookups)."""
+    panel / full width, one CTA / cluster; K9's first fit, one-CTA and
+    tiled sort, by call; K19's one-CTA / tiled sort, counting segment
+    order, run starts and lookups)."""
     return {name: dict(fn.variants) for name, fn in KERNELS.items() if hasattr(fn, "variants")}

@@ -9,10 +9,13 @@ Everything is integer, so the kernel's atomics are exact in any order.
 Dynamic symmetry marks domains on the pack's global domain axis (each
 domain ordinal belongs to one topology key), so the placed pods' terms
 are visited once each rather than once per anti term of the pack.
+:class:`PaFitPlan` binds an action's launches once (one launch a turn);
+:func:`pa_fit` is the same through a throwaway plan.
 CUDA source: csrc/pa_fit.cu.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -25,13 +28,19 @@ PENDING = int(TaskStatus.PENDING)
 ALLOCATED = int(TaskStatus.ALLOCATED)
 PIPELINED = int(TaskStatus.PIPELINED)
 
-# C signature of csrc/pa_fit.cu
-SIGNATURES = {
-    "kat_pa_fit": (
-        P, P, P, P, P, P, P, P, P, I, P, I, P, P, P, P, P, P, P, I, P, I, I, I, I, I, P, I,
-        P, P, P, P, P, P, P, P, P,
-    ),
-}
+# C signature of csrc/pa_fit.cu: (static, g, g_wide, task_status, task_node, stream)
+SIGNATURES = {"kat_pa_fit": (P, P, I, P, P, P)}
+
+
+class _Static(ctypes.Structure):
+    """csrc/pa_fit.cu's Static: the fixed arguments of a plan."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "snap_status", "task_valid", "task_group", "task_pa_class", "group_pa_class", "gaff",
+        "ganti", "aff_key", "anti_key", "aff_static", "anti_static", "aff_static_total",
+        "aff_match", "anti_match", "node_dom", "symm_ok", "dyn", "any_aff", "marks", "ticket",
+        "ok_out", "seed_flags", "seed_keys", "cap_flags", "cap_keys",
+    )] + [(n, ctypes.c_int) for n in ("MA", "MB", "CP", "K", "N", "D", "T", "TA", "CS")]
 
 
 class PodAffinityFit(NamedTuple):
@@ -136,57 +145,104 @@ def pa_fit_plain(st, g, task_status, task_node) -> PodAffinityFit:
                           cap_keys=stack(cap_keys, torch.int32))
 
 
+class PaFitPlan:
+    """K11's launches over one action (or one turn loop) on pack ``st``.
+
+    Built once where pod affinity is on: it checks the pack's constant
+    tensors, binds the kernel's fixed arguments, keeps the stream current
+    when it was built, and owns the scratch (zeroed here once; every
+    launch leaves it zero) and the outputs.  A launch passes only the
+    group and the two state arrays that change between turns: no cast,
+    no memset, no allocation.  Its outputs are the plan's own tensors,
+    OVERWRITTEN by the next launch: each caller consumes a fit (K9's
+    ``pa_ok``, K12's flags and keys, K6's mask, ``_reclaim_fast``'s
+    node mask) in stream order before it launches the plan again.  CPU
+    packs take the plain version (fresh tensors each call)."""
+
+    def __init__(self, st):
+        self.st = st
+        dev = st.device
+        self.dev = dev
+        self.first = True
+        if dev.type == "cpu":
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"pa_fit: tensors on {dev}")
+        N, D, K = st.num_nodes, st.num_domains, st.node_dom.shape[0]
+        MA, MB = st.group_aff_terms.shape[1], st.group_anti_terms.shape[1]
+        TA, T = st.anti_key.shape[0], st.num_tasks
+        CP = max(st.aff_match.shape[1], st.anti_match.shape[1])
+        if (st.aff_match.shape[0] and st.aff_match.shape[1] != CP) or \
+                (st.anti_match.shape[0] and st.anti_match.shape[1] != CP):
+            raise ValueError("pa_fit: aff_match and anti_match disagree on the class axis")
+        checks = [
+            (st.task_status, torch.int32), (st.task_valid, torch.bool),
+            (st.task_group, torch.int32), (st.task_pa_class, torch.int32),
+            (st.group_pa_class, torch.int32), (st.group_aff_terms, torch.int32),
+            (st.group_anti_terms, torch.int32), (st.aff_key, torch.int32),
+            (st.anti_key, torch.int32), (st.aff_static, torch.int32),
+            (st.anti_static, torch.int32), (st.aff_static_total, torch.int32),
+            (st.aff_match, torch.bool), (st.anti_match, torch.bool), (st.node_dom, torch.int32),
+            (st.symm_ok, torch.bool),
+        ]
+        for i, (t, dt) in enumerate(checks):
+            build.require(t, dt, f"pa_fit.arg{i}", dev)
+        nd = (MA + MB) * D
+        # counts, any_aff, marks, ticket: zero now, and again after every launch
+        self.scratch = torch.zeros(nd + MA + D + 1, dtype=torch.int32, device=dev)
+        self.fit = PodAffinityFit(
+            ok=torch.empty(N, dtype=torch.bool, device=dev),
+            seed_flags=torch.empty(MA, dtype=torch.bool, device=dev),
+            seed_keys=torch.empty(MA, dtype=torch.int32, device=dev),
+            cap_flags=torch.empty(MB, dtype=torch.bool, device=dev),
+            cap_keys=torch.empty(MB, dtype=torch.int32, device=dev),
+        )
+        base = self.scratch.data_ptr()
+        p = build.ptr
+        self.static = _Static(
+            p(st.task_status), p(st.task_valid), p(st.task_group), p(st.task_pa_class),
+            p(st.group_pa_class), p(st.group_aff_terms), p(st.group_anti_terms), p(st.aff_key),
+            p(st.anti_key), p(st.aff_static), p(st.anti_static), p(st.aff_static_total),
+            p(st.aff_match), p(st.anti_match), p(st.node_dom), p(st.symm_ok),
+            base, base + 4 * nd, base + 4 * (nd + MA), base + 4 * (nd + MA + D),
+            p(self.fit.ok), p(self.fit.seed_flags), p(self.fit.seed_keys), p(self.fit.cap_flags),
+            p(self.fit.cap_keys), MA, MB, CP, K, N, D, T, TA, st.symm_ok.shape[0],
+        )
+        self.static_ptr = ctypes.addressof(self.static)
+        self.fn = build.bind("pa_fit", "kat_pa_fit", SIGNATURES)
+        self.stream = build.stream()
+
+    def __call__(self, g: torch.Tensor, task_status: torch.Tensor,
+                 task_node: torch.Tensor) -> PodAffinityFit:
+        """Group ``g`` (i32 / i64, its first element on the plan's
+        device) against the current ``task_status`` / ``task_node``."""
+        if self.dev.type == "cpu":
+            return pa_fit_plain(self.st, g, task_status, task_node)
+        if g.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"pa_fit: group dtype {g.dtype}")
+        if self.first:  # the state arrays keep their types all action
+            T = self.st.num_tasks
+            for t, name in ((task_status, "task_status"), (task_node, "task_node")):
+                build.require(t, torch.int32, f"pa_fit.{name}", self.dev)
+                if t.shape != (T,):
+                    raise ValueError(f"pa_fit.{name}: shape {tuple(t.shape)}, want ({T},)")
+            if g.device != self.dev:
+                raise ValueError(f"pa_fit: group on {g.device}")
+            self.first = False
+        build.check(self.fn(self.static_ptr, g.data_ptr(), int(g.dtype == torch.int64),
+                            task_status.data_ptr(), task_node.data_ptr(), self.stream), "pa_fit")
+        pa_fit.launches += 1
+        return self.fit
+
+
 def pa_fit(st, g: torch.Tensor, task_status: torch.Tensor, task_node: torch.Tensor) -> PodAffinityFit:
     """Group ``g`` (i32/i64[1], on the device) against the current
-    ``task_status`` / ``task_node``.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (two grids: tasks, then nodes)."""
+    ``task_status`` / ``task_node``, through a plan of its own (fresh
+    outputs).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel once."""
     if task_status.device.type == "cpu":
         return pa_fit_plain(st, g, task_status, task_node)
-    dev = task_status.device
-    if dev.type != "cuda":
-        raise ValueError(f"pa_fit: tensors on {dev}")
-    N, D, K = st.num_nodes, st.num_domains, st.node_dom.shape[0]
-    MA, MB = st.group_aff_terms.shape[1], st.group_anti_terms.shape[1]
-    TA, T = st.anti_key.shape[0], st.num_tasks
-    CP = max(st.aff_match.shape[1], st.anti_match.shape[1])
-    if (st.aff_match.shape[0] and st.aff_match.shape[1] != CP) or \
-            (st.anti_match.shape[0] and st.anti_match.shape[1] != CP):
-        raise ValueError("pa_fit: aff_match and anti_match disagree on the class axis")
-    g32 = g.reshape(-1)[:1].to(torch.int32).contiguous()
-    checks = [
-        (st.task_status, torch.int32), (task_status, torch.int32), (task_node, torch.int32),
-        (st.task_valid, torch.bool), (st.task_group, torch.int32),
-        (st.task_pa_class, torch.int32), (st.group_pa_class, torch.int32),
-        (st.group_aff_terms, torch.int32), (st.group_anti_terms, torch.int32),
-        (st.aff_key, torch.int32), (st.anti_key, torch.int32), (st.aff_static, torch.int32),
-        (st.anti_static, torch.int32), (st.aff_static_total, torch.int32),
-        (st.aff_match, torch.bool), (st.anti_match, torch.bool), (st.node_dom, torch.int32),
-        (st.symm_ok, torch.bool),
-    ]
-    for i, (t, dt) in enumerate(checks):
-        build.require(t, dt, f"pa_fit.arg{i}", dev)
-    scratch = torch.zeros((MA + MB) * D + MA + D, dtype=torch.int32, device=dev)
-    dyn = scratch[: (MA + MB) * D]
-    any_aff = scratch[(MA + MB) * D: (MA + MB) * D + MA]
-    marks = scratch[(MA + MB) * D + MA:]
-    ok = torch.empty(N, dtype=torch.bool, device=dev)
-    seed_flags = torch.empty(MA, dtype=torch.bool, device=dev)
-    seed_keys = torch.empty(MA, dtype=torch.int32, device=dev)
-    cap_flags = torch.empty(MB, dtype=torch.bool, device=dev)
-    cap_keys = torch.empty(MB, dtype=torch.int32, device=dev)
-    fn = build.bind("pa_fit", "kat_pa_fit", SIGNATURES)
-    p = build.ptr
-    build.check(fn(
-        p(g32), p(st.task_status), p(task_status), p(task_node), p(st.task_valid),
-        p(st.task_group), p(st.task_pa_class), p(st.group_pa_class), p(st.group_aff_terms), MA,
-        p(st.group_anti_terms), MB, p(st.aff_key), p(st.anti_key), p(st.aff_static),
-        p(st.anti_static), p(st.aff_static_total), p(st.aff_match), p(st.anti_match), CP,
-        p(st.node_dom), K, N, D, T, TA, p(st.symm_ok), st.symm_ok.shape[0], p(dyn), p(any_aff),
-        p(marks), p(ok), p(seed_flags), p(seed_keys), p(cap_flags), p(cap_keys), build.stream(),
-    ), "pa_fit")
-    pa_fit.launches += 2 if T > 0 else 1
-    return PodAffinityFit(ok=ok, seed_flags=seed_flags, seed_keys=seed_keys,
-                          cap_flags=cap_flags, cap_keys=cap_keys)
+    return PaFitPlan(st)(g, task_status, task_node)
 
 
 pa_fit.launches = 0

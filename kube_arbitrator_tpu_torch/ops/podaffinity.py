@@ -17,10 +17,10 @@ capacity rows; their plain versions live beside them in ops/kernels/.
 from __future__ import annotations
 
 from ..cache.snapshot import pa_enabled
-from .kernels.pa_fit import PodAffinityFit, pa_fit as pod_affinity_fit
+from .kernels.pa_fit import PaFitPlan, PodAffinityFit, pa_fit as pod_affinity_fit
 from .kernels.pa_shape import apply_domain_cap, apply_seed, pa_shape
 
 __all__ = [
-    "PodAffinityFit", "apply_domain_cap", "apply_seed", "pa_enabled", "pa_shape",
+    "PaFitPlan", "PodAffinityFit", "apply_domain_cap", "apply_seed", "pa_enabled", "pa_shape",
     "pod_affinity_fit",
 ]

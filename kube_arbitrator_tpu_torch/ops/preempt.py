@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -82,7 +82,7 @@ from .kernels.window_gate import (
     CONFLICTS, GATED, ROUND_DONE, START, TRIP, new_gate, window_gate,
 )
 from .ordering import Tiers, group_order_keys, job_order_keys
-from .podaffinity import pa_shape, pod_affinity_fit
+from .podaffinity import PaFitPlan, pa_shape
 
 RUNNING = int(TaskStatus.RUNNING)
 RELEASING = int(TaskStatus.RELEASING)
@@ -269,18 +269,30 @@ def claim_aggregates(st, view, victims):
             vmin[:N].contiguous())
 
 
+def _pa_plan(st, tiers) -> Optional[PaFitPlan]:
+    """K11's plan for a run of claim turns, or None where pod affinity is
+    off (no predicates, or a pack without affinity terms)."""
+    if plugin_on(tiers, "predicates", "predicate_disabled") and pa_enabled(st):
+        return PaFitPlan(st)
+    return None
+
+
 def _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, req, budget,
-                 was_ready, need, victims, node_rank, node_cum) -> None:
+                 was_ready, need, victims, node_rank, node_cum, pa_plan=None) -> None:
     """The selection-independent tail of one queue turn, in place: per-node
     aggregates (K4), claim capacity / prefix fill / evict rule (K6), the
     claimant decode and the state scatters.  ``q``/``j``/``g`` are i64[1],
     ``has_grp``/``was_ready`` bool[1], ``budget``/``need`` i32[1], ``req``
-    f32[R]; ``victims`` is this queue's verdict mask."""
+    f32[R]; ``victims`` is this queue's verdict mask.  ``pa_plan``: the
+    round loop's K11 plan (:func:`_pa_plan`); None builds one for this
+    turn where pod affinity is on."""
     J, Q, N = st.num_jobs, st.num_queues, st.num_nodes
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     pa = None
-    if preds_on and pa_enabled(st):
-        fit = pod_affinity_fit(st, g, state.task_status, state.task_node)
+    if pa_plan is None:
+        pa_plan = _pa_plan(st, tiers)
+    if pa_plan is not None:
+        fit = pa_plan(g, state.task_status, state.task_node)
         pa = (fit.ok, lambda cap: pa_shape(st, fit, cap[None, :])[0])
     p, cum, placed, evict = claim_nodes(
         st, *claim_aggregates(st, view, victims), state.node_ports, state.node_num_tasks,
@@ -334,9 +346,10 @@ def _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, re
     state.progress = state.progress | (placed_total > 0)[0] | short[0]
 
 
-def _claim_turn(q, st, sess, state, tiers, s_max, mode, view) -> None:
+def _claim_turn(q, st, sess, state, tiers, s_max, mode, view, pa_plan=None) -> None:
     """One queue turn of a preempt phase, sequentially: selection, the
-    verdict over this queue's scope, then the shared claim tail."""
+    verdict over this queue's scope, then the shared claim tail
+    (``pa_plan`` as there)."""
     P = view.idx.shape[0]
     q_ok = st.queue_valid[q]  # preempt has no overused gate
     shared = _selection_shared(st, sess, state, tiers, None)
@@ -355,7 +368,7 @@ def _claim_turn(q, st, sess, state, tiers, s_max, mode, view) -> None:
     ) & has_grp
     node_rank, node_cum = view.layouts.by_node_queue.rank_and_cum(victims)
     _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, req[0], budget,
-                 was_ready, need, victims, node_rank, node_cum)
+                 was_ready, need, victims, node_rank, node_cum, pa_plan)
 
 
 # ---------------------------------------------------------------- preempt rounds
@@ -400,6 +413,7 @@ def _rounds(st, sess, state, tiers, s_max, max_rounds, mode, view) -> AllocState
     """The sequential turn loop: each active queue's full turn in the
     round's queue order.  The rounds counter accumulates over phases."""
     _start_rounds(state)
+    pa_plan = _pa_plan(st, tiers)
     while True:
         q_active = _round_gate(st, sess, state, mode, view)
         nq, perm = _queue_perm(st, sess, state, tiers, q_active)
@@ -408,7 +422,7 @@ def _rounds(st, sess, state, tiers, s_max, max_rounds, mode, view) -> AllocState
             return state
         state.progress = torch.zeros_like(state.progress)
         for qi in range(trip):
-            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view)
+            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, pa_plan)
         state.rounds += 1
 
 
@@ -440,6 +454,7 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
     ncum_c = torch.zeros((P, R), dtype=torch.float32, device=dev)
     gated_rounds = torch.zeros((), dtype=i64, device=dev)
     qp_s = view.queue.clamp(max=Q - 1).to(i64)
+    pa_plan = _pa_plan(st, tiers)
 
     def verdicts_of(s, q_active, j_sel, g_sel, has_grp, req_all, scope_limit):
         p_running = view.running(s.task_status)
@@ -505,10 +520,10 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
             _apply_claim(
                 st, sess, state, tiers, s_max, mode, view, q, j_sel[q], g_sel[q], has_grp[q],
                 req_all[q][0], budget_all[q], was_ready[q], need[q],
-                victims_all & (view.queue == q), node_rank, node_cum,
+                victims_all & (view.queue == q), node_rank, node_cum, pa_plan,
             )
         for qi in range(QA, trip):  # overflow turns: the full sequential turn
-            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view)
+            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, pa_plan)
         state.rounds += 1
         gated_rounds = gated_rounds + gated.to(i64)
         have, placed_prev = True, placed_entry
@@ -1017,6 +1032,7 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
     use_gang = "gang" in verdict_names
     use_prop = "proportion" in verdict_names
     pa_on = preds_on and pa_enabled(st)
+    pa_plan = PaFitPlan(st) if pa_on else None  # K11's launches, bound once
     defer = not pa_on and _claim_key_fits(st.num_groups, T)
 
     node_key = state.task_node.clamp(min=0)
@@ -1101,7 +1117,7 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
             else:
                 node_ok = st.node_valid
             if pa_on:
-                node_ok = node_ok & pod_affinity_fit(st, g, state.task_status, state.task_node).ok
+                node_ok = node_ok & pa_plan(g, state.task_status, state.task_node).ok
             weak_ok = ~(vic_res < req[None, :]).all(dim=-1)
             feas = node_ok & (vic_cnt > 0) & weak_ok & pop & has_grp
             n_star = torch.where(feas, node_ids, N).argmin().reshape(1)
