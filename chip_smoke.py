@@ -28,7 +28,16 @@ rows):
    world's groups after reclaim and three allocate rounds (50k x 5k;
    K11 through one plan, the groups back to back, one launch a call),
    K13-K15 on the optimistic reclaim engine's first
-   speculation window of the q512_evict world (50k x 5k, 512 queues),
+   speculation window of the q512_evict world (50k x 5k, 512 queues;
+   K13 through RoundProductsPlan, the engines' form: a clear dirty flag,
+   three launches back to back over in-place changes of the carry, and
+   two more packs — one whose padding is its longest run, one with node
+   blocks past 32 slots), K4 in its callers' forms (ordered and
+   unordered at open_session's 102,400 -> 1,024 and
+   the evictive world's per-node 51,200 -> 5,120 shapes, _reclaim_fast's
+   jstat with 24 slots in range, ordered_sum at 10,240 and 500 rows;
+   each route with out= accumulation, i32, every slot dropped, T = 0 and
+   one launch a call),
    K16 on its three callers' shapes (a commit list at T = 102,400 whose
    count passes the cap, allocate's feasibility cells at [K, 10,240],
    preempt's full-width victim panel at 51,200), K17 on the q512_evict
@@ -214,6 +223,13 @@ Q512_WORLD_42 = dict(binds=24_695, evicts_by_phase=[0, 0, 0, 408], digest="60863
                      reclaim_counters=[2, 1, 31_626])
 ROUNDS_Q4_WORLD_42 = dict(binds=5_427, evicts_by_phase=[0, 778, 0, 105],
                           digest="9db04e52b1d1becb", reclaim_counters=[19, 1, 84])
+# K13's extra packs: a few running tasks on many nodes (the padding past
+# the last block is the longest run), and many running tasks a node
+# (blocks of more than 32 slots)
+K13_PADDING_WORLD = dict(tasks=4_000, nodes=2_000, queues=8, tasks_per_job=100,
+                         running_fraction=0.05, fit_fraction=1.2)
+K13_LONG_BLOCKS_WORLD = dict(tasks=8_000, nodes=60, queues=8, tasks_per_job=100,
+                             running_fraction=0.5, fit_fraction=1.2)
 # card vs CPU for the q512 shape at a size the CPU decides quickly
 Q512_CPU_CHECK = dict(tasks=20_000, nodes=2_000, queues=512, tasks_per_job=100,
                       running_fraction=0.5, fit_fraction=1.2)
@@ -381,8 +397,35 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # ---------------------------------------------------------------- phase 1
 
 
-def k4_case(dev):
+def _dt(t) -> str:
+    return {torch.float32: "f32", torch.int32: "i32"}.get(t.dtype, str(t.dtype))
+
+
+def launch_counts(*fns) -> int:
+    return sum(f.launches for f in fns)
+
+
+def sum_form(form, fn, lib_fn, nbytes, nops, counted, shape, note=None) -> dict:
+    """One timed form of a sum kernel: its launches a call (the wrappers'
+    counts over one call), the three times of :func:`kernel_times`, the
+    bound and the library call's time at the same shape."""
+    n0 = launch_counts(*counted)
+    fn()
+    torch.cuda.synchronize()
+    per_call = launch_counts(*counted) - n0
+    t = kernel_times(fn)
+    b, by = bound_ms(nbytes, nops)
+    return dict(form=form, launches_per_call=per_call, **t, bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(lib_fn) if lib_fn else None, shape=shape, note=note)
+
+
+def k4_case(dev, fx):
+    """K4 in its callers' forms: ordered (``order=`` given), unordered
+    (the order computed in the call) and ``ordered_sum`` (one segment),
+    each timed at the shapes its callers give it."""
+    from kube_arbitrator_tpu_torch.api.types import TaskStatus
     from kube_arbitrator_tpu_torch.ops.kernels import segment_sum as k4
+    from kube_arbitrator_tpu_torch.ops.kernels import stable_sort as k19
 
     rng = np.random.default_rng(4)
     T, J, C = 102_400, 1024, 4
@@ -404,6 +447,101 @@ def k4_case(dev):
     long_v = val[:10_240]
     expect(torch.equal(k4.ordered_sum(long_v).cpu(), k4.segment_sum_plain(
         long_v.cpu(), torch.zeros(10_240, dtype=torch.int32), 1)[0]), "K4 ordered_sum differs")
+    # both routes (unordered: one launch; ordered): out= accumulation from
+    # a base, i32, every slot dropped, T = 0, and the launches a call
+    base = torch.from_numpy((rng.standard_normal((J, C)) * 1e6).astype(np.float32)).to(dev)
+    order = k19.segment_order(bad, J)
+    dropped = torch.full_like(idx, J)
+    none_v, none_i = val[:0], idx[:0]
+    for route, call in (
+            ("unordered", lambda v, i, out=None: k4.segment_sum(v, i, J, out=out)),
+            ("ordered", lambda v, i, out=None: k4.segment_sum(
+                v, i, J, out=out, order=order if i is bad else k19.segment_order(i, J)))):
+        out = base.clone()
+        call(val, bad, out)
+        expect(torch.equal(out.cpu(), k4.segment_sum_plain(val.cpu(), bad.cpu(), J, out=base.cpu())),
+               f"K4 {route}: out= accumulation differs")
+        expect(torch.equal(call(ival, bad).cpu(), k4.segment_sum_plain(ival.cpu(), bad.cpu(), J)),
+               f"K4 {route}: i32 differs")
+        expect(torch.equal(call(val, dropped).cpu(), torch.zeros((J, C))),
+               f"K4 {route}: every slot dropped, not zeros")
+        expect(torch.equal(call(none_v, none_i).cpu(), torch.zeros((J, C))), f"K4 {route}: T = 0")
+        out = base.clone()
+        call(none_v, none_i, out)
+        expect(torch.equal(out, base), f"K4 {route}: T = 0 changed out")
+        n0 = launch_counts(k4.segment_sum, k19.stable_sort)
+        call(val, bad)
+        expect(launch_counts(k4.segment_sum, k19.stable_sort) - n0 == 1,
+               f"K4 {route}: not one launch a call")
+
+    # ---- the callers' forms, each timed
+    counted = (k4.segment_sum, k19.stable_sort)
+    forms = []
+
+    def lib_index_add(v, i, S):
+        keep = (i >= 0) & (i < S)
+        ii = torch.where(keep, i, S).long()
+        acc = torch.zeros((S + 1, v.shape[1]), dtype=v.dtype, device=dev)
+        return lambda: acc.zero_().index_add_(0, ii, v)
+
+    def in_range(i, S) -> int:
+        """M: the slots a sum reads and adds; the rest are dropped."""
+        return int(((i >= 0) & (i < S)).sum())
+
+    def ordered(name, v, i, S, note=None):
+        # reads the M in-range slots' perm entries and rows, seg_start, writes out
+        order = k19.segment_order(i, S)
+        n, c = v.shape
+        m = in_range(i, S)
+        expect(torch.equal(k4.segment_sum(v, i, S, order=order).cpu(),
+                           k4.segment_sum_plain(v.cpu(), i.cpu(), S)), f"K4 {name} differs")
+        forms.append(sum_form(
+            f"ordered {name}", lambda: k4.segment_sum(v, i, S, order=order), lib_index_add(v, i, S),
+            m * 4 + m * c * 4 + (S + 1) * 4 + S * c * 4, m * c, counted,
+            f"{_dt(v)} [{n},{c}] -> [{S},{c}], {m} in range", note))
+
+    def unordered(name, v, i, S, note=None):
+        # reads every idx and the M in-range rows, writes out
+        n, c = v.shape
+        m = in_range(i, S)
+        expect(torch.equal(k4.segment_sum(v, i, S).cpu(), k4.segment_sum_plain(v.cpu(), i.cpu(), S)),
+               f"K4 unordered {name} differs")
+        forms.append(sum_form(
+            f"unordered {name}", lambda: k4.segment_sum(v, i, S), lib_index_add(v, i, S),
+            n * 4 + m * c * 4 + S * c * 4, m * c, counted,
+            f"{_dt(v)} [{n},{c}] -> [{S},{c}], {m} in range", note))
+
+    # open_session's job sums: 102,400 slots in runs of 100 -> 1,024 jobs
+    ordered("open_session", val, idx, J)
+    # the evictive world's per-node sums (claim_aggregates, _reclaim_fast's
+    # agg): the running tasks' [count | resreq] by node, the rest dropped
+    st, state = fx.st, fx.state0
+    N, R = st.num_nodes, st.task_resreq.shape[1]
+    running = (state.task_status == int(TaskStatus.RUNNING)) & st.task_valid & (state.task_node >= 0)
+    vstat = torch.cat([running.float()[:, None],
+                       torch.where(running[:, None], st.task_resreq, 0.0)], 1).contiguous()
+    node_idx = torch.where(running, state.task_node, N).to(torch.int32)
+    ordered("claim_aggregates", vstat, node_idx, N)
+    unordered("open_session", val, idx, J)
+    unordered("claim_aggregates", vstat, node_idx, N)
+    # _reclaim_fast's jstat: a turn's few evictions by job, every other slot dropped
+    Jw = st.num_jobs
+    ev = torch.zeros(st.num_tasks, dtype=torch.bool, device=dev)
+    ev[torch.from_numpy(rng.choice(np.nonzero(running.cpu().numpy())[0], 24, replace=False)).to(dev)] = True
+    jidx = torch.where(ev, st.task_job, Jw).to(torch.int32)
+    evstat = torch.cat([ev.float()[:, None], torch.where(ev[:, None], st.task_resreq, 0.0)], 1)
+    unordered("jstat", evstat.contiguous(), jidx, Jw, note="24 of the slots in range")
+    # ordered_sum: one segment of 10,240 rows x R, and of 500 rows
+    for rows_n in (10_240, 500):
+        v = vstat[:rows_n].contiguous()
+        expect(torch.equal(k4.ordered_sum(v).cpu(), k4.segment_sum_plain(
+            v.cpu(), torch.zeros(rows_n, dtype=torch.int32), 1)[0]), f"K4 ordered_sum {rows_n} differs")
+        forms.append(sum_form(
+            f"ordered_sum {rows_n}", lambda v=v: k4.ordered_sum(v), lambda v=v: v.sum(dim=0),
+            rows_n * (R + 1) * 4 + (R + 1) * 4, rows_n * (R + 1), counted,
+            f"f32 [{rows_n},{R + 1}] -> [{R + 1}]",
+            "library: torch.sum(dim=0), another add order"))
+
     t = kernel_times(lambda: k4.segment_sum(val, idx, J))
     plain_ms = cuda_ms(lambda: k4.segment_sum_plain(val, idx, J), reps=3)
     lib = torch.zeros((J, C), device=dev)
@@ -411,8 +549,8 @@ def k4_case(dev):
     nbytes = T * C * 4 + T * 4 + J * C * 4
     b, by = bound_ms(nbytes, T * C)
     return dict(name="segment_sum", max_abs_err=err, **t, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=lib_ms,
-                shape=f"val f32[{T},{C}] -> [{J},{C}]")
+                bound_ms=b, bound_by=by, library_ms=lib_ms, variants=forms,
+                shape=f"val f32[{T},{C}] -> [{J},{C}] (unordered)")
 
 
 def k2_case(dev):
@@ -1270,7 +1408,6 @@ def window_fixture(dev):
     from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
     from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
     from kube_arbitrator_tpu_torch.ops import cycle, preempt
-    from kube_arbitrator_tpu_torch.ops.kernels.round_products import new_products
     from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
 
     w = Q512_EVICT
@@ -1290,60 +1427,150 @@ def window_fixture(dev):
     in_window = torch.arange(RP, device=dev) < trip
     shared = preempt._reclaim_shared(st, sess, state, tiers, carry.job_consumed)
     pops = preempt.reclaim_select_turns(st, sess, state, tiers, shared, q_panel, carry.q_entries)
-    Vp, R = ctx.cres.shape
-    prods = preempt._round_products(st, sess, state, ctx, carry, use_gang, use_prop,
-                                    new_products(Vp, st.num_nodes, R, dev))
+    prods = preempt._products_plan(st, sess, state, ctx, carry, use_gang, use_prop)()
     return types.SimpleNamespace(
         st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess, state=state, ctx=ctx, carry=carry,
         flags=(use_gang, use_prop, preds_on), RP=RP, trip=trip, q_panel=q_panel.to(torch.int32),
         in_window=in_window, pops=pops, prods=prods)
 
 
-def k13_case(dev, fx):
+def canon_world(dev, w, seed):
+    """A world's reclaim entry state, canon context and carry on ``dev``
+    (and its pack on the CPU): K13's inputs at the engines' first round."""
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops import cycle, preempt
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+
+    arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"], w["tasks_per_job"],
+                                       seed, running_fraction=w["running_fraction"],
+                                       fit_fraction=w["fit_fraction"])
+    st = from_numpy(arrays, dev)
+    sess, state = cycle.open_session(st, tiers)
+    ctx = preempt._canon_ctx(st, sess)
+    carry = preempt._canon_seed(st, state, ctx)
+    return types.SimpleNamespace(st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess, state=state,
+                                 ctx=ctx, carry=carry, flags=preempt._reclaim_flags(tiers))
+
+
+def k13_equal(fx, plan, what) -> float:
+    """Hold the plan's outputs (just launched) against the plain version
+    run on the CPU over the same state; returns the largest difference."""
     from kube_arbitrator_tpu_torch.ops.kernels import round_products as k13
+
+    use_gang, use_prop, _ = fx.flags
+    c, s = to_cpu(fx.carry), to_cpu(fx.state)
+    Vp, R = fx.ctx.cres.shape
+    want = k13.round_products_plain(fx.st_cpu, to_cpu(fx.ctx), c.cand, c.rank_nj, c.cum_nq,
+                                    s.job_ready_cnt, fx.sess.min_avail.cpu(), s.queue_alloc,
+                                    use_gang, use_prop,
+                                    k13.new_products(Vp, fx.st.num_nodes, R, "cpu"))
+    err = 0.0
+    for name, a, b in zip(("elig", "pn", "segcum"), plan.out, want):
+        err = max(err, max_err(a, b))
+        expect(torch.equal(a.cpu(), b), f"K13 {what}: {name} differs from its plain version")
+    return err
+
+
+def k13_case(dev, fx):
+    """K13 through ``RoundProductsPlan`` (the engines' form): the q512_evict
+    first window (timed), a clear dirty flag, back-to-back launches over
+    in-place changes of the carry; a pack whose padding is its longest
+    run; node blocks longer than a warp."""
+    from kube_arbitrator_tpu_torch.ops import preempt
+    from kube_arbitrator_tpu_torch.ops.kernels import round_products as k13
+    from kube_arbitrator_tpu_torch.ops.kernels.canon_pick import canon_elig
 
     use_gang, use_prop, _ = fx.flags
     st, ctx, c, s = fx.st, fx.ctx, fx.carry, fx.state
     Vp, R = ctx.cres.shape
     N = st.num_nodes
-
-    def args(st_, ctx_, c_, s_, sess_, out, dirty=None):
-        return (st_, ctx_, c_.cand, c_.rank_nj, c_.cum_nq, s_.job_ready_cnt, sess_.min_avail,
-                s_.queue_alloc, use_gang, use_prop, out, dirty)
-
-    got = k13.round_products(*args(st, ctx, c, s, fx.sess, k13.new_products(Vp, N, R, dev)))
-    want = k13.round_products_plain(*args(fx.st_cpu, to_cpu(ctx), to_cpu(c), to_cpu(s),
-                                          to_cpu(fx.sess), k13.new_products(Vp, N, R, "cpu")))
-    err = 0.0
-    for name, a, b in zip(("elig", "pn", "segcum"), got, want):
-        err = max(err, max_err(a, b))
-        expect(torch.equal(a.cpu(), b), f"K13 {name} differs from its plain version")
+    plan = preempt._products_plan(st, fx.sess, s, ctx, c, use_gang, use_prop)
+    n0 = k13.round_products.launches
+    plan()
+    torch.cuda.synchronize()
+    per_call = k13.round_products.launches - n0
+    err = k13_equal(fx, plan, "q512_evict first window")
+    got = plan.out
     expect(int(got[0].sum()) > 0, "K13 inputs: no eligible victim")
-    # a clear dirty flag leaves the products as they are
+    cases = []
+    # a clear dirty flag leaves the products as they are, whatever the state
     kept = tuple(x.clone() for x in got)
-    k13.round_products(*args(st, ctx, c, s, fx.sess, got, torch.zeros(1, dtype=torch.bool,
-                                                                        device=dev)))
+    clear = torch.zeros(1, dtype=torch.bool, device=dev)
+    plan(clear)
     c.cand.logical_not_()
-    k13.round_products(*args(st, ctx, c, s, fx.sess, got, torch.zeros(1, dtype=torch.bool,
-                                                                        device=dev)))
+    plan(clear)
     c.cand.logical_not_()
     expect(all(torch.equal(a, b) for a, b in zip(kept, got)), "K13 wrote under a clear dirty flag")
+    # the batched engine's refreshes: launches back to back through one
+    # plan, the carry changed in place between them (claims clear cand)
+    cand0 = c.cand.clone()
+    rng = np.random.default_rng(13)
+    dirty = torch.ones(1, dtype=torch.bool, device=dev)
+    for step in range(3):
+        drop = torch.from_numpy(rng.random(Vp) < 0.05 * (step + 1)).to(dev)
+        c.cand &= ~drop
+        plan(dirty)
+        err = max(err, k13_equal(fx, plan, f"back-to-back launch {step}"))
+    c.cand.copy_(cand0)
+    plan()
+    cases.append(dict(case="clear dirty flag, 3 back-to-back launches through one plan", equal=True))
+    t = kernel_times(lambda: plan())
+    plain_ms = cuda_ms(lambda: k13.round_products_plain(st, ctx, c.cand, c.rank_nj, c.cum_nq,
+                                                        s.job_ready_cnt, fx.sess.min_avail,
+                                                        s.queue_alloc, use_gang, use_prop,
+                                                        plan.out), reps=3)
+    # the functional form (a throwaway plan a call)
     out = k13.new_products(Vp, N, R, dev)
-    t = kernel_times(lambda: k13.round_products(*args(st, ctx, c, s, fx.sess, out)))
-    plain_ms = cuda_ms(lambda: k13.round_products_plain(*args(st, ctx, c, s, fx.sess, out)), reps=3)
-    # the library call for the per-node sums: one index_add_ (not in slot order)
+    functional = kernel_times(lambda: k13.round_products(
+        st, ctx, c.cand, c.rank_nj, c.cum_nq, s.job_ready_cnt, fx.sess.min_avail, s.queue_alloc,
+        use_gang, use_prop, out))
+    # the library call for the per-node sums: one index_add_ (not in slot
+    # order); it covers pn only.  Beside it the nearest composition of
+    # elig and pn: the plain eligibility expression, then index_add_ (a
+    # per-segment torch.cumsum for segcum is not one call: not timed)
     elig = got[0]
     stat = torch.cat([elig.float()[:, None], torch.where(elig[:, None], ctx.cres, 0.0)], 1)
     idx = ctx.cnode.clamp(max=N - 1).long()
     acc = torch.zeros((N, R + 1), device=dev)
     lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, idx, stat))
+
+    def composed():
+        e = canon_elig(ctx, c.cand, c.rank_nj, c.cum_nq, s.job_ready_cnt, fx.sess.min_avail,
+                       s.queue_alloc, use_gang, use_prop)
+        v = torch.cat([e.float()[:, None], torch.where(e[:, None], ctx.cres, 0.0)], 1)
+        return acc.zero_().index_add_(0, idx, v)
+
+    compose_ms = cuda_ms(composed)
+    V = int(st.rv_block_start[-1])
+    blocks = (st.rv_block_start[1:] - st.rv_block_start[:-1])
+    cases.insert(0, dict(case="q512_evict first window", library_elig_pn_ms=compose_ms, Vp=Vp, V=V,
+                         padding=Vp - V, longest_block=int(blocks.max()), window=int(st.rv_window),
+                         functional_ms=functional["ms"], functional_host_us=functional["host_us"]))
+    # packs whose padding is the longest run, and whose node blocks pass 32 slots
+    for what, w, seed in (("padding the longest run", K13_PADDING_WORLD, 7),
+                          ("node blocks past 32 slots", K13_LONG_BLOCKS_WORLD, 8)):
+        wf = canon_world(dev, w, seed)
+        Vw = int(wf.st.rv_block_start[-1])
+        bl = int((wf.st.rv_block_start[1:] - wf.st.rv_block_start[:-1]).max())
+        pad = wf.ctx.cres.shape[0] - Vw
+        expect(pad > bl if what.startswith("padding") else bl > 32,
+               f"K13 {what}: padding {pad}, longest block {bl}")
+        wplan = preempt._products_plan(wf.st, wf.sess, wf.state, wf.ctx, wf.carry, *wf.flags[:2])
+        wplan()
+        err = max(err, k13_equal(wf, wplan, what))
+        expect(int(wplan.out[0].sum()) > 0, f"K13 {what}: no eligible victim")
+        cases.append(dict(case=what, Vp=int(wf.ctx.cres.shape[0]), V=Vw, padding=pad,
+                          longest_block=bl, **kernel_times(lambda: wplan())))
+        del wf, wplan
     F = c.cum_nq.shape[1]
     nbytes = Vp * (1 + 4 + 4 * F + 4 + 4 + 4 * F + 4 * R + 1) + (N + 1) * 4 + st.num_jobs * 8 \
         + st.num_queues * 4 * R + Vp * (1 + 4 * (R + 1)) + N * 4 * (R + 1)
     b, by = bound_ms(nbytes, Vp * (2 * (R + 1) + 2 * F + 3))
     return dict(name="round_products", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms,
-                shape=f"Vp={Vp}, N={N}, R={R} (q512_evict first window)")
+                bound_by=by, library_ms=lib_ms, library_note="index_add_ of pn only",
+                launches_per_call=per_call, variants=cases,
+                shape=f"Vp={Vp}, N={N}, R={R} (q512_evict first window, RoundProductsPlan)")
 
 
 def k14_case(dev, fx):
@@ -2078,7 +2305,9 @@ def main(kernels_only: bool = False) -> int:
 
     fx = evict_fixture(dev)
     for case in (k1_case, k2_case, k3_case, k4_case, k5_case, k6_case, k7_case, k8_case):
-        report(case(dev, fx) if case in (k5_case, k6_case, k7_case, k8_case) else case(dev))
+        report(case(dev, fx) if case in (k4_case, k5_case, k6_case, k7_case, k8_case) else case(dev))
+    for v in rows["segment_sum"]["variants"]:
+        print(f"kernel segment_sum form {json.dumps(v)}", flush=True)
     tfx = turn_fixture(dev)
     report(k9_case(dev, tfx))
     for v in rows["turn_caps"]["variants"]:
@@ -2091,6 +2320,8 @@ def main(kernels_only: bool = False) -> int:
     fx = window_fixture(dev)
     for case in (k13_case, k14_case, k15_case):
         report(case(dev, fx))
+    for v in rows["round_products"]["variants"]:
+        print(f"kernel round_products case {json.dumps(v)}", flush=True)
     report(k17_case(dev, fx))
     del fx
     report(k18_case(dev))

@@ -1,7 +1,7 @@
 """Time the port's cycle on two trees in turns, on one card.
 
     python -m kube_arbitrator_tpu_torch.cycle_turns --parent DIR [--order PCCPCP] \\
-        [--worlds allocate,evictive,pa_evict,binpack] [--out FILE]
+        [--worlds allocate,evictive,pa_evict,binpack,q512_evict] [--out FILE]
 
 DIR is a second checkout of the repository (for example the parent
 commit, unpacked with ``git archive``).  For each letter of ``--order``
@@ -36,6 +36,11 @@ WORLDS = {
                  "--cycles", "3", "--seed", "42"],
     "binpack": ["--tasks", "100000", "--nodes", "10000", "--node-order", "binpack",
                 "--cycles", "3", "--seed", "42"],
+    # chip_smoke.py phase 6's q512_evict world under the optimistic engine
+    "q512_evict": ["--tasks", "50000", "--nodes", "5000", "--queues", "512",
+                   "--running-fraction", "0.5",
+                   "--actions", "reclaim_optimistic,allocate,backfill,preempt", "--cycles", "3",
+                   "--seed", "42"],
 }
 
 

@@ -1,7 +1,8 @@
 """Where a kernel wrapper's host time goes: one cycle under cProfile.
 
     python -m kube_arbitrator_tpu_torch.host_profile [--tree DIR]
-        [--worlds pa_evict,binpack] [--wrappers turn_caps,pa_fit] [--out FILE]
+        [--worlds pa_evict,binpack,q512_evict] [--wrappers turn_caps,pa_fit,segment_sum,...]
+        [--out FILE]
 
 For each world, a child process run from DIR (a checkout of the
 repository, by default this one; for example the parent commit unpacked
@@ -30,6 +31,9 @@ WORLDS = {
     "pa_evict": dict(tasks=50_000, nodes=5_000, running_fraction=0.5, pod_affinity=True,
                      actions=("reclaim", "allocate", "backfill", "preempt")),
     "binpack": dict(tasks=100_000, nodes=10_000, node_order="binpack"),
+    # chip_smoke.py phase 6's q512_evict world under the optimistic engine
+    "q512_evict": dict(tasks=50_000, nodes=5_000, queues=512, running_fraction=0.5,
+                       actions=("reclaim_optimistic", "allocate", "backfill", "preempt")),
 }
 
 CHILD = r'''

@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[tuple, object] = {}
 # name -> (seconds, ptxas report) of builds this process ran
 BUILD_LOG: Dict[str, tuple] = {}
 
@@ -98,11 +99,13 @@ def load(name: str) -> ctypes.CDLL:
 
 def bind(source: str, fn_name: str, signatures: Dict[str, tuple]):
     """C function ``fn_name`` of kernel ``source`` with its argtypes set
-    from the wrapper's declared signature table."""
-    fn = getattr(load(source), fn_name)
-    if fn.argtypes is None:
+    from the wrapper's declared signature table, bound once a process."""
+    fn = _BOUND.get((source, fn_name))
+    if fn is None:
+        fn = getattr(load(source), fn_name)
         fn.argtypes = list(signatures[fn_name])
         fn.restype = ctypes.c_int
+        _BOUND[(source, fn_name)] = fn
     return fn
 
 
@@ -118,7 +121,9 @@ def ptr(t) -> int:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current stream as a raw pointer, without
+    building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check(rc: int, name: str) -> None:

@@ -17,24 +17,34 @@ bool[Vp], pn f32[N, R+1], segcum f32[Vp, R+1]):
 
 ``dirty`` (optional bool[1] on the device): when clear, nothing is
 written — the batched engine's refresh at the first turn after a claim,
-decided on the device.  CUDA source: csrc/round_products.cu.
+decided on the device.  :class:`RoundProductsPlan` binds an engine
+call's launches once (the carried state is updated in place between
+them, so a launch passes only ``dirty``); :func:`round_products` is the
+same through a throwaway plan.  CUDA source: csrc/round_products.cu.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import build
-from .build import I, P
+from .build import P
 from .canon_pick import canon_elig
 from .seg_scan import seg_scan_plain
 from .segment_sum import segment_sum_plain
 
-# C signature of csrc/round_products.cu
-SIGNATURES = {
-    "kat_round_products": (
-        P, P, P, P, P, P, P, P, P, I, I, I, I, P, P, P, I, I, P, P, P, P, P,
-    ),
-}
+# C signature of csrc/round_products.cu: (static, dirty, stream)
+SIGNATURES = {"kat_round_products": (P, P, P)}
+
+
+class _Static(ctypes.Structure):
+    """csrc/round_products.cu's Static: the fixed arguments of a plan."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "cand", "rank_nj", "cum_nq", "cj", "cq", "deserved_c", "job_ready_cnt", "min_avail",
+        "queue_alloc", "bstart", "nq_start", "cres", "elig", "pn", "segcum",
+    )] + [(n, ctypes.c_int) for n in ("R", "F", "use_gang", "use_prop", "N", "Vp")]
 
 
 def new_products(Vp: int, N: int, R: int, device) -> tuple:
@@ -67,44 +77,88 @@ def round_products_plain(st, ctx, cand, rank_nj, cum_nq, job_ready_cnt, min_avai
     return out
 
 
+class RoundProductsPlan:
+    """K13's launches over one engine call on the carried canon state.
+
+    Built once per ``_reclaim_canon_batched`` / ``_reclaim_canon_optimistic``
+    call: it checks the dtypes and shapes once, binds the fixed pointers
+    (the canon context, the pack's block starts and segment flags, the
+    carry's ``cand`` / ``rank_nj`` / ``cum_nq``, ``job_ready_cnt``,
+    ``min_avail``, ``queue_alloc`` and the three outputs) and keeps the
+    stream current when it was built.  Every bound tensor must be updated
+    IN PLACE between launches (K8 writes the carry, ``job_ready_cnt`` and
+    ``queue_alloc`` in place; the canon engines never reassign them): a
+    launch reads whatever they hold then.  ``out`` defaults to fresh
+    :func:`new_products` buffers (``self.out``).  CPU tensors take the
+    plain version."""
+
+    def __init__(self, st, ctx, cand, rank_nj, cum_nq, job_ready_cnt, min_avail, queue_alloc,
+                 use_gang: bool, use_prop: bool, out=None):
+        self.args = (st, ctx, cand, rank_nj, cum_nq, job_ready_cnt, min_avail, queue_alloc,
+                     bool(use_gang), bool(use_prop))
+        dev = cand.device
+        Vp, R = ctx.cres.shape
+        N = st.num_nodes
+        self.out = new_products(Vp, N, R, dev) if out is None else out
+        self.dev = dev
+        if dev.type == "cpu":
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"round_products: tensors on {dev}")
+        elig, pn, segcum = self.out
+        F = cum_nq.shape[1]
+        checks = [
+            (cand, torch.bool, (Vp,)), (rank_nj, torch.float32, (Vp,)),
+            (cum_nq, torch.float32, (Vp, F)), (ctx.cj, torch.int32, (Vp,)),
+            (ctx.cq, torch.int32, (Vp,)), (ctx.deserved_c, torch.float32, (Vp, F)),
+            (job_ready_cnt, torch.int32, None), (min_avail, torch.int32, None),
+            (queue_alloc, torch.float32, None), (st.rv_block_start, torch.int32, (N + 1,)),
+            (st.rv_nq_start, torch.bool, (Vp,)), (ctx.cres, torch.float32, (Vp, R)),
+            (elig, torch.bool, (Vp,)), (pn, torch.float32, (N, R + 1)),
+            (segcum, torch.float32, (Vp, R + 1)),
+        ]
+        for i, (t, dt, shape) in enumerate(checks):
+            build.require(t, dt, f"round_products.arg{i}", dev)
+            if shape is not None and tuple(t.shape) != shape:
+                raise ValueError(f"round_products.arg{i}: shape {tuple(t.shape)}, want {shape}")
+        if queue_alloc.dim() != 2 or queue_alloc.shape[1] != R:
+            raise ValueError("round_products: queue_alloc must be f32[Q, R]")
+        if R + 1 > 32:
+            raise ValueError(f"round_products: R + 1 = {R + 1} columns, a warp holds 32")
+        p = build.ptr
+        self.static = _Static(
+            p(cand), p(rank_nj), p(cum_nq), p(ctx.cj), p(ctx.cq), p(ctx.deserved_c),
+            p(job_ready_cnt), p(min_avail), p(queue_alloc), p(st.rv_block_start),
+            p(st.rv_nq_start), p(ctx.cres), p(elig), p(pn), p(segcum),
+            R, F, int(use_gang), int(use_prop), N, Vp,
+        )
+        self.static_ptr = ctypes.addressof(self.static)
+        self.fn = build.bind("round_products", "kat_round_products", SIGNATURES)
+        self.stream = build.stream()
+
+    def __call__(self, dirty=None):
+        """Write the products of the bound state into ``self.out`` (only
+        where ``dirty``, bool[1] on the plan's device, is set) and return
+        it."""
+        if self.dev.type == "cpu":
+            return round_products_plain(*self.args, self.out, dirty)
+        if dirty is not None and (dirty.dtype != torch.bool or dirty.device != self.dev):
+            raise ValueError("round_products: dirty must be bool[1] on the plan's device")
+        build.check(self.fn(self.static_ptr, build.ptr(dirty), self.stream), "round_products")
+        round_products.launches += 1
+        return self.out
+
+
 def round_products(st, ctx, cand, rank_nj, cum_nq, job_ready_cnt, min_avail, queue_alloc,
                    use_gang: bool, use_prop: bool, out, dirty=None):
     """Write the products of the current state into ``out`` (see the
-    module docstring) and return it.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    args = (st, ctx, cand, rank_nj, cum_nq, job_ready_cnt, min_avail, queue_alloc,
-            use_gang, use_prop, out, dirty)
+    module docstring) and return it, through a plan of its own.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel once."""
     if cand.device.type == "cpu":
-        return round_products_plain(*args)
-    dev = cand.device
-    if dev.type != "cuda":
-        raise ValueError(f"round_products: tensors on {dev}")
-    elig, pn, segcum = out
-    checks = [
-        (cand, torch.bool), (rank_nj, torch.float32), (cum_nq, torch.float32),
-        (ctx.cj, torch.int32), (ctx.cq, torch.int32), (ctx.deserved_c, torch.float32),
-        (job_ready_cnt, torch.int32), (min_avail, torch.int32), (queue_alloc, torch.float32),
-        (st.rv_block_start, torch.int32), (st.rv_nq_start, torch.bool),
-        (ctx.cres, torch.float32), (elig, torch.bool), (pn, torch.float32),
-        (segcum, torch.float32),
-    ] + ([(dirty, torch.bool)] if dirty is not None else [])
-    for i, (t, dt) in enumerate(checks):
-        build.require(t, dt, f"round_products.arg{i}", dev)
-    Vp, R = ctx.cres.shape
-    N = st.num_nodes
-    if elig.shape != (Vp,) or pn.shape != (N, R + 1) or segcum.shape != (Vp, R + 1):
-        raise ValueError("round_products: out must be (bool[Vp], f32[N, R+1], f32[Vp, R+1])")
-    fn = build.bind("round_products", "kat_round_products", SIGNATURES)
-    build.check(fn(
-        build.ptr(cand), build.ptr(rank_nj), build.ptr(cum_nq), build.ptr(ctx.cj),
-        build.ptr(ctx.cq), build.ptr(ctx.deserved_c), build.ptr(job_ready_cnt),
-        build.ptr(min_avail), build.ptr(queue_alloc), R, cum_nq.shape[1], int(use_gang),
-        int(use_prop), build.ptr(st.rv_block_start), build.ptr(st.rv_nq_start),
-        build.ptr(ctx.cres), N, Vp, build.ptr(dirty), build.ptr(elig), build.ptr(pn),
-        build.ptr(segcum), build.stream(),
-    ), "round_products")
-    round_products.launches += 1
-    return out
+        return round_products_plain(st, ctx, cand, rank_nj, cum_nq, job_ready_cnt, min_avail,
+                                    queue_alloc, use_gang, use_prop, out, dirty)
+    return RoundProductsPlan(st, ctx, cand, rank_nj, cum_nq, job_ready_cnt, min_avail,
+                             queue_alloc, use_gang, use_prop, out)(dirty)
 
 
 round_products.launches = 0

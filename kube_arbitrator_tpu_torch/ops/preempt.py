@@ -72,7 +72,7 @@ from .fairness import drf_shares
 from .kernels.canon_commit import _scatter_set, canon_commit
 from .kernels.canon_pick import canon_pick
 from .kernels.claim_nodes import claim_nodes
-from .kernels.round_products import new_products, round_products
+from .kernels.round_products import RoundProductsPlan
 from .kernels.seg_scan import seg_scan
 from .kernels.segment_sum import segment_order, segment_sum
 from .kernels.stable_compact import stable_compact
@@ -841,13 +841,16 @@ def _reclaim_panel(st: SnapshotTensors) -> int:
                max(TURN_PANEL, TURN_BATCH_MAX_CELLS // max(st.num_jobs, st.num_groups, 1)))
 
 
-def _round_products(st, sess, state, ctx, carry, use_gang, use_prop, out, dirty=None):
+def _products_plan(st, sess, state, ctx, carry, use_gang, use_prop) -> RoundProductsPlan:
     """The union eligibility, per-node sums and (node, queue) segmented
-    scan of the current state into ``out`` (K13; the reference's
-    ``_round_products``, shared by both opt-in engines).  With ``dirty``,
-    only where that device flag is set."""
-    return round_products(st, ctx, carry.cand, carry.rank_nj, carry.cum_nq, state.job_ready_cnt,
-                          sess.min_avail, state.queue_alloc, use_gang, use_prop, out, dirty)
+    scan (K13; the reference's ``_round_products``, shared by both opt-in
+    engines), bound once for an engine call: each ``plan(dirty=None)``
+    writes the products of the state as it is then into ``plan.out``
+    (only where the device flag ``dirty`` is set, when given).  The
+    carry, ``job_ready_cnt`` and ``queue_alloc`` change in place only."""
+    return RoundProductsPlan(st, ctx, carry.cand, carry.rank_nj, carry.cum_nq,
+                             state.job_ready_cnt, sess.min_avail, state.queue_alloc, use_gang,
+                             use_prop)
 
 
 def _union_fit(st, state, ctx, prods, preds_on, q, g, has_grp, req, pop):
@@ -885,8 +888,8 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
     state.progress = torch.ones((), dtype=torch.bool, device=dev)
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     carry = _canon_seed(st, state, ctx)
-    Vp, R = ctx.cres.shape
-    prods = new_products(Vp, st.num_nodes, R, dev)
+    products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
+    prods = products.out
     dirty = torch.zeros(1, dtype=torch.bool, device=dev)        # the last turn claimed
     claimed_any = torch.zeros(1, dtype=torch.bool, device=dev)  # a turn of this round claimed
     gated_rounds = torch.zeros((), dtype=i32, device=dev)
@@ -901,11 +904,11 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
             st, sess, state, tiers, _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
             perm[:RP], carry.q_entries,
         )
-        _round_products(st, sess, state, ctx, carry, use_gang, use_prop, prods)
+        products()
         dirty.zero_()
         claimed_any.zero_()
         for qi in range(trip):
-            _round_products(st, sess, state, ctx, carry, use_gang, use_prop, prods, dirty)
+            products(dirty)
             q = perm[qi:qi + 1]
             live = _reclaim_pop(st, sess, state, tiers,
                                 _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
@@ -956,9 +959,9 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
     state.progress = torch.ones((), dtype=torch.bool, device=dev)
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     carry = _canon_seed(st, state, ctx)
-    Vp, R = ctx.cres.shape
-    prods = new_products(Vp, N, R, dev)
-    ctl, sel = new_gate(R, dev)
+    products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
+    prods = products.out
+    ctl, sel = new_gate(ctx.cres.shape[1], dev)
     sel_i, sel_b, sel_req = sel
     w_iota = torch.arange(RP, dtype=torch.int64, device=dev)
     perm = torch.arange(Q, dtype=torch.int64, device=dev)
@@ -976,7 +979,7 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
             st, sess, state, tiers, _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
             q_panel, carry.q_entries,
         )
-        _round_products(st, sess, state, ctx, carry, use_gang, use_prop, prods)
+        products()
         qp32 = q_panel.to(i32)
         pick = _union_fit(st, state, ctx, prods, preds_on, qp32, gp, hgp, reqp, popp & in_window)
         window_gate(pick, N, qp32, jp, gp, hgp, reqp, popp, burnp, ctl, carry.q_entries,

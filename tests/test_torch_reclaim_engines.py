@@ -32,7 +32,6 @@ from kube_arbitrator_tpu_torch.ops import allocate as port_alloc
 from kube_arbitrator_tpu_torch.ops import cycle as port_cycle
 from kube_arbitrator_tpu_torch.ops import ordering as port_ord
 from kube_arbitrator_tpu_torch.ops import preempt as port_pre
-from kube_arbitrator_tpu_torch.ops.kernels import round_products as k13
 from kube_arbitrator_tpu_torch.ops.kernels import union_fit as k14
 from kube_arbitrator_tpu_torch.ops.kernels import window_gate as k15
 
@@ -318,25 +317,24 @@ def _ref_ctx_state(st, pstate, carry):
 
 @pytest.mark.parametrize("use_prop", [False, True])
 def test_round_products_plain_matches_reference(use_prop):
-    """K13's plain version: ``_round_products`` (elig, per-node sums,
-    segmented scan) from a state with claims behind it, bit for bit,
-    under gang's verdict alone and with proportion's too."""
+    """K13's plain version (through the engines' ``RoundProductsPlan``:
+    elig, per-node sums, segmented scan) from a state with claims behind
+    it, bit for bit, under gang's verdict alone and with proportion's
+    too."""
     st = _synth(4000, 400, 8, 3, 0.5)
     pst, psess, pstate, ctx, carry = _canon_midway(st)
     sess, rctx, rstate, cand, rank_nj, cum_nq = _ref_ctx_state(st, pstate, carry)
     want = jax.jit(lambda st_, se, cx, *a: ref_pre._round_products(
         st_, se, cx, True, use_prop, False, *a))(st, sess, rctx, rstate, cand, rank_nj, cum_nq)
-    Vp, R = ctx.cres.shape
-    got = port_pre._round_products(pst, psess, pstate, ctx, carry, True, use_prop,
-                                   k13.new_products(Vp, pst.num_nodes, R, "cpu"))
+    plan = port_pre._products_plan(pst, psess, pstate, ctx, carry, True, use_prop)
+    got = plan()
     for name, a, b in zip(("elig", "pn", "segcum"), want, got):
         assert np.array_equal(np.asarray(a), b.numpy()), name
     assert use_prop or int(got[0].sum()) > 0
     # a clear dirty flag leaves the products alone
     kept = tuple(x.clone() for x in got)
     carry.cand.zero_()
-    port_pre._round_products(pst, psess, pstate, ctx, carry, True, use_prop, got,
-                             torch.zeros(1, dtype=torch.bool))
+    plan(torch.zeros(1, dtype=torch.bool))
     assert all(torch.equal(a, b) for a, b in zip(kept, got))
 
 
@@ -380,9 +378,8 @@ def test_union_fit_plain_matches_reference_first_fit():
     st = _synth(4000, 400, 8, 3, 0.5)
     pst, psess, pstate, ctx, carry = _canon_midway(st)
     sess, rctx, rstate, cand, rank_nj, cum_nq = _ref_ctx_state(st, pstate, carry)
-    Vp, R = ctx.cres.shape
-    prods = port_pre._round_products(pst, psess, pstate, ctx, carry, True, False,
-                                     k13.new_products(Vp, pst.num_nodes, R, "cpu"))
+    prods = port_pre._products_plan(pst, psess, pstate, ctx, carry, True, False)()
+    Vp = ctx.cres.shape[0]
     Q, N = pst.num_queues, pst.num_nodes
     shared = port_pre._reclaim_shared(pst, psess, pstate, TIERS, carry.job_consumed)
     q_ids = torch.arange(Q)

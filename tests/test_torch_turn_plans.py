@@ -13,7 +13,8 @@
 * ``PaFitPlan`` on the CPU equals ``pa_fit_plain`` and the reference's
   ``pod_affinity_fit`` group after group through one plan, at the cycle's
   entry and after allocate rounds (pods placed this cycle).
-* The plans' ctypes structs mirror the C structs field for field.
+* The plans' ctypes structs (K1's, K9's, K11's and K13's) mirror the C
+  structs field for field.
 * On a card (``cuda``-marked, skipped here): every K9 variant and K11
   back to back through one plan equal their plain versions.
 
@@ -38,6 +39,7 @@ from kube_arbitrator_tpu_torch.ops import cycle as port_cycle
 from kube_arbitrator_tpu_torch.ops.kernels import admit_chunk as k1
 from kube_arbitrator_tpu_torch.ops.kernels import build
 from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
+from kube_arbitrator_tpu_torch.ops.kernels import round_products as k13
 from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
 from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS, with_node_order
 
@@ -189,7 +191,8 @@ def _c_struct(source: str):
     return fields
 
 
-@pytest.mark.parametrize("mod,source", [(k1, "admit_chunk"), (k9, "turn_caps"), (k11, "pa_fit")])
+@pytest.mark.parametrize("mod,source", [(k1, "admit_chunk"), (k9, "turn_caps"), (k11, "pa_fit"),
+                                        (k13, "round_products")])
 def test_plan_structs_mirror_the_c_structs(mod, source):
     want = _c_struct(source)
     got = [(name, typ is ctypes.c_void_p) for name, typ in mod._Static._fields_]
@@ -236,7 +239,7 @@ def test_pa_fit_plan_back_to_back_on_card(cuda_device):
     calls = 0
     for state in (entry, mid, entry):
         ts, tn = state.task_status.to(cuda_device), state.task_node.to(cuda_device)
-        for g in range(0, 40, 3):
+        for g in range(0, st.num_groups, 3):  # every third group of the pack
             got = plan(torch.tensor([g], device=cuda_device), ts, tn)
             want = k11.pa_fit_plain(st, torch.tensor([g]), state.task_status, state.task_node)
             calls += 1
