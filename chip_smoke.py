@@ -26,7 +26,10 @@ rows):
    binpack world at N = 20,480 under binpack and spread, past the
    one-CTA sort — each variant timed), K11-K12 on the pod-affinity
    world's groups after reclaim and three allocate rounds (50k x 5k;
-   K11 through one plan, the groups back to back, one launch a call),
+   K11 through one plan, the groups back to back, one launch a call;
+   K12 through PaShapePlan at both callers' shapes — the immediate
+   turn's two rows shaped in place, preempt's one-row claim — in both
+   scratch routes, and a row past the register tile at N = 20,480),
    K13-K15 on the optimistic reclaim engine's first
    speculation window of the q512_evict world (50k x 5k, 512 queues;
    K13 through RoundProductsPlan, the engines' form: a clear dirty flag,
@@ -40,9 +43,12 @@ rows):
    one launch a call),
    K16 on its three callers' shapes (a commit list at T = 102,400 whose
    count passes the cap, allocate's feasibility cells at [K, 10,240],
-   preempt's full-width victim panel at 51,200), K17 on the q512_evict
-   world's first reclaim round (Q = 512) and on key stacks of ties, -0.0,
-   NaN and BIG at Q = 8 / 512 / 4,096, K18 on every field dtype and rank
+   preempt's full-width victim panel at 51,200), K17 through
+   QueueOrderPlan (the keys' build and the order in one launch) on the
+   q512_evict world's first reclaim round (Q = 512), the allocate world's
+   round (Q = 8) and raw queue states of ties, -0.0, NaN, BIG, zero, tiny
+   and subnormal totals at Q = 8 / 512 / 4,096 in both routes (K12 and
+   K17: one device event a launch, no allocation), K18 on every field dtype and rank
    with duplicate rows, an empty epoch, and phase 7's first delta epoch of
    the 50k x 5k pack, K19 on preempt's (node, queue) victim lexsort at
    P = 51,200 (negative priorities, INT_MAX padding, ties), the claim-log
@@ -137,7 +143,8 @@ K19's counting segment order on the allocate path and its tiled sort on
 the evictive paths).  The kernels line counts K19's launches over the
 evictive and the pod-affinity evictive cycles, and K20's over the
 latter; its rows carry ``device_us``, ``host_us``, the variants' own
-timed cases and the launches by variant in each world.
+timed cases, the launches by variant in each world and every kernel's
+launches in each path's first world (``path_launches``).
 
 Prints each phase's wall time, the card's name and power limit, a JSON
 line of per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``; the
@@ -822,7 +829,10 @@ def k1_path_case(dev):
                     nodes = torch.nonzero(fit[k]).reshape(-1)[:nc].to(torch.int32)
                     p[k, :nodes.numel()] = nodes
                 panels.append((p, nc))
+        R, W = state[0].shape[1], state[2].shape[1]
+        classes = len(set(st.group_klass[slot_rows[0][:ns].long()].tolist()))
         for pan, w_ in panels:
+            bound = None
             for shape in (None, (1, 1024), (2, 1024), (4, 1024), (8, 1024), (8, 640)):
                 plan = k1.AdmitPlan(st, *work, pan, s_max, be, preds, slot_rows[0].shape[0],
                                     launch=shape)
@@ -834,11 +844,20 @@ def k1_path_case(dev):
                     for a, b in zip(work, want_state):
                         expect(a is None or torch.equal(a, b),
                                f"K1 main path {pass_} {w_} {shape}: node state differs")
+                if bound is None:
+                    # as k1_case's bound over the launch's width: the node
+                    # state read once (releasing when a slot fell back),
+                    # the used classes' panel rows read, placed cells written
+                    placed, fell_back = int(got[0].sum()), bool(got[1].any())
+                    nbytes = (w_ * (4 * R + 4 * W + 14) + (w_ * 4 * R if fell_back else 0)
+                              + placed * (4 * R + 8 + 4 * W)
+                              + (classes * w_ * 4 if pan is not None else 0))
+                    bound = bound_ms(nbytes, ns * w_ * (3 * R + 10))[0]
                 t = kernel_times(lambda: plan(ns, *slot_rows), setup=setup)
                 row = dict(case=f"{pass_} pass, {ns} slots, width {w_}, {plan.variant} "
                                 f"{shape or k1.launch_shape(w_)}"
                                 f"{' (default)' if shape is None else ''}",
-                           recorded=pan is panel, **t)
+                           recorded=pan is panel, bound_ms=bound, **t)
                 if shape is None and pan is panel:
                     row["plain_ms"] = cuda_ms(lambda: k1.admit_chunk_plain(
                         st, *work, n_t, *slot_rows, panel, s_max, be, preds), reps=5, setup=setup)
@@ -1123,6 +1142,16 @@ def node_slice(st, state, n):
     return view, nodes
 
 
+def k9_bound(state, order: bool) -> tuple:
+    """K9's bound at ``state``'s node count: idle, releasing (and, for
+    the packing key, allocatable), ports, counts, limits, class and flags
+    read once; two capacity rows (and the order) written."""
+    N, R = state.node_idle.shape
+    W = state.node_ports.shape[1]
+    nbytes = N * ((3 if order else 2) * 4 * R + 4 * W + 4 + 4 + 4 + 2) + N * 4 * (3 if order else 2)
+    return bound_ms(nbytes, N * ((6 if order else 4) * R + (14 if order else 10)))
+
+
 def k9_case(dev, fx):
     """K9 through its plans, every variant against turn_caps_plain bit for
     bit: the all-idle entry (binpack keys all -0.0), the state after two
@@ -1202,17 +1231,14 @@ def k9_case(dev, fx):
         keyf = k9.packing_key_f32(w.st, w.mid.node_idle, "binpack")
         lib = cuda_ms(lambda: torch.sort(keyf, stable=True)) if policy != "first_fit" else None
         timed[label] = dict(variant=plan.variant, n=w.st.num_nodes, policy=policy,
-                            launches_per_call=plan.per_call, library_ms=lib, **t)
+                            launches_per_call=plan.per_call, library_ms=lib,
+                            bound_ms=k9_bound(w.mid, policy != "first_fit")[0], **t)
     g, req, _ = first_turn(fx.st, fx.sess, fx.tiers, fx.mid)
     args = turn_caps_args(fx, fx.mid, "binpack")
     plain_ms = cuda_ms(lambda: k9.turn_caps_plain(fx.st, *args), reps=5)
     main = timed["one_cta"]
     N, R = fx.mid.node_idle.shape
-    W = fx.mid.node_ports.shape[1]
-    # idle, releasing and allocatable, ports, counts, limits, class and
-    # flags read once; two capacity rows and the order written
-    nbytes = N * (3 * 4 * R + 4 * W + 4 + 4 + 4 + 2) + N * 4 * 3
-    b, by = bound_ms(nbytes, N * (6 * R + 14))
+    b, by = k9_bound(fx.mid, True)
     return dict(name="turn_caps", max_abs_err=err, ms=main["ms"], device_us=main["device_us"],
                 kernels_per_call=main["kernels_per_call"], device_by=main["device_by"],
                 host_us=main["host_us"], plain_ms=plain_ms, bound_ms=b, bound_by=by,
@@ -1357,44 +1383,162 @@ def k11_case(dev, fx):
                 library_ms=lib_ms, shape=f"T={T}, N={N}, K={K}, D={st.num_domains}"), fits, seeds, caps
 
 
+def device_events_per_call(fn, calls: int = 20) -> float:
+    """Every device event (kernels, memsets, copies) torch.profiler sees
+    per call of ``fn``: a plan's call must launch its one kernel and
+    nothing around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile can come back without its device events (see device_us)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+        if n:
+            break
+    return n / calls
+
+
+def allocations_per_call(fn, calls: int = 20) -> float:
+    """Device allocations (the caching allocator's count) per call of ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_stats()["allocation.all.allocated"] - n0) / calls
+
+
+def synthetic_domains(dev, N: int):
+    """A pack view of ``N`` nodes under three keys: hostname (a domain a
+    node), racks of 40 (every 7th node unlabelled) and zones of 2,048."""
+    n = torch.arange(N)
+    racks, zones = (N + 39) // 40, (N + 2047) // 2048
+    node_dom = torch.stack([n, torch.where(n % 7 == 3, -1, N + n // 40),
+                            N + racks + n // 2048]).to(torch.int32)
+    return types.SimpleNamespace(node_dom=node_dom.to(dev), num_nodes=N,
+                                 num_domains=N + racks + zones)
+
+
 def k12_case(dev, fx, fits, seeds, caps):
+    """K12 through PaShapePlan at its callers' shapes: the immediate turn's
+    idle and releasing rows, bound to a TurnCapsPlan's rows and order (a
+    seed group and a cap group under first fit, the cap group under
+    binpack) and shaped in place after K11's plan wrote the fit, and
+    preempt's one-row claim capacity in node order; every launch equal
+    to the plain version on the CPU.  Then the routes these shapes do not
+    take: the global domain scratch at the pod-affinity world's shape,
+    and a row past the register tile (N = 20,480, synthetic domains)
+    with either scratch."""
+    from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
     from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
     from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
 
     st = fx.st
-    err = 0.0
-    timing = None
-    changed = 0
+    err, changed, variants = 0.0, 0, []
+    timed = {}
     for (g, state), policy in ((seeds[0], "first_fit"), (caps[0], "first_fit"),
                                (caps[0], "binpack")):
         gt = torch.tensor([g], device=dev)
-        fit = fits[g, id(state)]
-        k, nperm = k9.turn_caps(st, state.node_idle, state.node_releasing, state.node_ports,
-                                state.node_num_tasks, gt, st.group_resreq[g].contiguous(), fit.ok,
-                                4096, False, True, policy)
-        got = k12.pa_shape(st, fit, k, nperm)
-        want = k12.pa_shape_plain(fx.st_cpu, to_cpu(fit), k.cpu(), None if nperm is None else nperm.cpu())
-        err = max(err, max_err(got, want))
-        expect(torch.equal(got.cpu(), want), f"K12 group {g} {policy} differs from its plain version")
-        changed += int(not torch.equal(got, k))
-        if timing is None:
-            timing = (fit, k, nperm)
+        fit_plan = k11.PaFitPlan(st)  # a plan a case: the timed plans keep their fits
+        caps_plan = k9.TurnCapsPlan(st, state.node_idle, state.node_releasing, state.node_ports,
+                                    state.node_num_tasks, 4096, False, True, policy)
+        plans = {r: k12.PaShapePlan(st, fit_plan.fit, caps_plan.k, caps_plan.nperm, scratch=r)
+                 for r in k12.SCRATCH}
+        for route, plan in plans.items():
+            fit = fit_plan(gt, state.task_status, state.task_node)
+            k, nperm = caps_plan(gt, st.group_resreq[g].contiguous(), fit.ok)
+            before = k.clone()
+            n0 = k12.pa_shape.launches
+            expect(plan() is k and k12.pa_shape.launches == n0 + 1, "K12: one launch, in place")
+            want = k12.pa_shape_plain(fx.st_cpu, to_cpu(fit), before.cpu(),
+                                      None if nperm is None else nperm.cpu())
+            err = max(err, max_err(k, want))
+            expect(torch.equal(k.cpu(), want),
+                   f"K12 group {g} {policy} ({route} scratch) differs from its plain version")
+            changed += int(not torch.equal(k, before))
+            timed.setdefault((policy, route), (plan, k, before, to_cpu(fit), nperm))
+        if policy == "first_fit" and "claim" not in timed:
+            claim = k12.PaShapePlan(st, fit_plan.fit)
+            row = before[0].clone()
+            claim(row)
+            want = k12.pa_shape_plain(fx.st_cpu, to_cpu(fit), before[:1].cpu())[0]
+            expect(torch.equal(row.cpu(), want), "K12's claim row differs from its plain version")
+            timed["claim"] = (claim, row, before[0].clone())
     expect(changed > 0, "K12 inputs: no row was shaped")
-    fit, k, nperm = timing
-    t = kernel_times(lambda: k12.pa_shape(st, fit, k, nperm))
-    plain_ms = cuda_ms(lambda: k12.pa_shape_plain(st, fit, k, nperm), reps=5)
+    # the timed row: the immediate turn's seed group under first fit (as before)
+    plan, k, before, fit, nperm = timed["first_fit", "shared"]
+    restore = lambda: k.copy_(before)  # noqa: E731 — the launch shapes in place
+    t = kernel_times(plan, setup=restore)
+    per_call = device_events_per_call(plan)  # shaping is idempotent: no restore needed
+    expect(per_call == 1.0, f"one K12 plan launch gave {per_call} device events, not 1")
+    allocs = allocations_per_call(plan)
+    expect(allocs == 0, f"K12's plan allocates {allocs} times a launch")
+    plain_ms = cuda_ms(lambda: k12.pa_shape_plain(st, plan.fit, k, nperm), reps=5, setup=restore)
     # the library call for the seed's sums: one index_add_ of a row by domain
     ndom = st.node_dom[int(fit.seed_keys[0])].long()
     has = ndom >= 0
-    idx, row = ndom[has], k[0][has]
+    idx, row0 = ndom[has], before[0][has]
     acc = torch.zeros(st.num_domains, dtype=torch.int32, device=dev)
-    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, idx, row))
-    rows, N = k.shape
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, idx, row0))
+    N, D = st.num_nodes, st.num_domains
+
+    def bound(rows, folds, n):
+        # each row read and written once; per active fold the key's n
+        # domain ordinals (and the order) read once
+        return bound_ms(rows * n * 8 + folds * n * 4 + (n * 4 if nperm is not None else 0),
+                        rows * folds * n * 3)
+
     folds = int(fit.seed_flags.sum()) + int(fit.cap_flags.sum())
-    nbytes = rows * N * 4 * 2 + folds * N * 4
-    b, by = bound_ms(nbytes, rows * folds * N * 3)
+    b, by = bound(2, folds, N)
+    for name, key in (("immediate, 2 rows, global scratch", ("first_fit", "global")),
+                      ("immediate, 2 rows, cap group under binpack", ("binpack", "shared"))):
+        p_, k_, b_, f_, n_ = timed[key]
+        nf = int(f_.seed_flags.sum()) + int(f_.cap_flags.sum())
+        variants.append(dict(form=name, **kernel_times(p_, setup=lambda: k_.copy_(b_)),
+                             bound_ms=bound(2, nf, N)[0], folds=nf))
+    claim, row, row0 = timed["claim"]
+    variants.append(dict(form="claim, 1 row, node order",
+                         **kernel_times(lambda: claim(row), setup=lambda: row.copy_(row0)),
+                         bound_ms=bound(1, folds, N)[0], folds=folds,
+                         events_per_call=device_events_per_call(lambda: claim(row)),
+                         allocations_per_call=allocations_per_call(lambda: claim(row))))
+    # past the register tile: N = 20,480 in tiles, either scratch
+    Nw = 20_480
+    wst = synthetic_domains(dev, Nw)
+    wst_cpu = types.SimpleNamespace(node_dom=wst.node_dom.cpu(), num_nodes=Nw,
+                                    num_domains=wst.num_domains)
+    rng = np.random.default_rng(12)
+    for trial in range(4):
+        wfit = k11.PodAffinityFit(
+            torch.ones(Nw, dtype=torch.bool), torch.tensor([True, trial % 2 == 0]),
+            torch.tensor([1, 2], dtype=torch.int32), torch.tensor([True, trial < 2]),
+            torch.tensor([0, 2], dtype=torch.int32))
+        wk = torch.from_numpy((rng.integers(0, 4, (2, Nw)) * (rng.random((2, Nw)) < 0.6))
+                              .astype(np.int32))
+        wperm = None if trial % 2 else torch.from_numpy(rng.permutation(Nw).astype(np.int32))
+        want = k12.pa_shape_plain(wst_cpu, wfit, wk, wperm)
+        dk0 = wk.to(dev)
+        for route in k12.SCRATCH:
+            dk = dk0.clone()
+            dfit = k11.PodAffinityFit(*(x.to(dev) for x in wfit))
+            wplan = k12.PaShapePlan(wst, dfit, dk, None if wperm is None else wperm.to(dev),
+                                    scratch=route)
+            wplan()
+            expect(torch.equal(dk.cpu(), want),
+                   f"K12 at N = {Nw} ({route} scratch, trial {trial}) differs from its plain version")
+            if trial == 0:
+                variants.append(dict(form=f"tiled N = {Nw}, 2 rows, {route} scratch",
+                                     **kernel_times(wplan, setup=lambda: dk.copy_(dk0))))
     return dict(name="pa_shape", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                library_ms=lib_ms, shape=f"{rows} rows x N={N}, {folds} fold(s), D={st.num_domains}")
+                library_ms=lib_ms, events_per_call=per_call, variants=variants,
+                shape=f"2 rows x N={N}, {folds} fold(s), D={D} (the immediate turn's rows, "
+                      f"PaShapePlan); library: index_add_ of one row by domain, the seed's sums only")
 
 
 # ---- K13-K16: the opt-in reclaim engines' first window of q512_evict,
@@ -1665,55 +1809,108 @@ def k15_case(dev, fx):
                       f"decisions")
 
 
-def k17_case(dev, fx):
-    """K17 at one round's queue order of the q512_evict world (Q = 512,
-    three keys, built as ops/allocate.queue_perm builds them; the case
-    timed, and ``queue_perm`` card == CPU), and on key stacks of ties,
-    -0.0 beside +0.0, NaN and BIG at Q = 8 / 512 / 4,096 against the plain
-    version on the CPU (the card's own sort need not order -0.0 and NaN
-    the way jnp.lexsort does)."""
+def order_inputs(fx):
+    """(q_active, queue_alloc, deserved, uid rank) of the allocate round
+    after two rounds of the 100k x 10k world (8 queues): K17's main-path
+    shape."""
     from kube_arbitrator_tpu_torch.ops import allocate
-    from kube_arbitrator_tpu_torch.ops.fairness import queue_shares
+    from kube_arbitrator_tpu_torch.ops.fairness import overused
+
+    st, sess, state = fx.st, fx.sess, fx.mid
+    grp_live = allocate.group_live_mask(st, sess, state.group_placed, state.group_unfit, False)
+    q_active = (st.queue_valid & allocate.queue_has_live_job(st, grp_live)
+                & ~overused(state.queue_alloc, sess.deserved))
+    return (q_active, state.queue_alloc.clone(), sess.deserved, st.queue_uid_rank)
+
+
+def k17_case(dev, fx, alloc_round):
+    """K17 through QueueOrderPlan: the q512_evict world's first reclaim
+    round (Q = 512: timed; ``queue_perm`` card == CPU) and the allocate
+    world's round (Q = 8, the main path's shape: timed), and raw queue
+    states of ties, -0.0, NaN, BIG, zero, tiny and subnormal totals and
+    alloc > 0 over a zero total at Q = 8 / 512 / 4,096 in both routes,
+    each equal to the plain version (the key build, then the stable
+    sorts) run on the CPU; one device kernel a ``queue_perm`` call and no
+    allocation."""
+    from kube_arbitrator_tpu_torch.ops import allocate
     from kube_arbitrator_tpu_torch.ops.kernels import queue_order as k17
     from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
-    from kube_arbitrator_tpu_torch.ops.ordering import queue_order_keys
+
+    def check(plan, q_active, alloc, what):
+        n0 = k17.queue_order.launches
+        perm, nq = plan(q_active, alloc)
+        keys = k17.queue_keys_plain(tiers, q_active.cpu(), alloc.cpu(), plan.deserved.cpu(),
+                                    plan.uid.cpu())
+        want = k17.queue_order_plain(keys, q_active.cpu())
+        expect(k17.queue_order.launches == n0 + 1, "K17: one launch a call")
+        expect(torch.equal(perm.cpu(), want[0]) and int(nq) == int(want[1]),
+               f"K17 differs from its plain version at {what}")
 
     st, s, sess = fx.st, fx.state, fx.sess
-    q_active = st.queue_valid & (fx.carry.q_entries > 0)
-    args = (q_active, s.queue_alloc, sess.deserved, st.queue_uid_rank)
-    _, perm = allocate.queue_perm(tiers, *args)
+    q512 = (st.queue_valid & (fx.carry.q_entries > 0), s.queue_alloc)
+    plan512 = k17.QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
+    check(plan512, *q512, "the q512_evict round")
+    args = (q512[0], s.queue_alloc, sess.deserved, st.queue_uid_rank)
+    _, perm = allocate.queue_perm(tiers, *args, plan512)
     _, perm_cpu = allocate.queue_perm(tiers, *[a.cpu() for a in args])
     expect(torch.equal(perm.cpu(), perm_cpu), "K17: the card's queue order differs from the CPU's")
-    q_share = queue_shares(s.queue_alloc, sess.deserved)
-    keys = [torch.where(q_active, k, 3.0e38) for k in queue_order_keys(tiers, q_share, st.queue_uid_rank)]
-    keys = torch.stack([torch.where(q_active, 0.0, 1.0)] + [k.to(torch.float32) for k in keys])
-    got = k17.queue_order(keys, q_active)
-    want = k17.queue_order_plain(keys.cpu(), q_active.cpu())
-    expect(torch.equal(got[0].cpu(), want[0]) and int(got[1]) == int(want[1]),
-           "K17 differs from its plain version at the q512 round")
-    pool = np.array([0.0, -0.0, 1.0, 0.5, -2.0, np.nan, 3.0e38, 3.0], np.float32)
+    a_act, a_alloc, a_des, a_uid = alloc_round
+    plan8 = k17.QueueOrderPlan(tiers, a_des, a_uid)
+    check(plan8, a_act, a_alloc, "the allocate round")
+    pool_a = np.array([0.0, -0.0, 1000.0, 2000.0, 500.0, np.nan, 3.0e38, 1e-20, 1e-39, 5e-45],
+                      np.float32)
+    pool_d = np.array([0.0, -0.0, 1000.0, 2000.0, 4000.0, 1e-31, 1e-35, 1e-40, 5e-45, 3.0e38,
+                       np.nan], np.float32)
     rng = np.random.default_rng(17)
     for Q in (8, 512, 4096):
-        for _ in range(3):
-            kk = pool[rng.integers(0, len(pool), (3, Q))]
-            kk[0] = rng.random(Q) < 0.3
-            act = torch.from_numpy(kk[0] == 0)
-            g = k17.queue_order(torch.from_numpy(kk).to(dev), act.to(dev))
-            w = k17.queue_order_plain(torch.from_numpy(kk), act)
-            expect(torch.equal(g[0].cpu(), w[0]) and int(g[1]) == int(w[1]),
-                   f"K17 differs from its plain version on ties / -0.0 / NaN keys at Q = {Q}")
-    zeros = torch.tensor([[0.0, -0.0, float("nan"), 1.0, -0.0, 0.0]], device=dev)
-    order = k17.queue_order(zeros, torch.ones(6, dtype=torch.bool, device=dev))[0].tolist()
-    expect(order == [0, 1, 4, 5, 3, 2], f"K17 orders [0, -0, nan, 1, -0, 0] as {order}")
-    t = kernel_times(lambda: k17.queue_order(keys, q_active))
-    plain_ms = cuda_ms(lambda: k17.queue_order_plain(keys, q_active))
-    lib_ms = cuda_ms(lambda: torch.sort(keys[0], stable=True))
-    K, Q = keys.shape
-    b, by = bound_ms(K * Q * 4 + Q + Q * 8 + 4, K * Q * Q)
+        for trial in range(3):
+            alloc = torch.from_numpy(pool_a[rng.integers(0, len(pool_a), (Q, 4))]).to(dev)
+            deserved = torch.from_numpy(pool_d[rng.integers(0, len(pool_d), (Q, 4))]).to(dev)
+            uid = rng.permutation(Q).astype(np.int32)
+            uid[rng.random(Q) < 0.2] = 0
+            act = torch.from_numpy(rng.random(Q) < 0.6).to(dev)
+            for variant in k17.VARIANTS:
+                plan = k17.QueueOrderPlan(tiers, deserved, torch.from_numpy(uid).to(dev), variant)
+                check(plan, act, alloc, f"Q = {Q} ({variant}, trial {trial})")
+    # shares 0, -0, NaN, 1, -0, 0 over tied uids: -0.0 == +0.0, NaN last
+    z = torch.tensor([0.0, -0.0, float("nan"), 1.0, -0.0, 0.0], device=dev)
+    alloc6 = torch.stack([z, torch.zeros_like(z), torch.zeros_like(z), torch.zeros_like(z)], 1)
+    zplan = k17.QueueOrderPlan(tiers, torch.ones((6, 4), device=dev),
+                               torch.zeros(6, dtype=torch.int32, device=dev))
+    order = zplan(torch.ones(6, dtype=torch.bool, device=dev), alloc6)[0].tolist()
+    expect(order == [0, 1, 4, 5, 3, 2], f"K17 orders shares [0, -0, nan, 1, -0, 0] as {order}")
+    t = kernel_times(lambda: plan512(*q512))
+    per_call = device_events_per_call(lambda: allocate.queue_perm(tiers, *args, plan512))
+    expect(per_call == 1.0, f"one queue_perm call launched {per_call} device kernels, not 1")
+    allocs = allocations_per_call(lambda: plan512(*q512))
+    expect(allocs == 0, f"K17's plan allocates {allocs} times a launch")
+    keys = k17.queue_keys_plain(tiers, q512[0], s.queue_alloc, sess.deserved, st.queue_uid_rank)
+    plain_ms = cuda_ms(lambda: k17.queue_order_plain(
+        k17.queue_keys_plain(tiers, q512[0], s.queue_alloc, sess.deserved, st.queue_uid_rank),
+        q512[0]))
+    lib_ms = cuda_ms(lambda: torch.sort(keys[1], stable=True))
+    F = 3  # NUM_FAIR_RESOURCES
+
+    def bound(Q):
+        # the flags, F columns of alloc and deserved, the uid ranks read
+        # once; perm and nq written; F divisions and Q compares a queue
+        return bound_ms(Q + 2 * Q * F * 4 + Q * 4 + Q * 8 + 4, Q * F + Q * Q)
+
+    b, by = bound(st.num_queues)
+    variants = [dict(form=f"allocate round, Q = {a_act.shape[0]}",
+                     **kernel_times(lambda: plan8(a_act, a_alloc)), bound_ms=bound(a_act.shape[0])[0],
+                     events_per_call=device_events_per_call(
+                         lambda: allocate.queue_perm(tiers, a_act, a_alloc, a_des, a_uid, plan8)))]
+    gplan = k17.QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank, "global")
+    variants.append(dict(form="q512_evict round, global route", **kernel_times(
+        lambda: gplan(*q512)), bound_ms=b))
+    variants.append(dict(form="queue_perm, q512_evict round, through a plan of its own",
+                         **kernel_times(lambda: allocate.queue_perm(tiers, *args))))
     return dict(name="queue_order", max_abs_err=0.0, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms,
-                shape=f"[K, Q] = [{K}, {Q}] (q512_evict's first reclaim round); ties / -0.0 / NaN "
-                      f"keys at Q = 8, 512, 4096; library: torch.sort(stable=True) of one key")
+                bound_by=by, library_ms=lib_ms, events_per_call=per_call, variants=variants,
+                shape=f"Q = {st.num_queues}, 3 keys (q512_evict's first reclaim round, "
+                      f"QueueOrderPlan: the key build and the order); raw states at Q = 8, 512, "
+                      f"4096 in both routes; library: torch.sort(stable=True) of one key")
 
 
 def delta_plan(prev, new):
@@ -2313,6 +2510,7 @@ def main(kernels_only: bool = False) -> int:
     for v in rows["turn_caps"]["variants"]:
         print(f"kernel turn_caps variant {json.dumps(v)}", flush=True)
     report(k10_case(dev, tfx))
+    alloc_round = order_inputs(tfx)
     report(k16_case(dev, fx, tfx))
     report(k19_case(dev, fx))
     report(k20_case(dev))
@@ -2322,13 +2520,17 @@ def main(kernels_only: bool = False) -> int:
         report(case(dev, fx))
     for v in rows["round_products"]["variants"]:
         print(f"kernel round_products case {json.dumps(v)}", flush=True)
-    report(k17_case(dev, fx))
+    report(k17_case(dev, fx, alloc_round))
+    for v in rows["queue_order"]["variants"]:
+        print(f"kernel queue_order form {json.dumps(v)}", flush=True)
     del fx
     report(k18_case(dev))
     fx = pa_fixture(dev)
     r, fits, seeds, caps = k11_case(dev, fx)
     report(r)
     report(k12_case(dev, fx, fits, seeds, caps))
+    for v in rows["pa_shape"]["variants"]:
+        print(f"kernel pa_shape form {json.dumps(v)}", flush=True)
     del fx, fits
     rows["admit_chunk"]["variants"] = k1_path_case(dev)
     print(f"phase 1 (kernels) {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2820,6 +3022,8 @@ def main(kernels_only: bool = False) -> int:
         "ordered_scan": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/ordered_scan.cu",
                          "kube_arbitrator_tpu/ops/common.py:102"),
     }
+    paths = dict(allocate=counts, evictive=evict_counts, pa_evict=pa_counts, binpack=order_counts,
+                 q512_evict=opt_counts, serving_5_epochs=serve_counts, priority_mix=mix_counts)
     kline = []
     for k, r in rows.items():
         if k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):
@@ -2843,7 +3047,8 @@ def main(kernels_only: bool = False) -> int:
                           plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           library_ms=r["library_ms"], device_us=r["device_us"],
                           host_us=r["host_us"], variants=r.get("variants", []),
-                          variant_launches={w: v[k] for w, v in by_variant.items() if k in v}))
+                          variant_launches={w: v[k] for w, v in by_variant.items() if k in v},
+                          path_launches={w: c[k] for w, c in paths.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"kernels": kline}))

@@ -1,8 +1,8 @@
 """Where a kernel wrapper's host time goes: one cycle under cProfile.
 
     python -m kube_arbitrator_tpu_torch.host_profile [--tree DIR]
-        [--worlds pa_evict,binpack,q512_evict] [--wrappers turn_caps,pa_fit,segment_sum,...]
-        [--out FILE]
+        [--worlds pa_evict,binpack,q512_evict,allocate,evictive]
+        [--wrappers turn_caps,pa_fit,segment_sum,queue_perm,...] [--out FILE]
 
 For each world, a child process run from DIR (a checkout of the
 repository, by default this one; for example the parent commit unpacked
@@ -10,11 +10,15 @@ with ``git archive``) decides the world once to build the kernels and
 warm the card, then decides it again (the next seed) under cProfile.
 Prints one JSON line per world: the cycle's wall time under the
 profiler, and for each wrapper module named in ``--wrappers``
-(``ops/kernels/<name>.py``) its functions' calls and cumulative seconds
-and the callees of those functions by cumulative seconds: the host items
-that cost most.  cProfile slows every Python call, so compare items
-within one run, not with the cycle times of cycle_turns.py.  Needs the
-GPU, as the CLI does.
+(``ops/kernels/<name>.py``; ``queue_perm``: that function of
+ops/allocate.py, whose cost includes the queue keys' build) its
+functions' calls and cumulative seconds and the callees of those
+functions by cumulative seconds: the host items that cost most.  With
+``queue_perm`` among the wrappers, the row also gives the device kernels
+one ``queue_perm`` call launches (torch.profiler over 20 calls at the
+world's queue count, between entry and return).  cProfile slows every
+Python call, so compare items within one run, not with the cycle times
+of cycle_turns.py.  Needs the GPU, as the CLI does.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ from typing import List, Optional
 HERE = Path(__file__).resolve().parents[1]
 
 WORLDS = {
+    "allocate": dict(tasks=100_000, nodes=10_000),
+    "evictive": dict(tasks=50_000, nodes=5_000, running_fraction=0.5,
+                     actions=("reclaim", "allocate", "backfill", "preempt")),
     "pa_evict": dict(tasks=50_000, nodes=5_000, running_fraction=0.5, pod_affinity=True,
                      actions=("reclaim", "allocate", "backfill", "preempt")),
     "binpack": dict(tasks=100_000, nodes=10_000, node_order="binpack"),
@@ -38,9 +45,12 @@ WORLDS = {
 
 CHILD = r'''
 import cProfile, json, pstats, sys, time
+import numpy as np
 import torch
 from kube_arbitrator_tpu_torch.cli import decide_world
 world, wrappers, seed = json.loads(sys.argv[1]), sys.argv[2].split(","), int(sys.argv[3])
+# a wrapper outside ops/kernels/: (file, function)
+OTHER = {"queue_perm": ("ops/allocate.py", "queue_perm")}
 decide_world(device="cuda", seed=seed - 1, **world)
 torch.cuda.synchronize()
 prof = cProfile.Profile()
@@ -53,8 +63,8 @@ wall = time.perf_counter() - t0
 st = pstats.Stats(prof).stats
 out = {"profiled_cycle_s": wall, "wrappers": {}}
 for w in wrappers:
-    tail = f"ops/kernels/{w}.py"
-    own = [k for k in st if k[0].replace("\\", "/").endswith(tail)]
+    tail, fn = OTHER.get(w, (f"ops/kernels/{w}.py", None))
+    own = [k for k in st if k[0].replace("\\", "/").endswith(tail) and fn in (None, k[2])]
     funcs = {f"{k[2]}:{k[1]}": dict(calls=st[k][1], cum_s=st[k][3], own_s=st[k][2])
              for k in own}
     callees = {}
@@ -67,6 +77,29 @@ for w in wrappers:
     top = sorted(callees.items(), key=lambda kv: -kv[1][1])[:15]
     out["wrappers"][w] = dict(functions=funcs, callees=[
         dict(name=n, calls=v[0], cum_s=v[1]) for n, v in top])
+if "queue_perm" in wrappers:
+    # device kernels of one queue_perm call at the world's Q (R = 4; the
+    # default tiers' keys: inactive flag, proportion share, uid rank)
+    from torch.profiler import ProfilerActivity, profile
+    from kube_arbitrator_tpu_torch.ops.allocate import queue_perm
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS
+    Q, calls = world.get("queues", 8), 20
+    rng = np.random.default_rng(seed)
+    args = [torch.from_numpy(a).cuda() for a in (
+        rng.random(Q) < 0.6, rng.integers(0, 4, (Q, 4)).astype(np.float32) * 1000,
+        rng.integers(1, 4, (Q, 4)).astype(np.float32) * 1000, rng.permutation(Q).astype(np.int32))]
+    queue_perm(DEFAULT_TIERS, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            queue_perm(DEFAULT_TIERS, *args)
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    out["queue_perm_device_events_per_call"] = dict(
+        Q=Q, kernels=sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev_ev) / calls,
+        memsets=sum(e.name.startswith("Memset") for e in dev_ev) / calls,
+        names=sorted({e.name[:80] for e in dev_ev}))
 print(json.dumps(out))
 '''
 

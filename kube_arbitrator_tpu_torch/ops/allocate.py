@@ -36,15 +36,15 @@ import torch
 
 from ..cache.snapshot import SnapshotTensors, pa_enabled
 from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, plugin_on, safe_share, to_i32
-from .fairness import drf_shares, overused, queue_shares
+from .fairness import drf_shares, overused
 from .kernels.admit_chunk import AdmitPlan
 from .kernels.decode_deferred import decode_deferred
-from .kernels.queue_order import queue_order
+from .kernels.queue_order import QueueOrderPlan, queue_order
 from .kernels.stable_compact import FeasCells, stable_compact
 from .kernels.turn_caps import TurnCapsPlan
 from .kernels.turn_fill import turn_fill
-from .ordering import Tiers, group_order_keys, job_order_keys, node_order_policy, queue_order_keys
-from .podaffinity import PaFitPlan, pa_shape
+from .ordering import Tiers, group_order_keys, job_order_keys, node_order_policy
+from .podaffinity import PaFitPlan, PaShapePlan
 
 # Eviction-phase codes carried by AllocState.evict_phase (the reference's
 # ops/allocate.py:69-72; stable wire values of the audit records)
@@ -173,13 +173,17 @@ def queue_has_live_job(st, grp_live, job_extra=None):
     return _scatter_any(st.job_queue, job_live, st.num_queues)
 
 
-def queue_perm(tiers, q_active, queue_alloc, deserved, queue_uid_rank):
+def queue_perm(tiers, q_active, queue_alloc, deserved, queue_uid_rank, plan=None):
     """(nq, perm): the active-queue count (a device scalar) and a round's
-    queue order — active queues first, by the tiered queue keys.  K17."""
-    q_share = queue_shares(queue_alloc, deserved)
-    keys = [torch.where(q_active, k, BIG) for k in queue_order_keys(tiers, q_share, queue_uid_rank)]
-    keys.insert(0, torch.where(q_active, 0.0, 1.0))
-    perm, nq = queue_order(torch.stack([k.to(torch.float32) for k in keys]), q_active)
+    queue order — active queues first, by the tiered queue keys over the
+    proportion shares.  One K17 launch, through ``plan`` (the action's
+    :class:`QueueOrderPlan` over ``tiers``, ``deserved`` and
+    ``queue_uid_rank``: its outputs are overwritten by its next launch)
+    or a plan of its own."""
+    if plan is None:
+        perm, nq = queue_order(tiers, q_active, queue_alloc, deserved, queue_uid_rank)
+    else:
+        perm, nq = plan(q_active, queue_alloc)
     return nq, perm
 
 
@@ -396,14 +400,15 @@ def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, tr
     return (gn_a, gn_p, any_a, any_p)
 
 
-def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit):
+def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order):
     """One round over the ACTIVE queues in queue order (inactive ones
-    sort last and are not visited)."""
+    sort last and are not visited); ``order`` is the action's K17 plan."""
     grp_live = group_live_mask(st, sess, state.group_placed, state.group_unfit, best_effort_pass)
     q_active = st.queue_valid & queue_has_live_job(st, grp_live)
     if not best_effort_pass:
         q_active = q_active & ~overused(state.queue_alloc, sess.deserved)
-    nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank)
+    nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank,
+                          order)
     trip = max(int(nq), 1)
     gn = _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, admit)
     state.rounds += 1
@@ -411,12 +416,17 @@ def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit):
 
 
 def _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on):
-    """(K9's plan over ``state``'s node arrays, K11's plan or None): the
-    immediate turn's kernels, bound once for a run of turns on one state
-    (K10 updates those node arrays in place)."""
+    """(K9's plan over ``state``'s node arrays, K11's plan or None, K12's
+    plan or None): the immediate turn's kernels, bound once for a run of
+    turns on one state (K10 updates those node arrays in place).  K12's
+    plan reads K11's plan-owned fit and shapes K9's plan-owned rows in
+    place: only K10 reads them after it."""
     caps = TurnCapsPlan(st, state.node_idle, state.node_releasing, state.node_ports,
                         state.node_num_tasks, s_max, best_effort_pass, preds_on, policy)
-    return caps, (PaFitPlan(st) if pa_on else None)
+    if not pa_on:
+        return caps, None, None
+    fit = PaFitPlan(st)
+    return caps, fit, PaShapePlan(st, fit.fit, caps.k, caps.nperm)
 
 
 def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, preds_on, pa_on,
@@ -425,11 +435,11 @@ def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, p
     _process_queue, :553-706): selection from the current aggregates,
     then K11 / K9 / K12 / K10 and the aggregate commit.  ``q`` is i64[1];
     a padding or drained queue's turn places nothing.  ``plans`` is the
-    action's (K9 plan, K11 plan or None) from :func:`_turn_plans`; None
-    builds them for this turn alone."""
+    action's (K9, K11, K12 plans; the last two None without pod affinity)
+    from :func:`_turn_plans`; None builds them for this turn alone."""
     if plans is None:
         plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
-    caps_plan, fit_plan = plans
+    caps_plan, fit_plan, shape_plan = plans
     if best_effort_pass:
         q_ok = st.queue_valid[q]  # backfill has no queue-fairness gate
     else:
@@ -442,8 +452,8 @@ def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, p
     req1 = req[0].contiguous()
     fit = None if fit_plan is None else fit_plan(g, state.task_status, state.task_node)
     k, nperm = caps_plan(g, req1, None if fit is None else fit.ok)
-    if fit is not None:
-        k = pa_shape(st, fit, k, nperm)
+    if shape_plan is not None:
+        shape_plan()  # k in place
     placed, use_rel = turn_fill(
         st, k, nperm, g, req1, budget, state.group_placed, state.node_idle,
         state.node_releasing, state.node_ports, state.node_num_tasks, state.task_status,
@@ -470,8 +480,9 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
     policy = node_order_policy(tiers)
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     pa_on = preds_on and pa_enabled(st)
-    # K9's and K11's launches over this action: checked and bound once
+    # K9's, K11's, K12's and K17's launches over this action: checked and bound once
     plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
+    order = QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
     while True:
         grp_live = group_live_mask(st, sess, state.group_placed, state.group_unfit,
                                    best_effort_pass)
@@ -479,7 +490,7 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
         if not best_effort_pass:
             q_active = q_active & ~overused(state.queue_alloc, sess.deserved)
         nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved,
-                              st.queue_uid_rank)
+                              st.queue_uid_rank, order)
         go, trip = _host(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             return state
@@ -561,13 +572,14 @@ def allocate_action(
     gn_p = None if best_effort_pass else torch.zeros((G, N), dtype=torch.int32, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     gn = (gn_a, gn_p, no, no)
-    # K1's launches over this action: checked and bound once
+    # K1's and K17's launches over this action: checked and bound once
     admit = AdmitPlan(st, state.node_idle, state.node_releasing, state.node_ports,
                       state.node_num_tasks, gn_a, gn_p, prune_idx, s_max, best_effort_pass,
                       plugin_on(tiers, "predicates", "predicate_disabled"), TURN_CHUNK)
+    order = QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
     while state.rounds < max_rounds and bool(state.progress):
         state.progress = torch.zeros((), dtype=torch.bool, device=dev)
-        gn = _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit)
+        gn = _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order)
     gn_a, gn_p, any_a, any_p = gn
     if bool(any_a | any_p):
         _decode_deferred(st, state, entry_placed, gn_a, gn_p if bool(any_p) else None)

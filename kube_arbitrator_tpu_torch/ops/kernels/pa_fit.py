@@ -157,19 +157,26 @@ class PaFitPlan:
     OVERWRITTEN by the next launch: each caller consumes a fit (K9's
     ``pa_ok``, K12's flags and keys, K6's mask, ``_reclaim_fast``'s
     node mask) in stream order before it launches the plan again.  CPU
-    packs take the plain version (fresh tensors each call)."""
+    packs take the plain version, into the same owned outputs."""
 
     def __init__(self, st):
         self.st = st
         dev = st.device
         self.dev = dev
         self.first = True
+        N, D, K = st.num_nodes, st.num_domains, st.node_dom.shape[0]
+        MA, MB = st.group_aff_terms.shape[1], st.group_anti_terms.shape[1]
+        self.fit = PodAffinityFit(
+            ok=torch.empty(N, dtype=torch.bool, device=dev),
+            seed_flags=torch.empty(MA, dtype=torch.bool, device=dev),
+            seed_keys=torch.empty(MA, dtype=torch.int32, device=dev),
+            cap_flags=torch.empty(MB, dtype=torch.bool, device=dev),
+            cap_keys=torch.empty(MB, dtype=torch.int32, device=dev),
+        )
         if dev.type == "cpu":
             return
         if dev.type != "cuda":
             raise ValueError(f"pa_fit: tensors on {dev}")
-        N, D, K = st.num_nodes, st.num_domains, st.node_dom.shape[0]
-        MA, MB = st.group_aff_terms.shape[1], st.group_anti_terms.shape[1]
         TA, T = st.anti_key.shape[0], st.num_tasks
         CP = max(st.aff_match.shape[1], st.anti_match.shape[1])
         if (st.aff_match.shape[0] and st.aff_match.shape[1] != CP) or \
@@ -190,13 +197,6 @@ class PaFitPlan:
         nd = (MA + MB) * D
         # counts, any_aff, marks, ticket: zero now, and again after every launch
         self.scratch = torch.zeros(nd + MA + D + 1, dtype=torch.int32, device=dev)
-        self.fit = PodAffinityFit(
-            ok=torch.empty(N, dtype=torch.bool, device=dev),
-            seed_flags=torch.empty(MA, dtype=torch.bool, device=dev),
-            seed_keys=torch.empty(MA, dtype=torch.int32, device=dev),
-            cap_flags=torch.empty(MB, dtype=torch.bool, device=dev),
-            cap_keys=torch.empty(MB, dtype=torch.int32, device=dev),
-        )
         base = self.scratch.data_ptr()
         p = build.ptr
         self.static = _Static(
@@ -217,7 +217,9 @@ class PaFitPlan:
         """Group ``g`` (i32 / i64, its first element on the plan's
         device) against the current ``task_status`` / ``task_node``."""
         if self.dev.type == "cpu":
-            return pa_fit_plain(self.st, g, task_status, task_node)
+            for out, x in zip(self.fit, pa_fit_plain(self.st, g, task_status, task_node)):
+                out.copy_(x)
+            return self.fit
         if g.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"pa_fit: group dtype {g.dtype}")
         if self.first:  # the state arrays keep their types all action

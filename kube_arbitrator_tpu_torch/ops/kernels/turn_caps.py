@@ -159,9 +159,11 @@ class TurnCapsPlan:
     passes the group (i32 or i64, read as either on the device), the
     request row and K11's mask: no cast, no allocation.  Its (k, nperm)
     are the plan's own tensors, OVERWRITTEN by the next launch: the turn
-    consumes them (K12, K10) in stream order before the next turn.
+    consumes them (K12 shapes ``k`` in place, K10 reads it) in stream
+    order before the next turn.
     ``variant`` forces a route of :data:`VARIANTS` (default:
-    :func:`turn_caps_variant`).  CPU tensors take the plain version."""
+    :func:`turn_caps_variant`).  CPU tensors take the plain version, into
+    the same owned outputs."""
 
     def __init__(self, st, node_idle, node_releasing, node_ports, node_num_tasks, s_max: int,
                  best_effort: bool, preds_on: bool, policy: str, variant: Optional[str] = None):
@@ -180,6 +182,9 @@ class TurnCapsPlan:
             raise ValueError(f"turn_caps: {N} nodes exceed the one-CTA sort's {ONE_CTA_MAX_N}")
         # device launches a call: the tiled route makes three
         self.per_call = 3 if self.variant == "tiles" else 1
+        sort = self.variant != "first_fit"
+        self.k = torch.empty((2, N), dtype=torch.int32, device=dev)
+        self.nperm = torch.empty(N, dtype=torch.int32, device=dev) if sort else None
         if dev.type == "cpu":
             return
         if dev.type != "cuda":
@@ -196,9 +201,6 @@ class TurnCapsPlan:
             build.require(t, dt, f"turn_caps.arg{i}", dev)
         if node_releasing.shape != (N, R) or st.node_alloc.shape != (N, R):
             raise ValueError("turn_caps: node shapes disagree")
-        sort = self.variant != "first_fit"
-        self.k = torch.empty((2, N), dtype=torch.int32, device=dev)
-        self.nperm = torch.empty(N, dtype=torch.int32, device=dev) if sort else None
         self.kc = torch.empty((2, N), dtype=torch.int32, device=dev) if sort else None
         tiles = self.variant == "tiles"
         self.keys = torch.empty(N, dtype=torch.int32, device=dev) if sort else None
@@ -225,8 +227,12 @@ class TurnCapsPlan:
         """-> (k i32[2, N]: the idle and releasing capacity rows in
         packing order, nperm i32[N] or None under first-fit)."""
         if self.dev.type == "cpu":
-            return turn_caps_plain(self.st, *self.state, g, req, pa_ok, self.s_max,
-                                   self.best_effort, self.preds_on, self.policy)
+            k, nperm = turn_caps_plain(self.st, *self.state, g, req, pa_ok, self.s_max,
+                                       self.best_effort, self.preds_on, self.policy)
+            self.k.copy_(k)
+            if nperm is not None:
+                self.nperm.copy_(nperm)
+            return self.k, self.nperm
         if g.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"turn_caps: group dtype {g.dtype}")
         if self.first:  # the turn's rows keep their types all action

@@ -89,16 +89,17 @@ def job_order_keys(
     return keys
 
 
+def queue_share_key_count(tiers: Tiers) -> int:
+    """How many proportion share keys :func:`queue_order_keys` stacks
+    before the uid rank (one per enabled proportion plugin)."""
+    return sum(p.name == "proportion" and not p.queue_order_disabled
+               for tier in tiers for p in tier.plugins)
+
+
 def queue_order_keys(
     tiers: Tiers, queue_share: torch.Tensor, queue_uid_rank: torch.Tensor
 ) -> List[torch.Tensor]:
-    keys: List[torch.Tensor] = []
-    for tier in tiers:
-        for p in tier.plugins:
-            if p.name == "proportion" and not p.queue_order_disabled:
-                keys.append(queue_share)
-    keys.append(queue_uid_rank.to(torch.float32))
-    return keys
+    return [queue_share] * queue_share_key_count(tiers) + [queue_uid_rank.to(torch.float32)]
 
 
 NODE_ORDER_POLICIES = ("first_fit", "binpack", "spread")

@@ -18,9 +18,9 @@ from __future__ import annotations
 
 from ..cache.snapshot import pa_enabled
 from .kernels.pa_fit import PaFitPlan, PodAffinityFit, pa_fit as pod_affinity_fit
-from .kernels.pa_shape import apply_domain_cap, apply_seed, pa_shape
+from .kernels.pa_shape import PaShapePlan, apply_domain_cap, apply_seed, pa_shape
 
 __all__ = [
-    "PaFitPlan", "PodAffinityFit", "apply_domain_cap", "apply_seed", "pa_enabled", "pa_shape",
-    "pod_affinity_fit",
+    "PaFitPlan", "PaShapePlan", "PodAffinityFit", "apply_domain_cap", "apply_seed", "pa_enabled",
+    "pa_shape", "pod_affinity_fit",
 ]

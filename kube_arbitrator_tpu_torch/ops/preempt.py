@@ -72,6 +72,7 @@ from .fairness import drf_shares
 from .kernels.canon_commit import _scatter_set, canon_commit
 from .kernels.canon_pick import canon_pick
 from .kernels.claim_nodes import claim_nodes
+from .kernels.queue_order import QueueOrderPlan
 from .kernels.round_products import RoundProductsPlan
 from .kernels.seg_scan import seg_scan
 from .kernels.segment_sum import segment_order, segment_sum
@@ -82,7 +83,7 @@ from .kernels.window_gate import (
     CONFLICTS, GATED, ROUND_DONE, START, TRIP, new_gate, window_gate,
 )
 from .ordering import Tiers, group_order_keys, job_order_keys
-from .podaffinity import PaFitPlan, pa_shape
+from .podaffinity import PaFitPlan, PaShapePlan
 
 RUNNING = int(TaskStatus.RUNNING)
 RELEASING = int(TaskStatus.RELEASING)
@@ -269,11 +270,13 @@ def claim_aggregates(st, view, victims):
             vmin[:N].contiguous())
 
 
-def _pa_plan(st, tiers) -> Optional[PaFitPlan]:
-    """K11's plan for a run of claim turns, or None where pod affinity is
-    off (no predicates, or a pack without affinity terms)."""
+def _pa_plan(st, tiers) -> Optional[Tuple[PaFitPlan, PaShapePlan]]:
+    """K11's and K12's plans for a run of claim turns (K12 shapes the
+    claim capacity in place from K11's plan-owned fit), or None where pod
+    affinity is off (no predicates, or a pack without affinity terms)."""
     if plugin_on(tiers, "predicates", "predicate_disabled") and pa_enabled(st):
-        return PaFitPlan(st)
+        fit = PaFitPlan(st)
+        return fit, PaShapePlan(st, fit.fit)
     return None
 
 
@@ -284,16 +287,16 @@ def _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, re
     claimant decode and the state scatters.  ``q``/``j``/``g`` are i64[1],
     ``has_grp``/``was_ready`` bool[1], ``budget``/``need`` i32[1], ``req``
     f32[R]; ``victims`` is this queue's verdict mask.  ``pa_plan``: the
-    round loop's K11 plan (:func:`_pa_plan`); None builds one for this
-    turn where pod affinity is on."""
+    round loop's K11 and K12 plans (:func:`_pa_plan`); None builds them
+    for this turn where pod affinity is on."""
     J, Q, N = st.num_jobs, st.num_queues, st.num_nodes
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     pa = None
     if pa_plan is None:
         pa_plan = _pa_plan(st, tiers)
     if pa_plan is not None:
-        fit = pa_plan(g, state.task_status, state.task_node)
-        pa = (fit.ok, lambda cap: pa_shape(st, fit, cap[None, :])[0])
+        fit_plan, shape_plan = pa_plan
+        pa = (fit_plan(g, state.task_status, state.task_node).ok, shape_plan)
     p, cum, placed, evict = claim_nodes(
         st, *claim_aggregates(st, view, victims), state.node_ports, state.node_num_tasks,
         victims, view.node, view.resreq, node_rank, node_cum, g, req, budget, has_grp,
@@ -400,8 +403,13 @@ def _round_gate(st, sess, s, mode, view):
     return q_active & possible
 
 
-def _queue_perm(st, sess, s, tiers, q_active):
-    return queue_perm(tiers, q_active, s.queue_alloc, sess.deserved, st.queue_uid_rank)
+def _queue_perm(st, sess, s, tiers, q_active, plan=None):
+    return queue_perm(tiers, q_active, s.queue_alloc, sess.deserved, st.queue_uid_rank, plan)
+
+
+def _order_plan(st, sess, tiers) -> QueueOrderPlan:
+    """K17's plan for a run of rounds on one session."""
+    return QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
 
 
 def _start_rounds(state: AllocState) -> None:
@@ -414,9 +422,10 @@ def _rounds(st, sess, state, tiers, s_max, max_rounds, mode, view) -> AllocState
     round's queue order.  The rounds counter accumulates over phases."""
     _start_rounds(state)
     pa_plan = _pa_plan(st, tiers)
+    order = _order_plan(st, sess, tiers)
     while True:
         q_active = _round_gate(st, sess, state, mode, view)
-        nq, perm = _queue_perm(st, sess, state, tiers, q_active)
+        nq, perm = _queue_perm(st, sess, state, tiers, q_active, order)
         go, trip = _host(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             return state
@@ -455,6 +464,7 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
     gated_rounds = torch.zeros((), dtype=i64, device=dev)
     qp_s = view.queue.clamp(max=Q - 1).to(i64)
     pa_plan = _pa_plan(st, tiers)
+    order = _order_plan(st, sess, tiers)
 
     def verdicts_of(s, q_active, j_sel, g_sel, has_grp, req_all, scope_limit):
         p_running = view.running(s.task_status)
@@ -478,7 +488,7 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
             gated = torch.zeros((), dtype=torch.bool, device=dev)
         vic_valid = vic_valid & ~committed
         q_active = _round_gate(st, sess, state, mode, view)
-        nq, perm = _queue_perm(st, sess, state, tiers, q_active)
+        nq, perm = _queue_perm(st, sess, state, tiers, q_active, order)
         go, trip = _host(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             break
@@ -778,13 +788,14 @@ def reclaim_select_turns(st, sess, state, tiers, shared, q_ids, q_entries):
     return _pops(st, sess, state, shared, q_ids, q_entries[q_ids])
 
 
-def _canon_round_order(st, sess, tiers, state, carry):
-    """(nq, perm): the round's active-queue count and queue order."""
+def _canon_round_order(st, sess, tiers, state, carry, order=None):
+    """(nq, perm): the round's active-queue count and queue order, through
+    the engine call's K17 plan ``order`` (None: a plan of its own)."""
     q_active = st.queue_valid & (carry.q_entries > 0) & queue_has_live_job(
         st, group_live_mask(st, sess, state.group_placed, None),
         job_extra=~carry.job_consumed,
     )
-    return queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank)
+    return queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank, order)
 
 
 def _canon_writeback(st, state, carry) -> AllocState:
@@ -808,9 +819,10 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     state.progress = torch.ones((), dtype=torch.bool, device=st.device)
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     carry = _canon_seed(st, state, ctx)
+    order = _order_plan(st, sess, tiers)
     i32 = torch.int32
     while True:
-        nq, perm = _canon_round_order(st, sess, tiers, state, carry)
+        nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
         go, nq_h = _host(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             break
@@ -889,12 +901,13 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     carry = _canon_seed(st, state, ctx)
     products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
+    order = _order_plan(st, sess, tiers)  # K17, bound once
     prods = products.out
     dirty = torch.zeros(1, dtype=torch.bool, device=dev)        # the last turn claimed
     claimed_any = torch.zeros(1, dtype=torch.bool, device=dev)  # a turn of this round claimed
     gated_rounds = torch.zeros((), dtype=i32, device=dev)
     while True:
-        nq, perm = _canon_round_order(st, sess, tiers, state, carry)
+        nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
         go, nq_h = _host(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             break
@@ -960,6 +973,7 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     carry = _canon_seed(st, state, ctx)
     products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
+    order = _order_plan(st, sess, tiers)  # K17, bound once
     prods = products.out
     ctl, sel = new_gate(ctx.cres.shape[1], dev)
     sel_i, sel_b, sel_req = sel
@@ -970,7 +984,7 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
     while start > 0 or (progress and rounds < max_rounds):
         if start == 0:
             state.progress = torch.zeros((), dtype=torch.bool, device=dev)
-            nq, perm = _canon_round_order(st, sess, tiers, state, carry)
+            nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
             ctl[TRIP:TRIP + 1].copy_(nq.clamp(min=1).reshape(1))
         pos = w_iota + start
         q_panel = perm[pos.clamp(max=Q - 1)]
@@ -1036,6 +1050,7 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
     use_prop = "proportion" in verdict_names
     pa_on = preds_on and pa_enabled(st)
     pa_plan = PaFitPlan(st) if pa_on else None  # K11's launches, bound once
+    order = _order_plan(st, sess, tiers)  # K17's, bound once
     defer = not pa_on and _claim_key_fits(st.num_groups, T)
 
     node_key = state.task_node.clamp(min=0)
@@ -1077,7 +1092,8 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
         q_active = st.queue_valid & (q_entries > 0) & queue_has_live_job(
             st, group_live_mask(st, sess, state.group_placed, None), job_extra=~job_consumed,
         )
-        nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank)
+        nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved,
+                              st.queue_uid_rank, order)
         go, nq_h = _host(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             break

@@ -1,12 +1,14 @@
 """K17 ``queue_order`` (B3, a round's queue order) held against the JAX
 package.
 
-The kernel's plain version (stable sorts, least significant key first)
+The kernel's plain sort (stable sorts, least significant key first)
 must give ``jnp.lexsort``'s permutation on key stacks with ties, -0.0
 beside +0.0, NaN and BIG, and the port's ``queue_perm`` the reference's
 round order (ops/preempt.py:_queue_perm) on the same queue state.
 Permutations are integers: tolerance none.  The kernel itself runs only
-on the card (a ``cuda``-marked test, and chip_smoke.py's ``k17_case``).
+on the card (a ``cuda``-marked test, and chip_smoke.py's ``k17_case``);
+tests/test_torch_order_plans.py holds ``QueueOrderPlan`` against the
+reference's key build.
 """
 import types
 
@@ -39,7 +41,7 @@ def jnp_order(keys):
 
 def test_signed_zero_and_nan_order():
     keys = np.array([[0.0, -0.0, np.nan, 1.0, -0.0, 0.0]], np.float32)
-    perm, nq = k17.queue_order(torch.from_numpy(keys), torch.ones(6, dtype=torch.bool))
+    perm, nq = k17.queue_order_plain(torch.from_numpy(keys), torch.ones(6, dtype=torch.bool))
     assert perm.tolist() == [0, 1, 4, 5, 3, 2] == jnp_order(keys).tolist()
     assert perm.dtype == torch.int64 and nq.dtype == torch.int32 and int(nq) == 6
 
@@ -51,7 +53,7 @@ def test_plain_order_equals_jnp_lexsort(Q, K):
     for _ in range(3):
         keys = key_stack(rng, K, Q)
         active = torch.from_numpy(keys[0] == 0)
-        perm, nq = k17.queue_order(torch.from_numpy(keys), active)
+        perm, nq = k17.queue_order_plain(torch.from_numpy(keys), active)
         assert np.array_equal(perm.numpy(), jnp_order(keys))
         assert int(nq) == int(active.sum())
 
@@ -82,12 +84,16 @@ def test_queue_perm_equals_reference_round_order(seed, Q):
 
 
 def test_queue_order_refusals():
-    with pytest.raises(TypeError):
-        k17.queue_order(torch.zeros((2, 4), dtype=torch.float64), torch.ones(4, dtype=torch.bool))
-    with pytest.raises(TypeError):
-        k17.queue_order(torch.zeros((k17.MAX_KEYS + 1, 4)), torch.ones(4, dtype=torch.bool))
+    uid = torch.arange(4, dtype=torch.int32)
+    tier = port_ord.Tier(plugins=(port_ord.PluginOption.of("proportion"),) * (k17.MAX_KEYS - 1))
+    with pytest.raises(ValueError):  # K = MAX_KEYS + 1
+        k17.QueueOrderPlan((tier,), torch.zeros((4, 4)), uid)
+    with pytest.raises(ValueError):  # fewer columns than the fair resources
+        k17.QueueOrderPlan(port_ord.DEFAULT_TIERS, torch.zeros((4, 2)), uid)
+    with pytest.raises(ValueError):  # uid rank of another Q
+        k17.QueueOrderPlan(port_ord.DEFAULT_TIERS, torch.zeros((4, 4)), uid[:3])
     with pytest.raises(ValueError):
-        k17.queue_order(torch.zeros((2, 4)), torch.ones(5, dtype=torch.bool))
+        k17.QueueOrderPlan(port_ord.DEFAULT_TIERS, torch.zeros((4, 4)), uid, variant="tiles")
 
 
 @pytest.fixture
@@ -101,10 +107,18 @@ def cuda_device():
 @pytest.mark.parametrize("Q", [8, 512, 4096])
 def test_kernel_matches_plain_on_card(cuda_device, Q):
     rng = np.random.default_rng(Q)
-    keys = key_stack(rng, 3, Q)
-    active = torch.from_numpy(keys[0] == 0)
-    want, want_nq = k17.queue_order_plain(torch.from_numpy(keys), active)
-    before = k17.queue_order.launches
-    perm, nq = k17.queue_order(torch.from_numpy(keys).to(cuda_device), active.to(cuda_device))
-    assert k17.queue_order.launches == before + 1
-    assert torch.equal(perm.cpu(), want) and int(nq) == int(want_nq)
+    pool = np.array([0.0, -0.0, 1000.0, 500.0, np.nan, 1e-31, 3.0e38], np.float32)
+    alloc = pool[rng.integers(0, len(pool), (Q, 4))]
+    deserved = pool[rng.integers(0, len(pool), (Q, 4))]
+    uid = (rng.integers(0, 3, Q) * (rng.random(Q) < 0.5)).astype(np.int32)
+    active = torch.from_numpy(rng.random(Q) < 0.7)
+    args = [torch.from_numpy(a) for a in (alloc, deserved, uid)]
+    want, want_nq = k17.queue_order_plain(
+        k17.queue_keys_plain(port_ord.DEFAULT_TIERS, active, args[0], args[1], args[2]), active)
+    for variant in k17.VARIANTS:
+        plan = k17.QueueOrderPlan(port_ord.DEFAULT_TIERS, args[1].to(cuda_device),
+                                  args[2].to(cuda_device), variant)
+        before = k17.queue_order.launches
+        perm, nq = plan(active.to(cuda_device), args[0].to(cuda_device))
+        assert k17.queue_order.launches == before + 1
+        assert torch.equal(perm.cpu(), want) and int(nq) == int(want_nq), variant

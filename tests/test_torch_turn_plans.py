@@ -13,8 +13,8 @@
 * ``PaFitPlan`` on the CPU equals ``pa_fit_plain`` and the reference's
   ``pod_affinity_fit`` group after group through one plan, at the cycle's
   entry and after allocate rounds (pods placed this cycle).
-* The plans' ctypes structs (K1's, K9's, K11's and K13's) mirror the C
-  structs field for field.
+* The plans' ctypes structs (K1's, K9's, K11's, K12's, K13's and K17's)
+  mirror the C structs field for field.
 * On a card (``cuda``-marked, skipped here): every K9 variant and K11
   back to back through one plan equal their plain versions.
 
@@ -39,6 +39,8 @@ from kube_arbitrator_tpu_torch.ops import cycle as port_cycle
 from kube_arbitrator_tpu_torch.ops.kernels import admit_chunk as k1
 from kube_arbitrator_tpu_torch.ops.kernels import build
 from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
+from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
+from kube_arbitrator_tpu_torch.ops.kernels import queue_order as k17
 from kube_arbitrator_tpu_torch.ops.kernels import round_products as k13
 from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
 from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS, with_node_order
@@ -192,7 +194,8 @@ def _c_struct(source: str):
 
 
 @pytest.mark.parametrize("mod,source", [(k1, "admit_chunk"), (k9, "turn_caps"), (k11, "pa_fit"),
-                                        (k13, "round_products")])
+                                        (k12, "pa_shape"), (k13, "round_products"),
+                                        (k17, "queue_order")])
 def test_plan_structs_mirror_the_c_structs(mod, source):
     want = _c_struct(source)
     got = [(name, typ is ctypes.c_void_p) for name, typ in mod._Static._fields_]
