@@ -1004,16 +1004,124 @@ def canon_inputs(fx):
     raise SmokeFailure("no reclaim turn of the first round claims")
 
 
+def canon_turn(st, sess, tiers, state, carry, q):
+    """Queue ``q``'s reclaim pop on the current state: (j, g, has_grp,
+    req, pop, burn_now)."""
+    from kube_arbitrator_tpu_torch.ops import preempt
+
+    shared = preempt._reclaim_shared(st, sess, state, tiers, carry.job_consumed)
+    return preempt._reclaim_pop(st, sess, state, tiers, shared, q, carry.q_entries[q])
+
+
 def k7_case(dev, fx):
+    """K7 through ``CanonPickPlan`` (the canon walk's form): the evictive
+    world's first claiming reclaim turn (timed; the plain version on the
+    CPU), the first round's turns back to back through one plan with K8
+    committing between them, a turn where no node is feasible, the node
+    screens off (predicates off), a pack whose node blocks pass 32 slots;
+    each pick equal to ``canon_pick_plain``'s; one device event and no
+    allocation a launch; the library call re-taken in the same call."""
+    from kube_arbitrator_tpu_torch.ops import allocate, preempt
+    from kube_arbitrator_tpu_torch.ops.kernels import canon_commit as k8
     from kube_arbitrator_tpu_torch.ops.kernels import canon_pick as k7
 
+    st, sess, tiers = fx.st, fx.sess, fx.tiers
+    N = st.num_nodes
+    i32 = torch.int32
+    cases = []
+
+    def launch(plan, *turn):
+        n0 = k7.canon_pick.launches
+        pick = plan(*turn)
+        expect(k7.canon_pick.launches == n0 + 1, "K7: one launch a call")
+        return pick
+
+    def plain(st_, ctx, carry, state, sess_, flags, *turn):
+        return k7.canon_pick_plain(st_, ctx, carry.cand, carry.rank_nj, carry.cum_nq,
+                                   state.job_ready_cnt, sess_.min_avail, state.queue_alloc,
+                                   state.node_ports, state.node_num_tasks, *turn, *flags)
+
+    # the first claiming turn, against the plain version on the CPU
     ctx, state, carry, pick_args, _ = canon_inputs(fx)
-    got = k7.canon_pick(fx.st, *pick_args)
-    want = k7.canon_pick_plain(fx.st_cpu, *to_cpu(pick_args))
-    expect(torch.equal(got.cpu(), want), f"K7 differs: {int(got)} vs {int(want)}")
-    t = kernel_times(lambda: k7.canon_pick(fx.st, *pick_args))
-    plain_ms = cuda_ms(lambda: k7.canon_pick_plain(fx.st, *pick_args), reps=5)
-    N = fx.st.num_nodes
+    q, g, has_grp, pop, req = (pick_args[9].long(), pick_args[10].long(), *pick_args[11:14])
+    flags = pick_args[14:]
+    plan = k7.CanonPickPlan(st, ctx, carry.cand, carry.rank_nj, carry.cum_nq,
+                            state.job_ready_cnt, sess.min_avail, state.queue_alloc,
+                            state.node_ports, state.node_num_tasks, *flags)
+    got = launch(plan, q, g, has_grp, pop, req)
+    expect(got is plan.pick, "K7: the plan's own pick")
+    want = plain(fx.st_cpu, to_cpu(ctx), to_cpu(carry), to_cpu(state), to_cpu(sess), flags,
+                 *to_cpu((q, g, has_grp, pop, req)))
+    expect(torch.equal(got.cpu(), want) and int(want) < N, f"K7 differs: {int(got)} vs {int(want)}")
+    err = float(abs(int(got) - int(want)))
+    turn = (q, g, has_grp, pop, req)
+    # no feasible node: a request above every node's victims, and a turn that does not pop
+    for what, t in (("no node feasible", (q, g, has_grp, pop, torch.full_like(req, 3.0e38))),
+                    ("no pop", (q, g, has_grp, torch.zeros_like(pop), req))):
+        p_ = launch(plan, *t)
+        expect(int(p_) == N and int(plain(st, ctx, carry, state, sess, flags, *t)) == N,
+               f"K7 {what}: pick {int(p_)}, want {N}")
+        cases.append(dict(case=what, pick=int(p_)))
+    expect(torch.equal(launch(plan, *turn).cpu(), want), "K7: the scratch was not re-armed")
+    # predicates off: the node screens reduce to node validity
+    off = (flags[0], flags[1], False)
+    poff = k7.CanonPickPlan(st, ctx, carry.cand, carry.rank_nj, carry.cum_nq,
+                            state.job_ready_cnt, sess.min_avail, state.queue_alloc,
+                            state.node_ports, state.node_num_tasks, *off)
+    expect(torch.equal(launch(poff, *turn), plain(st, ctx, carry, state, sess, off, *turn)),
+           "K7 predicates off differs from the plain version")
+    cases.append(dict(case="predicates off", pick=int(poff.pick)))
+    # the canon walk's first round: one plan, K8 committing between launches
+    use_gang, use_prop, preds_on = preempt._reclaim_flags(tiers)
+    ws = allocate._copy(fx.state0)
+    ws.progress = torch.zeros((), dtype=torch.bool, device=dev)
+    ws.rounds = 0
+    wctx = preempt._canon_ctx(st, sess)
+    wc = preempt._canon_seed(st, ws, wctx)
+    wplan = preempt._pick_plan(st, sess, ws, wctx, wc, use_gang, use_prop, preds_on)
+    nq, perm = preempt._canon_round_order(st, sess, tiers, ws, wc)
+    turns = claims = 0
+    for qi in range(min(int(nq), 48)):
+        qq = perm[qi:qi + 1]
+        j, gg, hg, req_, pop_, burn = canon_turn(st, sess, tiers, ws, wc, qq)
+        pk = launch(wplan, qq, gg, hg, pop_, req_)
+        wp = plain(st, wctx, wc, ws, sess, (use_gang, use_prop, preds_on), qq, gg, hg, pop_, req_)
+        expect(torch.equal(pk, wp), f"K7 turn {qi} of the walk differs from the plain version")
+        claims += int(pk) < N
+        k8.canon_commit(st, wctx, ws, wc, pk, qq.to(i32), j.to(i32), gg.to(i32), hg, pop_, burn,
+                        req_, use_gang, use_prop)
+        turns += 1
+    expect(claims > 1, f"K7's walk claimed {claims} times in {turns} turns")
+    cases.append(dict(case="first round of the canon walk, K8 between launches", turns=turns,
+                      claims=claims))
+    # node blocks past 32 slots
+    wf = canon_world(dev, K13_LONG_BLOCKS_WORLD, 8)
+    bl = int((wf.st.rv_block_start[1:] - wf.st.rv_block_start[:-1]).max())
+    expect(bl > 32, f"K7 long blocks: longest block {bl}")
+    lplan = preempt._pick_plan(wf.st, wf.sess, wf.state, wf.ctx, wf.carry, *wf.flags)
+    lnq, lperm = preempt._canon_round_order(wf.st, wf.sess, tiers, wf.state, wf.carry)
+    lclaims = 0
+    for qi in range(max(int(lnq), 1)):
+        qq = lperm[qi:qi + 1]
+        _, gg, hg, req_, pop_, _ = canon_turn(wf.st, wf.sess, tiers, wf.state, wf.carry, qq)
+        pk = launch(lplan, qq, gg, hg, pop_, req_)
+        lw = plain(wf.st_cpu, to_cpu(wf.ctx), to_cpu(wf.carry), to_cpu(wf.state),
+                   to_cpu(wf.sess), wf.flags, *to_cpu((qq, gg, hg, pop_, req_)))
+        expect(torch.equal(pk.cpu(), lw), f"K7 long blocks, queue {qi}: {int(pk)} vs {int(lw)}")
+        lclaims += int(pk) < wf.st.num_nodes
+    cases.append(dict(case="node blocks past 32 slots", longest_block=bl,
+                      N=wf.st.num_nodes, feasible_turns=lclaims, **kernel_times(lambda: lplan(
+                          qq, gg, hg, pop_, req_))))
+    del wf, lplan
+    t = kernel_times(lambda: plan(*turn))
+    per_call = device_events_per_call(lambda: plan(*turn))
+    expect(per_call == 1.0, f"K7's plan made {per_call} device events a launch, not 1")
+    allocs = allocations_per_call(lambda: plan(*turn))
+    expect(allocs == 0, f"K7's plan allocates {allocs} times a launch")
+    functional = kernel_times(lambda: k7.canon_pick(st, *pick_args))
+    cases.insert(0, dict(case="functional canon_pick (a throwaway plan a call)",
+                         ms=functional["ms"], host_us=functional["host_us"]))
+    plain_ms = cuda_ms(lambda: plain(st, ctx, carry, state, sess, flags, *turn), reps=5)
     Vp, R = ctx.cres.shape
     F = carry.cum_nq.shape[1]
     mask_v = carry.cand
@@ -1021,12 +1129,13 @@ def k7_case(dev, fx):
     idx = ctx.cnode.clamp(max=N - 1).long()
     acc = torch.zeros((N, R + 1), device=dev)
     lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, idx, stat))
-    W = fx.st.node_ports.shape[1]
+    W = st.node_ports.shape[1]
     nbytes = Vp * (1 + 4 + 4 * F + 4 + 4 + 4 * F + 4 * R) + N * (4 + 4 * W + 4 + 4 + 4 + 3) + 4
     b, by = bound_ms(nbytes, Vp * (2 * F + R + 3) + N * (R + 4))
-    return dict(name="canon_pick", max_abs_err=float(abs(int(got) - int(want))), **t,
-                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms,
-                shape=f"Vp={Vp}, N={N}, R={R}")
+    return dict(name="canon_pick", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms, events_per_call=per_call, variants=cases,
+                shape=f"Vp={Vp}, N={N}, R={R} (the evictive world's first claiming reclaim "
+                      f"turn, CanonPickPlan)")
 
 
 def k8_case(dev, fx):
@@ -1246,55 +1355,176 @@ def k9_case(dev, fx):
                 shape=f"N={N}, R={R}, binpack order, one CTA")
 
 
+NODE_TASK_FIELDS = ("node_idle", "node_releasing", "node_ports", "node_num_tasks",
+                    "task_status", "task_node")
+
+
+def k10_check(st, st_cpu, k, nperm, g, req, budget, group_placed, state, s_max, best_effort,
+              variant, what):
+    """K10 through a fresh ``TurnFillPlan`` of route ``variant`` (None: the
+    plan's own choice) on copies of ``state``'s node and task tensors,
+    against the plain version on the CPU: every tensor it writes equal.
+    Returns (plan, copies, placed, the largest difference of any tensor
+    it writes)."""
+    from kube_arbitrator_tpu_torch.ops.kernels import turn_fill as k10
+
+    work = {n: getattr(state, n).clone() for n in NODE_TASK_FIELDS}
+    cpu = {n: getattr(state, n).cpu() for n in NODE_TASK_FIELDS}
+    plan = k10.TurnFillPlan(st, k, nperm, group_placed, *work.values(), s_max, best_effort,
+                            True, variant)
+    n0 = k10.turn_fill.launches
+    placed, use_rel = plan(g, req, budget)
+    expect(k10.turn_fill.launches == n0 + 1, f"K10 {what}: one launch a call")
+    expect(placed is plan.placed and use_rel is plan.use_rel, f"K10 {what}: the plan's own outputs")
+    pp, up = k10.turn_fill_plain(st_cpu, k.cpu(), None if nperm is None else nperm.cpu(), g.cpu(),
+                                 req.cpu(), budget.cpu(), group_placed.cpu(), *cpu.values(), s_max,
+                                 best_effort, True)
+    expect(torch.equal(placed.cpu(), pp) and torch.equal(use_rel.cpu(), up),
+           f"K10 {what} ({plan.variant}): placed / use_rel differ from the plain version")
+    err = max(max_err(placed, pp), max_err(use_rel, up))
+    for n in NODE_TASK_FIELDS:
+        expect(torch.equal(work[n].cpu(), cpu[n]),
+               f"K10 {what} ({plan.variant}): {n} differs from its plain version")
+        err = max(err, max_err(work[n], cpu[n]))
+    return plan, work, int(pp), err
+
+
 def k10_case(dev, fx):
+    """K10 through ``TurnFillPlan`` in both routes on the binpack world
+    (entry state and after two rounds; N = 10,240 and 20,480), plus first
+    fit (no order), best effort, the releasing fallback, placed_total past
+    s_max, a group with tasks already placed and a pack whose ranks fail
+    the index check (it takes ``walk``): every tensor equal to the plain
+    version's; one device event and no allocation a launch."""
     from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
     from kube_arbitrator_tpu_torch.ops.kernels import turn_fill as k10
 
-    state = fx.mid
-    g, req, budget = first_turn(fx.st, fx.sess, fx.tiers, state)
-    k, nperm = k9.turn_caps(fx.st, *turn_caps_args(fx, state, "binpack"))
-    names = ("node_idle", "node_releasing", "node_ports", "node_num_tasks", "task_status",
-             "task_node")
-    base = {n: getattr(state, n) for n in names}
+    cases, errs = [], []
+
+    def caps(w, state, policy, best_effort=False):
+        g, req, budget = first_turn(w.st, w.sess, w.tiers, state)
+        plan = k9.TurnCapsPlan(w.st, state.node_idle, state.node_releasing, state.node_ports,
+                               state.node_num_tasks, 4096, best_effort, True, policy)
+        plan(g, req, None)
+        return g, req, budget, plan.k, plan.nperm
+
+    def both(w, state, k, nperm, g, req, budget, what, gp=None, s_max=4096, best_effort=False,
+             st=None, st_cpu=None):
+        placed = []
+        for variant in k10.VARIANTS:
+            plan, _, pl, err = k10_check(st or w.st, st_cpu or w.st_cpu, k, nperm, g, req,
+                                         budget, state.group_placed if gp is None else gp, state,
+                                         s_max, best_effort, variant, what)
+            placed.append(pl)
+            errs.append(err)
+        cases.append(dict(case=what, placed=placed[0]))
+        return placed[0]
+
+    w = fx
+    for state, what in ((w.state0, "binpack entry"), (w.mid, "binpack, 2 rounds")):
+        g, req, budget, k, nperm = caps(w, state, "binpack")
+        expect(both(w, state, k, nperm, g, req, budget, what) > 0, f"K10 {what}: placed nothing")
+    state = w.mid
+    g, req, budget, k, nperm = caps(w, state, "first_fit")
+    both(w, state, k, None, g, req, budget, "first fit, no order")
+    g, req, budget, kb, nb = caps(w, state, "binpack", best_effort=True)
+    both(w, state, kb, nb, g, req, budget, "best effort", best_effort=True)
+    g, req, budget, k, nperm = caps(w, state, "binpack")
+    # the releasing fallback: no idle capacity anywhere, a positive budget
+    k_rel = torch.stack([torch.zeros_like(k[0]), k[0]]).contiguous()
+    both(w, state, k_rel, nperm, g, req, budget, "releasing fallback")
+    # placed_total past s_max: the slots past s_max take slot s_max - 1's node
+    big = torch.full_like(budget, 40)
+    expect(both(w, state, k, nperm, g, req, big, "placed past s_max = 16", s_max=16) > 16,
+           "K10: placed_total did not pass s_max")
+    # a group whose first tasks are placed already
+    gp = state.group_placed.clone()
+    gp[g.long()] += 3
+    both(w, state, k, nperm, g, req, budget, "3 of the group's tasks placed before", gp=gp)
+    # N = 20,480
+    for st_w, what in ((w.wide.state0, "N = 20,480 entry"), (w.wide.mid, "N = 20,480, 2 rounds")):
+        gw, reqw, bw, kw, pw = caps(w.wide, st_w, "binpack")
+        both(w.wide, st_w, kw, pw, gw, reqw, bw, what)
+    # a pack whose group ranks fail the index check: one rank duplicated
+    rank = w.st.task_group_rank.clone()
+    members = torch.nonzero((w.st.task_group == g.to(torch.int32)) & w.st.task_valid).reshape(-1)
+    rank[members[1]] = rank[members[0]]
+    dup = dataclasses.replace(w.st, task_group_rank=rank)
+    dup_cpu = dataclasses.replace(w.st_cpu, task_group_rank=rank.cpu())
+    plan, _, _, err = k10_check(dup, dup_cpu, k, nperm, g, req, budget, state.group_placed, state,
+                                4096, False, None, "duplicated rank")
+    errs.append(err)
+    expect(plan.variant == "walk", f"K10: a duplicated rank took route {plan.variant}")
+    cases.append(dict(case="duplicated rank: the index check fails, route walk"))
+    try:
+        k10.TurnFillPlan(dup, k, nperm, state.group_placed,
+                         *[getattr(state, n).clone() for n in NODE_TASK_FIELDS], 4096, False, True,
+                         "by_group")
+        expect(False, "K10: by_group accepted a pack that fails the index check")
+    except ValueError:
+        pass
+
+    # times: the main path's turn (binpack after two rounds) in each route
+    base = {n: getattr(state, n).clone() for n in NODE_TASK_FIELDS}
     work = {n: v.clone() for n, v in base.items()}
-    cpu = {n: v.cpu() for n, v in base.items()}
-
-    def call(fn, st, tensors, dev_args):
-        kk, pp, gg, rr, bb, gp = dev_args
-        return fn(st, kk, pp, gg, rr, bb, gp, tensors["node_idle"], tensors["node_releasing"],
-                  tensors["node_ports"], tensors["node_num_tasks"], tensors["task_status"],
-                  tensors["task_node"], 4096, False, True)
-
-    dev_args = (k, nperm, g, req, budget, state.group_placed)
-    placed, use_rel = call(k10.turn_fill, fx.st, work, dev_args)
-    pp, up = call(k10.turn_fill_plain, fx.st_cpu, cpu, to_cpu(dev_args))
-    err = max_err(placed, pp)
-    expect(torch.equal(placed.cpu(), pp) and torch.equal(use_rel.cpu(), up),
-           "K10 placed / use_rel differ from the plain version")
-    for n in names:
-        err = max(err, max_err(work[n], cpu[n]))
-        expect(torch.equal(work[n].cpu(), cpu[n]), f"K10 {n} differs from its plain version")
-    expect(int(placed) > 0, "K10 inputs placed nothing")
 
     def setup():
         for n, v in base.items():
             work[n].copy_(v)
 
-    t = kernel_times(lambda: call(k10.turn_fill, fx.st, work, dev_args), setup=setup)
-    plain_ms = cuda_ms(lambda: call(k10.turn_fill_plain, fx.st, work, dev_args), reps=5,
-                       setup=setup)
+    timed = {}
+    for variant in k10.VARIANTS:
+        plan = k10.TurnFillPlan(w.st, k, nperm, state.group_placed, *work.values(), 4096, False,
+                                True, variant)
+        timed[variant] = dict(plan=plan, **kernel_times(lambda: plan(g, req, budget), setup=setup))
+        timed[variant]["events_per_call"] = device_events_per_call(lambda: plan(g, req, budget))
+        setup()
+        timed[variant]["allocations_per_call"] = allocations_per_call(lambda: plan(g, req, budget))
+        setup()
+        expect(timed[variant]["events_per_call"] == 1.0,
+               f"K10 {variant}: {timed[variant]['events_per_call']} device events a launch")
+        expect(timed[variant]["allocations_per_call"] == 0, f"K10 {variant}: allocates a launch")
+    torch.cuda.synchronize()
+    t_bind = time.perf_counter()
+    for _ in range(5):
+        k10.TurnFillPlan(w.st, k, nperm, state.group_placed, *work.values(), 4096, False, True)
+    bind_ms = (time.perf_counter() - t_bind) / 5 * 1e3
+    functional = kernel_times(lambda: k10.turn_fill(w.st, k, nperm, g, req, budget,
+                                                    state.group_placed, *work.values(), 4096,
+                                                    False, True), setup=setup)
+    main = timed["by_group"]
+    plain_ms = cuda_ms(lambda: k10.turn_fill_plain(w.st, k, nperm, g, req, budget,
+                                                   state.group_placed, *work.values(), 4096,
+                                                   False, True), reps=5, setup=setup)
+    setup()
+    placed = int(main["plan"](g, req, budget)[0])
     N, R = state.node_idle.shape
     W = state.node_ports.shape[1]
     T = state.task_status.shape[0]
-    n_nodes = int(((base["node_num_tasks"] != work["node_num_tasks"])).sum())
-    # two capacity rows and the order read; the touched node rows read
-    # and written; the task axis's group, rank and validity read, the
-    # group's placed tasks written
-    nbytes = 3 * N * 4 + n_nodes * 2 * (4 * R + 4 + 4 * W) + T * 9 + int(placed) * 8
-    b, by = bound_ms(nbytes, N * 4 + T * 3)
-    return dict(name="turn_fill", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None,
-                shape=f"N={N}, T={T}, {int(placed)} placed on {n_nodes} nodes")
+    n_nodes = int((base["node_num_tasks"] != work["node_num_tasks"]).sum())
+    setup()
+
+    def bound(walk):
+        # two capacity rows and the order read; the touched node rows
+        # read and written; the group's placed tasks written (and their
+        # index read), or the task axis's group, rank and validity read
+        nbytes = 3 * N * 4 + n_nodes * 2 * (4 * R + 4 + 4 * W) + placed * 8 \
+            + (T * 9 if walk else placed * 4)
+        return bound_ms(nbytes, N * 4 + (T * 3 if walk else placed * 2))
+
+    b, by = bound(False)
+    variants = [dict(route=v, **{x: y for x, y in r.items() if x != "plan"},
+                     bound_ms=bound(v == "walk")[0]) for v, r in timed.items()]
+    variants.append(dict(route="functional turn_fill (a throwaway plan a call, index build "
+                               "included)", ms=functional["ms"], host_us=functional["host_us"]))
+    variants.append(dict(route="plan bind (index build, one host read)", ms=bind_ms))
+    return dict(name="turn_fill", max_abs_err=max(errs),
+                **{x: y for x, y in main.items() if x not in ("plan", "events_per_call",
+                                                              "allocations_per_call")},
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+                events_per_call=main["events_per_call"], variants=variants + cases,
+                shape=f"N={N}, T={T}, {placed} placed on {n_nodes} nodes (binpack after two "
+                      f"rounds, TurnFillPlan by_group)")
 
 
 def pa_fixture(dev):
@@ -1391,14 +1621,18 @@ def device_events_per_call(fn, calls: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profile can come back without its device events (see device_us)
+    # a profile can come back without some of its device events (see
+    # device_us; once 19 of 20 one-kernel calls): fewer events than calls
+    # is a lost record, since each call launches at least once, so profile
+    # again; more than one a call is never retried away
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         n = sum(getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
                 for e in prof.events())
-        if n:
+        if n >= calls:
             break
     return n / calls
 
@@ -1829,6 +2063,8 @@ def k17_case(dev, fx, alloc_round):
     world's round (Q = 8, the main path's shape: timed), and raw queue
     states of ties, -0.0, NaN, BIG, zero, tiny and subnormal totals and
     alloc > 0 over a zero total at Q = 8 / 512 / 4,096 in both routes,
+    and ROADMAP C4's three subnormal rows at Q = 8 and 512 (subnormals
+    flushed as the JAX package flushes them),
     each equal to the plain version (the key build, then the stable
     sorts) run on the CPU; one device kernel a ``queue_perm`` call and no
     allocation."""
@@ -1872,6 +2108,22 @@ def k17_case(dev, fx, alloc_round):
             for variant in k17.VARIANTS:
                 plan = k17.QueueOrderPlan(tiers, deserved, torch.from_numpy(uid).to(dev), variant)
                 check(plan, act, alloc, f"Q = {Q} ({variant}, trial {trial})")
+    # ROADMAP C4's rows: a subnormal alloc, a subnormal quotient and a
+    # subnormal total read as the JAX package reads them (shares 0, 0, 1)
+    for Q in (8, 512):
+        alloc = torch.from_numpy(rng.integers(0, 4, (Q, 4)).astype(np.float32) * 500).to(dev)
+        deserved = torch.full((Q, 4), 2000.0, device=dev)
+        alloc[:3, 0] = torch.tensor([1e-39, 2e-38, 1.0], device=dev)
+        deserved[:3, 0] = torch.tensor([1.0, 2000.0, 1e-39], device=dev)
+        alloc[:3, 1:] = 0.0
+        act = torch.ones(Q, dtype=torch.bool, device=dev)
+        uid = torch.from_numpy(rng.permutation(Q).astype(np.int32)).to(dev)
+        keys = k17.queue_keys_plain(tiers, act.cpu(), alloc.cpu(), deserved.cpu(), uid.cpu())
+        expect(keys[1][:3].tolist() == [0.0, 0.0, 1.0],
+               f"C4 rows: the plain chain's shares are {keys[1][:3].tolist()}")
+        for variant in k17.VARIANTS:
+            plan = k17.QueueOrderPlan(tiers, deserved, uid, variant)
+            check(plan, act, alloc, f"C4's subnormal rows, Q = {Q} ({variant})")
     # shares 0, -0, NaN, 1, -0, 0 over tied uids: -0.0 == +0.0, NaN last
     z = torch.tensor([0.0, -0.0, float("nan"), 1.0, -0.0, 0.0], device=dev)
     alloc6 = torch.stack([z, torch.zeros_like(z), torch.zeros_like(z), torch.zeros_like(z)], 1)
@@ -2784,6 +3036,11 @@ def main(kernels_only: bool = False) -> int:
            "K9's one-CTA sort was not launched on the binpack path")
     expect(by_variant["pa_evict"]["turn_caps"]["first_fit"] > 0,
            "K9's first-fit pass was not launched on the pod-affinity path")
+    for world in ("binpack", "pa_evict"):
+        tf = by_variant[world]["turn_fill"]
+        expect(tf["by_group"] == (order_counts if world == "binpack" else pa_counts)["turn_fill"]
+               and tf["walk"] == 0 and tf["index"] > 0,
+               f"K10 on the {world} path: routes {tf}, not by_group for every turn")
     print(f"phase 5 (immediate path, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 6: the opt-in reclaim engines at full width — q512_evict

@@ -1,11 +1,14 @@
-"""Time the port's cycle on two trees in turns, on one card.
+"""Time the port's cycle on two or more trees in turns, on one card.
 
     python -m kube_arbitrator_tpu_torch.cycle_turns --parent DIR [--order PCCPCP] \\
-        [--worlds allocate,evictive,pa_evict,binpack,q512_evict] [--out FILE]
+        [--tree X=DIR2 ...] [--worlds allocate,evictive,pa_evict,binpack,q512_evict] \\
+        [--out FILE]
 
 DIR is a second checkout of the repository (for example the parent
-commit, unpacked with ``git archive``).  For each letter of ``--order``
-(P: DIR, C: this tree) and each world, one process runs the port's CLI
+commit, unpacked with ``git archive``); each ``--tree X=DIR2`` names one
+more, under the letter X (for example a tree with one part of a change
+reverted).  For each letter of ``--order`` (P: DIR, C: this tree, X:
+DIR2) and each world, one process runs the port's CLI
 (``python -m kube_arbitrator_tpu_torch ... --json``) from that tree and
 decides ``cycles`` fresh worlds (seeds seed, seed + 1, ...).  The first
 cycle of a process pays for loading the kernels and warming the card, so
@@ -69,13 +72,22 @@ def main(argv=None) -> int:
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="the other tree's root")
     ap.add_argument("--order", default="PCCPCP")
+    ap.add_argument("--tree", action="append", default=[], metavar="X=DIR",
+                    help="one more tree, under the letter X")
     ap.add_argument("--worlds", default="allocate,evictive,pa_evict")
     ap.add_argument("--timeout", type=float, default=600.0, help="seconds per process")
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
     a = ap.parse_args(argv)
     trees = {"P": Path(a.parent).resolve(), "C": HERE}
+    for spec in a.tree:
+        letter, _, path = spec.partition("=")
+        if len(letter) != 1 or letter in trees or not path:
+            ap.error(f"--tree {spec!r}: want a new letter, '=', a directory")
+        trees[letter] = Path(path).resolve()
+    if set(a.order) - set(trees):
+        ap.error(f"--order {a.order!r} names a tree that is not given")
     worlds = [w for w in a.worlds.split(",") if w]
-    rows: Dict[str, Dict[str, List[Dict]]] = {w: {"P": [], "C": []} for w in worlds}
+    rows: Dict[str, Dict[str, List[Dict]]] = {w: {t: [] for t in trees} for w in worlds}
     for turn, which in enumerate(a.order):
         for w in worlds:
             got = run_once(trees[which], w, a.timeout)

@@ -11,7 +11,8 @@ warm the card, then decides it again (the next seed) under cProfile.
 Prints one JSON line per world: the cycle's wall time under the
 profiler, and for each wrapper module named in ``--wrappers``
 (``ops/kernels/<name>.py``; ``queue_perm``: that function of
-ops/allocate.py, whose cost includes the queue keys' build) its
+ops/allocate.py, whose cost includes the queue keys' build;
+``safe_share``: that function of ops/common.py) its
 functions' calls and cumulative seconds and the callees of those
 functions by cumulative seconds: the host items that cost most.  With
 ``queue_perm`` among the wrappers, the row also gives the device kernels
@@ -50,7 +51,8 @@ import torch
 from kube_arbitrator_tpu_torch.cli import decide_world
 world, wrappers, seed = json.loads(sys.argv[1]), sys.argv[2].split(","), int(sys.argv[3])
 # a wrapper outside ops/kernels/: (file, function)
-OTHER = {"queue_perm": ("ops/allocate.py", "queue_perm")}
+OTHER = {"queue_perm": ("ops/allocate.py", "queue_perm"),
+         "safe_share": ("ops/common.py", "safe_share")}
 decide_world(device="cuda", seed=seed - 1, **world)
 torch.cuda.synchronize()
 prof = cProfile.Profile()

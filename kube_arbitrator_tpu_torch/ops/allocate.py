@@ -42,7 +42,7 @@ from .kernels.decode_deferred import decode_deferred
 from .kernels.queue_order import QueueOrderPlan, queue_order
 from .kernels.stable_compact import FeasCells, stable_compact
 from .kernels.turn_caps import TurnCapsPlan
-from .kernels.turn_fill import turn_fill
+from .kernels.turn_fill import TurnFillPlan
 from .ordering import Tiers, group_order_keys, job_order_keys, node_order_policy
 from .podaffinity import PaFitPlan, PaShapePlan
 
@@ -417,16 +417,20 @@ def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order):
 
 def _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on):
     """(K9's plan over ``state``'s node arrays, K11's plan or None, K12's
-    plan or None): the immediate turn's kernels, bound once for a run of
-    turns on one state (K10 updates those node arrays in place).  K12's
-    plan reads K11's plan-owned fit and shapes K9's plan-owned rows in
-    place: only K10 reads them after it."""
+    plan or None, K10's plan): the immediate turn's kernels, bound once
+    for a run of turns on one state (K10 updates those node arrays and
+    the task state in place).  K12's plan reads K11's plan-owned fit and
+    shapes K9's plan-owned rows in place; K10's plan reads those rows
+    after it."""
     caps = TurnCapsPlan(st, state.node_idle, state.node_releasing, state.node_ports,
                         state.node_num_tasks, s_max, best_effort_pass, preds_on, policy)
+    fill = TurnFillPlan(st, caps.k, caps.nperm, state.group_placed, state.node_idle,
+                        state.node_releasing, state.node_ports, state.node_num_tasks,
+                        state.task_status, state.task_node, s_max, best_effort_pass, preds_on)
     if not pa_on:
-        return caps, None, None
+        return caps, None, None, fill
     fit = PaFitPlan(st)
-    return caps, fit, PaShapePlan(st, fit.fit, caps.k, caps.nperm)
+    return caps, fit, PaShapePlan(st, fit.fit, caps.k, caps.nperm), fill
 
 
 def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, preds_on, pa_on,
@@ -435,11 +439,12 @@ def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, p
     _process_queue, :553-706): selection from the current aggregates,
     then K11 / K9 / K12 / K10 and the aggregate commit.  ``q`` is i64[1];
     a padding or drained queue's turn places nothing.  ``plans`` is the
-    action's (K9, K11, K12 plans; the last two None without pod affinity)
-    from :func:`_turn_plans`; None builds them for this turn alone."""
+    action's (K9, K11, K12, K10 plans; K11's and K12's None without pod
+    affinity) from :func:`_turn_plans`; None builds them for this turn
+    alone."""
     if plans is None:
         plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
-    caps_plan, fit_plan, shape_plan = plans
+    caps_plan, fit_plan, shape_plan, fill_plan = plans
     if best_effort_pass:
         q_ok = st.queue_valid[q]  # backfill has no queue-fairness gate
     else:
@@ -451,14 +456,10 @@ def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, p
     )
     req1 = req[0].contiguous()
     fit = None if fit_plan is None else fit_plan(g, state.task_status, state.task_node)
-    k, nperm = caps_plan(g, req1, None if fit is None else fit.ok)
+    caps_plan(g, req1, None if fit is None else fit.ok)  # k, nperm: K10's bound rows
     if shape_plan is not None:
         shape_plan()  # k in place
-    placed, use_rel = turn_fill(
-        st, k, nperm, g, req1, budget, state.group_placed, state.node_idle,
-        state.node_releasing, state.node_ports, state.node_num_tasks, state.task_status,
-        state.task_node, s_max, best_effort_pass, preds_on,
-    )
+    placed, use_rel = fill_plan(g, req1, budget)  # plan-owned: consumed below
     # capacity-limited (not budget-limited) groups can never place again
     if best_effort_pass:
         unfit_now = has_grp & (placed < budget)
@@ -480,7 +481,7 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
     policy = node_order_policy(tiers)
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     pa_on = preds_on and pa_enabled(st)
-    # K9's, K11's, K12's and K17's launches over this action: checked and bound once
+    # K9's, K11's, K12's, K10's and K17's launches over this action: checked and bound once
     plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
     order = QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
     while True:

@@ -8,7 +8,7 @@ that it is added in one order on the CPU and on the card.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -26,7 +26,7 @@ BIG = 3.0e38  # rounds to the reference's float32 BIG (effectively +inf)
 NUM_FAIR = NUM_FAIR_RESOURCES
 
 __all__ = [
-    "BIG", "EPS", "NUM_FAIR", "ceil_div_pos", "dominant_share", "fair", "fits",
+    "BIG", "EPS", "FLT_MIN", "NUM_FAIR", "ceil_div_pos", "dominant_share", "fair", "fits", "ftz",
     "lex_argmin", "lexsort", "mm_cumsum", "ordered_sum", "plugin_on", "safe_share",
     "seg_cumsum", "segment_sum", "to_i32",
 ]
@@ -46,10 +46,29 @@ def is_empty_res(r: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return (r < EPS).all(dim=dim)
 
 
+FLT_MIN = float(torch.finfo(torch.float32).tiny)  # the least normal f32
+
+
+def ftz(x: torch.Tensor, also: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` with every subnormal f32 flushed to a zero of its sign, as
+    XLA computes on the CPU and the TPU computes everywhere: a subnormal
+    times 0 is a signed zero, every other value times 1 is itself (NaN,
+    whose mask is False, stays NaN).  With ``also``, ``x`` is flushed
+    where ``also`` (an operand of the op that made ``x``) is subnormal
+    too, as if it had been read as a zero: one mask for both."""
+    mag = x.abs() if also is None else torch.minimum(x.abs(), also.abs())
+    return x * (mag >= FLT_MIN)
+
+
 def safe_share(alloc: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
-    """alloc/total with the zero-total convention (0, or 1 if alloc > 0)."""
-    zero_total = torch.where(alloc > 0, 1.0, 0.0)
-    return torch.where(total > 0, alloc / total.clamp(min=1e-30), zero_total)
+    """alloc/total with the zero-total convention (0, or 1 if alloc > 0),
+    flushed as the JAX package's share is: a subnormal ``alloc`` or
+    ``total`` reads as a zero of its sign (a total is positive only from
+    FLT_MIN up), and a quotient that comes out subnormal is a zero of its
+    sign.  A zero of ``alloc``'s sign over a positive total is that zero,
+    so flushing the quotient where ``alloc`` is subnormal is the same."""
+    share = ftz(alloc / total.clamp(min=1e-30), also=alloc)
+    return torch.where(total >= FLT_MIN, share, alloc >= FLT_MIN)
 
 
 def dominant_share(alloc: torch.Tensor, total: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,10 @@ PyTorch version and with a launch counter:
 * K4 :func:`segment_sum.segment_sum`         — slot-order segment sums
 * K5 :func:`seg_scan.seg_scan`               — ops/preempt victim-layout scans
 * K6 :func:`claim_nodes.claim_nodes`         — ops/preempt._apply_claim node half
-* K7 :func:`canon_pick.canon_pick`           — reclaim turn: per-node sums, first fit
+* K7 :func:`canon_pick.canon_pick`           — reclaim turn: per-node sums, first fit (CanonPickPlan)
 * K8 :func:`canon_commit.canon_commit`       — reclaim turn: window commit
 * K9 :func:`turn_caps.turn_caps`             — immediate turn: capacity, packing order
-* K10 :func:`turn_fill.turn_fill`            — immediate turn: fill, writeback, decode
+* K10 :func:`turn_fill.turn_fill`            — immediate turn: fill, writeback, decode (TurnFillPlan)
 * K11 :func:`pa_fit.pa_fit`                  — pod-affinity fit of a turn's group
 * K12 :func:`pa_shape.pa_shape`              — pod-affinity seed and domain cap (PaShapePlan)
 * K13 :func:`round_products.round_products`  — opt-in reclaim: union eligibility, sums, scan
@@ -70,6 +70,7 @@ def counts() -> dict:
 def variant_counts() -> dict:
     """Launches by variant of the kernels that have more than one (K1's
     panel / full width, one CTA / cluster; K9's first fit, one-CTA and
-    tiled sort, by call; K19's one-CTA / tiled sort, counting segment
-    order, run starts and lookups)."""
+    tiled sort, by call; K10's by_group / walk routes and its plans'
+    index builds; K19's one-CTA / tiled sort, counting segment order, run
+    starts and lookups)."""
     return {name: dict(fn.variants) for name, fn in KERNELS.items() if hasattr(fn, "variants")}

@@ -8,6 +8,23 @@
 
 #define KAT_BIG 3.0e38f  // the reference's BIG: +inf for f32 mins
 #define KAT_EPS 10.0f    // the reference's device-unit epsilon
+#define KAT_FLT_MIN 1.17549435e-38f  // the least normal f32
+
+// x with a subnormal flushed to a zero of its sign, as XLA computes on
+// the CPU and the TPU everywhere; NaN, +-inf and normal values pass.
+// The port's kernels keep subnormals elsewhere (no -ftz in build.py).
+__device__ __forceinline__ float kat_ftz(float x) {
+  return fabsf(x) < KAT_FLT_MIN ? copysignf(0.0f, x) : x;
+}
+
+// ops/common.py:safe_share — alloc / total with the zero-total convention
+// (0, or 1 if alloc > 0), flushed as the JAX package's share is: a
+// subnormal input reads as a zero of its sign, a subnormal quotient is a
+// zero of its sign.  IEEE division (no fast math).
+__device__ __forceinline__ float kat_safe_share(float alloc, float total) {
+  const float a = kat_ftz(alloc), t = kat_ftz(total);
+  return t > 0.0f ? kat_ftz(__fdiv_rn(a, fmaxf(t, 1e-30f))) : (a > 0.0f ? 1.0f : 0.0f);
+}
 
 // Exclusive prefix of v over the block in thread order; *total gets the
 // block sum.  Integer adds, so the result is exact in any order.

@@ -6,14 +6,17 @@
 // 1026-1043 (and its twins ops/preempt.py:893-908, :1871, :2246-2259):
 //   q_share = max_r safe_share(alloc_r, deserved_r) over the NUM_FAIR
 //             columns, safe_share = total > 0 ? alloc / max(total, 1e-30)
-//             : (alloc > 0 ? 1 : 0), NaN propagating as jnp.max does;
+//             : (alloc > 0 ? 1 : 0) with subnormal inputs and quotients
+//             flushed to signed zeros (common.cuh's kat_safe_share, as
+//             XLA computes it), NaN propagating as jnp.max does;
 //   keys    = [active ? 0 : 1, q_share (S times, S >= 0), f32(uid rank)],
 //             every key but the first BIG on an inactive queue;
 //   perm    = jnp.lexsort(tuple(reversed(keys))): key 0 primary, ties by
 //             index, -0.0 == +0.0, NaN after every number, NaNs equal;
 //   nq      = sum(q_active).
-// The division is IEEE (no fast math, denormals kept; build.py's
-// -fmad=false keeps nvcc from contracting anything around it).
+// The division is IEEE (no fast math; build.py's -fmad=false keeps nvcc
+// from contracting anything around it); the share alone flushes
+// subnormals, explicitly, so no other kernel's arithmetic changes.
 //
 // Keys as integers: S copies of one key order like one copy, and an
 // inactive queue ties with every other inactive queue on every key, so
@@ -71,8 +74,7 @@ __device__ __forceinline__ unsigned long long queue_key(const Static& s, const u
     const float* t = s.deserved + (size_t)q * s.R;
     float m = 0.0f;
     for (int r = 0; r < s.F; ++r) {
-      const float ar = a[r], tr = t[r];
-      const float sh = tr > 0.0f ? ar / fmaxf(tr, 1e-30f) : (ar > 0.0f ? 1.0f : 0.0f);
+      const float sh = kat_safe_share(a[r], t[r]);
       if (r == 0 || isnan(sh)) {
         m = sh;
       } else if (!isnan(m)) {  // a NaN stays

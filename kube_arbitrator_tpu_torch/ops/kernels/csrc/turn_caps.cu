@@ -95,13 +95,13 @@ __device__ __forceinline__ int copies(const float* avail, const float* req, int 
 }
 
 // the reference's dominant_share(max(alloc - idle, 0), alloc) over the F
-// fair resources (ops/common.py:safe_share)
+// fair resources (ops/common.py:safe_share, subnormals flushed)
 __device__ __forceinline__ float used_share(const float* alloc, const float* idle, int F) {
   float s = 0.f;
   for (int r = 0; r < F; ++r) {
     const float total = alloc[r];
     const float used = fmaxf(__fsub_rn(total, idle[r]), 0.f);
-    const float sh = total > 0.f ? __fdiv_rn(used, fmaxf(total, 1e-30f)) : (used > 0.f ? 1.f : 0.f);
+    const float sh = kat_safe_share(used, total);
     s = r == 0 ? sh : fmaxf(s, sh);
   }
   return s;

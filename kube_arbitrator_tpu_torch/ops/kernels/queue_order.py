@@ -56,11 +56,11 @@ def queue_order_variant(Q: int) -> str:
 def queue_keys_plain(tiers, q_active, queue_alloc, deserved, queue_uid_rank) -> torch.Tensor:
     """f32[K, Q]: the round's key stack as the reference builds it — the
     inactive flag, then the tiered queue keys over the proportion share
-    (``fairness.queue_shares``' arithmetic) with BIG on inactive queues."""
-    F = NUM_FAIR_RESOURCES
-    alloc, total = queue_alloc[:, :F], deserved[:, :F]
-    q_share = torch.where(total > 0, alloc / total.clamp(min=1e-30),
-                          torch.where(alloc > 0, 1.0, 0.0)).amax(dim=-1)
+    (``fairness.queue_shares``, subnormals flushed as ``common.safe_share``
+    flushes them) with BIG on inactive queues."""
+    from ..common import dominant_share  # ops.common imports this package
+
+    q_share = dominant_share(queue_alloc, deserved)
     keys = [torch.where(q_active, k, BIG) for k in queue_order_keys(tiers, q_share, queue_uid_rank)]
     keys.insert(0, torch.where(q_active, 0.0, 1.0))
     return torch.stack([k.to(torch.float32) for k in keys])

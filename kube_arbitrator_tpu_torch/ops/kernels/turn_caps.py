@@ -95,11 +95,9 @@ def packing_key_f32(st, node_idle: torch.Tensor, policy: str) -> torch.Tensor:
     used share, invalid nodes at BIG.  ``+ 0.0`` turns the idle node's
     -0.0 into +0.0 (the reference's sort compares them equal; a radix
     sort on float bits would not)."""
-    F = NUM_FAIR_RESOURCES
-    total = st.node_alloc[:, :F]
-    used = (total - node_idle[:, :F]).clamp(min=0.0)
-    share = torch.where(total > 0, used / total.clamp(min=1e-30),
-                        torch.where(used > 0, 1.0, 0.0)).amax(dim=-1)
+    from ..common import dominant_share  # ops.common imports this package
+
+    share = dominant_share((st.node_alloc - node_idle).clamp(min=0.0), st.node_alloc)
     score = -share if policy == "binpack" else share
     return torch.where(st.node_valid, score, BIG) + 0.0
 

@@ -7,10 +7,19 @@ prefix fill in packing order, ``p`` scattered back to node order into
 node_idle / node_releasing / node_num_tasks / node_ports (in place), the
 slot -> node map and the decode of the group's pending tasks by rank
 (task_status / task_node, in place).  Returns the turn's placed count
-and fallback flag on the device.  CUDA source: csrc/turn_fill.cu.
+and fallback flag on the device.
+
+:class:`TurnFillPlan` binds an immediate action's launches once (a
+launch passes the turn's g, req and budget) and picks the decode's
+route when bound: ``by_group`` (the group's placed tasks found through a
+group -> task index in rank order, built and checked on the device once
+per plan) or ``walk`` (the whole task axis, for a pack whose ranks fail
+the check).  :func:`turn_fill` is the same through a throwaway plan.
+CUDA source: csrc/turn_fill.cu.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -22,11 +31,49 @@ from .build import I, P
 ALLOCATED = int(TaskStatus.ALLOCATED)
 PIPELINED = int(TaskStatus.PIPELINED)
 
-# C signature of csrc/turn_fill.cu
+# C signatures of csrc/turn_fill.cu
 SIGNATURES = {
-    "kat_turn_fill": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                      P, P, P),
+    "kat_turn_fill": (P, P, I, P, P, P),  # static, g, g_wide, req, budget, stream
+    # task_group, task_group_rank, task_valid, T, G, gstart, gidx, hits, bad, stream
+    "kat_turn_fill_index": (P, P, P, I, I, P, P, P, P, P),
 }
+VARIANTS = ("by_group", "walk")  # csrc/turn_fill.cu's V_* values, in order
+# the walk route keeps an int a node in shared memory
+WALK_MAX_N = 49_152
+
+
+class _Static(ctypes.Structure):
+    """csrc/turn_fill.cu's Static: the fixed arguments of a plan."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "k_rows", "nperm", "group_ports", "group_placed", "idle", "rel", "node_ports",
+        "node_num_tasks", "task_group", "task_group_rank", "task_valid", "task_status",
+        "task_node", "node_of_slot", "gstart", "gidx", "placed", "use_rel",
+    )] + [(n, ctypes.c_int) for n in (
+        "N", "R", "W", "T", "s_max", "best_effort", "preds_on", "variant")]
+
+
+def group_index_plain(task_group: torch.Tensor, task_group_rank: torch.Tensor,
+                      task_valid: torch.Tensor, G: int) -> Tuple[torch.Tensor, torch.Tensor, bool]:
+    """(gstart i32[G + 1], gidx i32[T], ok): the valid tasks of each group
+    0..G-1 in rank order — task ``gidx[gstart[g] + r]`` is group g's task
+    of rank r — and whether every index slot is written exactly once
+    (each group's ranks are 0..n-1, each once).  ``gidx`` is zeros where
+    not ``ok``."""
+    T = task_group.shape[0]
+    member = task_valid & (task_group >= 0) & (task_group < G)
+    t = torch.nonzero(member).reshape(-1)
+    g = task_group[t].to(torch.int64)
+    r = task_group_rank[t].to(torch.int64)
+    counts = torch.bincount(g, minlength=G)[:G]
+    gstart = torch.zeros(G + 1, dtype=torch.int64, device=task_group.device)
+    gstart[1:] = torch.cumsum(counts, 0)
+    pos = gstart[g] + r
+    ok = bool(((r >= 0) & (r < counts[g])).all()) and torch.unique(pos).numel() == pos.numel()
+    gidx = torch.zeros(T, dtype=torch.int32, device=task_group.device)
+    if ok:
+        gidx[pos] = t.to(torch.int32)
+    return gstart.to(torch.int32), gidx, ok
 
 
 def turn_fill_plain(st, k, nperm, g, req, budget, group_placed, node_idle, node_releasing,
@@ -72,6 +119,135 @@ def turn_fill_plain(st, k, nperm, g, req, budget, group_placed, node_idle, node_
     return placed_total, use_rel.reshape(1)
 
 
+class TurnFillPlan:
+    """K10's launches over one immediate action.
+
+    Built once per action beside K9's plan (``allocate._turn_plans``):
+    it binds K9's plan-owned capacity rows ``k`` and order ``nperm`` (K12
+    shapes ``k`` in place before each launch), ``group_placed``, the node
+    arrays, ``task_status`` / ``task_node``, the pack's group ports and
+    task columns, ``s_max`` and the flags, checks them once and keeps the
+    stream current when it was built.  Every bound tensor is updated IN
+    PLACE between launches (K9 and K12 write ``k`` / ``nperm``, K10 the
+    node and task state, ``_process_queue`` ``group_placed``).  A launch
+    passes the turn's ``g`` (i32 or i64), ``req`` and ``budget``.  Its
+    ``placed`` / ``use_rel`` are the plan's own tensors, OVERWRITTEN by
+    the next launch: the turn's aggregate commit consumes them in stream
+    order first.  The slot -> node map is plan scratch.
+
+    The route (``variant``, default: ``by_group`` when the pack's group
+    ranks pass the index check, else ``walk``) is chosen here, at one
+    host read of the check; ``variant="walk"`` forces the walk and builds
+    no index.  CPU tensors take :func:`turn_fill_plain` in either route,
+    into the same owned outputs."""
+
+    def __init__(self, st, k, nperm, group_placed, node_idle, node_releasing, node_ports,
+                 node_num_tasks, task_status, task_node, s_max: int, best_effort: bool,
+                 preds_on: bool, variant: Optional[str] = None):
+        if variant is not None and variant not in VARIANTS:
+            raise ValueError(f"turn_fill: variant {variant!r}")
+        dev = k.device
+        self.st, self.dev = st, dev
+        self.rows = (k, nperm)
+        self.state = (group_placed, node_idle, node_releasing, node_ports, node_num_tasks,
+                      task_status, task_node)
+        self.s_max, self.best_effort, self.preds_on = s_max, bool(best_effort), bool(preds_on)
+        if s_max < 1:
+            raise ValueError("turn_fill: s_max must be at least 1")
+        self.placed = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.use_rel = torch.zeros(1, dtype=torch.bool, device=dev)
+        self.first = True
+        N, R = node_idle.shape
+        T = task_status.shape[0]
+        G = st.group_ports.shape[0]
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"turn_fill: tensors on {dev}")
+        self.gstart = self.gidx = None
+        ok = False
+        if variant != "walk":
+            if dev.type == "cpu":  # the route's name only: the CPU decodes the plain way
+                ok = group_index_plain(st.task_group, st.task_group_rank, st.task_valid, G)[2]
+            else:
+                ok = self._build_index(st, T, G)
+                turn_fill.variants["index"] += 1
+        if variant == "by_group" and not ok:
+            raise ValueError("turn_fill: the pack's group ranks fail the index check")
+        self.variant = variant or ("by_group" if ok else "walk")
+        if dev.type == "cpu":
+            return
+        if self.variant == "walk" and N > WALK_MAX_N:
+            raise ValueError(f"turn_fill: {N} nodes exceed the walk route's {WALK_MAX_N}")
+        W = node_ports.shape[1]
+        checks = [
+            (k, torch.int32, (2, N)), (group_placed, torch.int32, (G,)),
+            (node_idle, torch.float32, (N, R)), (node_releasing, torch.float32, (N, R)),
+            (node_ports, torch.int32, (N, W)), (node_num_tasks, torch.int32, (N,)),
+            (task_status, torch.int32, (T,)), (task_node, torch.int32, (T,)),
+            (st.group_ports, torch.int32, (G, W)), (st.task_group, torch.int32, (T,)),
+            (st.task_group_rank, torch.int32, (T,)), (st.task_valid, torch.bool, (T,)),
+        ] + ([(nperm, torch.int32, (N,))] if nperm is not None else [])
+        for i, (t, dt, shape) in enumerate(checks):
+            build.require(t, dt, f"turn_fill.arg{i}", dev)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"turn_fill.arg{i}: shape {tuple(t.shape)}, want {shape}")
+        self.node_of_slot = torch.empty(s_max, dtype=torch.int32, device=dev)
+        p = build.ptr
+        self.static = _Static(
+            p(k), p(nperm), p(st.group_ports), p(group_placed), p(node_idle), p(node_releasing),
+            p(node_ports), p(node_num_tasks), p(st.task_group), p(st.task_group_rank),
+            p(st.task_valid), p(task_status), p(task_node), p(self.node_of_slot), p(self.gstart),
+            p(self.gidx), p(self.placed), p(self.use_rel),
+            N, R, W, T, s_max, int(best_effort), int(preds_on), VARIANTS.index(self.variant),
+        )
+        self.static_ptr = ctypes.addressof(self.static)
+        self.fn = build.bind("turn_fill", "kat_turn_fill", SIGNATURES)
+        self.stream = build.stream()
+
+    def _build_index(self, st, T: int, G: int) -> bool:
+        """The group -> task index on the card, and its check read once."""
+        for name, t, dt in (("task_group", st.task_group, torch.int32),
+                            ("task_group_rank", st.task_group_rank, torch.int32),
+                            ("task_valid", st.task_valid, torch.bool)):
+            build.require(t, dt, f"turn_fill.{name}", self.dev)
+        self.gstart = torch.empty(G + 1, dtype=torch.int32, device=self.dev)
+        self.gidx = torch.empty(max(T, 1), dtype=torch.int32, device=self.dev)
+        hits = torch.empty(max(T, 1), dtype=torch.int32, device=self.dev)
+        bad = torch.empty(1, dtype=torch.int32, device=self.dev)
+        fn = build.bind("turn_fill", "kat_turn_fill_index", SIGNATURES)
+        p = build.ptr
+        build.check(fn(p(st.task_group), p(st.task_group_rank), p(st.task_valid), T, G,
+                       p(self.gstart), p(self.gidx), p(hits), p(bad), build.stream()),
+                    "turn_fill_index")
+        return int(bad) == 0  # the plan's one host read
+
+    def __call__(self, g: torch.Tensor, req: torch.Tensor, budget: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (``self.placed`` i32[1], ``self.use_rel`` bool[1]) for the
+        turn of group ``g`` (i32 or i64 [1]) with ``req`` f32[R] and
+        ``budget`` i32[1]; the node and task state written in place."""
+        k, nperm = self.rows
+        if self.dev.type == "cpu":
+            placed, use_rel = turn_fill_plain(self.st, k, nperm, g, req, budget, *self.state,
+                                              self.s_max, self.best_effort, self.preds_on)
+            self.placed.copy_(placed)
+            self.use_rel.copy_(use_rel)
+        else:
+            if g.dtype not in (torch.int32, torch.int64):
+                raise TypeError(f"turn_fill: group dtype {g.dtype}")
+            if self.first:  # the turn's row and budget keep their types all action
+                R = self.state[1].shape[1]
+                build.require(req, torch.float32, "turn_fill.req", self.dev)
+                build.require(budget, torch.int32, "turn_fill.budget", self.dev)
+                if req.shape != (R,) or budget.numel() != 1 or g.device != self.dev:
+                    raise ValueError("turn_fill: req must be f32[R], budget i32[1], g on the card")
+                self.first = False
+            build.check(self.fn(self.static_ptr, g.data_ptr(), int(g.dtype == torch.int64),
+                                req.data_ptr(), budget.data_ptr(), self.stream), "turn_fill")
+            turn_fill.launches += 1
+            turn_fill.variants[self.variant] += 1
+        return self.placed, self.use_rel
+
+
 def turn_fill(
     st,
     k: torch.Tensor,               # i32[2, N] idle / releasing capacity, packing order
@@ -91,44 +267,17 @@ def turn_fill(
     preds_on: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (placed_total i32[1], use_rel bool[1]).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
-    args = (st, k, nperm, g, req, budget, group_placed, node_idle, node_releasing, node_ports,
-            node_num_tasks, task_status, task_node, s_max, best_effort, preds_on)
+    plain version; CUDA tensors launch the kernel once through a plan of
+    its own (its route as :class:`TurnFillPlan` picks it)."""
     if k.device.type == "cpu":
-        return turn_fill_plain(*args)
-    dev = k.device
-    if dev.type != "cuda":
-        raise ValueError(f"turn_fill: tensors on {dev}")
-    N, R = node_idle.shape
-    W = node_ports.shape[1]
-    T = task_status.shape[0]
-    g32 = g.reshape(-1)[:1].to(torch.int32).contiguous()
-    checks = [
-        (k, torch.int32), (req, torch.float32), (budget, torch.int32),
-        (group_placed, torch.int32), (node_idle, torch.float32),
-        (node_releasing, torch.float32), (node_ports, torch.int32),
-        (node_num_tasks, torch.int32), (task_status, torch.int32), (task_node, torch.int32),
-        (st.group_ports, torch.int32), (st.task_group, torch.int32),
-        (st.task_group_rank, torch.int32), (st.task_valid, torch.bool),
-    ] + ([(nperm, torch.int32)] if nperm is not None else [])
-    for i, (t, dt) in enumerate(checks):
-        build.require(t, dt, f"turn_fill.arg{i}", dev)
-    if k.shape != (2, N) or req.shape != (R,) or budget.numel() != 1:
-        raise ValueError("turn_fill: shapes disagree")
-    node_of_slot = torch.empty(max(s_max, 1), dtype=torch.int32, device=dev)
-    placed = torch.empty(1, dtype=torch.int32, device=dev)
-    use_rel = torch.empty(1, dtype=torch.bool, device=dev)
-    fn = build.bind("turn_fill", "kat_turn_fill", SIGNATURES)
-    p = build.ptr
-    build.check(fn(
-        p(k), p(nperm), p(g32), p(req), p(budget), p(st.group_ports), p(group_placed),
-        p(node_idle), p(node_releasing), p(node_ports), p(node_num_tasks), p(st.task_group),
-        p(st.task_group_rank), p(st.task_valid), p(task_status), p(task_node), p(node_of_slot),
-        N, R, W, T, s_max, int(best_effort), int(preds_on), p(placed), p(use_rel),
-        build.stream(),
-    ), "turn_fill")
-    turn_fill.launches += 1
-    return placed, use_rel
+        return turn_fill_plain(st, k, nperm, g, req, budget, group_placed, node_idle,
+                               node_releasing, node_ports, node_num_tasks, task_status,
+                               task_node, s_max, best_effort, preds_on)
+    return TurnFillPlan(st, k, nperm, group_placed, node_idle, node_releasing, node_ports,
+                        node_num_tasks, task_status, task_node, s_max, best_effort,
+                        preds_on)(g, req, budget)
 
 
 turn_fill.launches = 0
+# launches by route, and the index builds (one per plan not forced to walk)
+turn_fill.variants = dict.fromkeys(VARIANTS + ("index",), 0)

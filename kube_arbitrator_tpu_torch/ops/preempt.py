@@ -70,7 +70,7 @@ from .common import (
 )
 from .fairness import drf_shares
 from .kernels.canon_commit import _scatter_set, canon_commit
-from .kernels.canon_pick import canon_pick
+from .kernels.canon_pick import CanonPickPlan, canon_pick
 from .kernels.claim_nodes import claim_nodes
 from .kernels.queue_order import QueueOrderPlan
 from .kernels.round_products import RoundProductsPlan
@@ -810,6 +810,18 @@ def _canon_writeback(st, state, carry) -> AllocState:
     return state
 
 
+def _pick_plan(st, sess, state, ctx, carry, use_gang, use_prop, preds_on) -> CanonPickPlan:
+    """The per-turn eligibility, per-node sums and first-fit node (K7),
+    bound once for a canon walk: each ``plan(q, g, has_grp, pop, req)``
+    reads the state as it is then and writes ``plan.pick`` (overwritten
+    by the next launch; the turn's K8 consumes it first).  The carry,
+    ``job_ready_cnt``, ``queue_alloc``, ``node_ports`` and
+    ``node_num_tasks`` change in place only."""
+    return CanonPickPlan(st, ctx, carry.cand, carry.rank_nj, carry.cum_nq, state.job_ready_cnt,
+                         sess.min_avail, state.queue_alloc, state.node_ports,
+                         state.node_num_tasks, use_gang, use_prop, preds_on)
+
+
 def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     """Cross-queue reclaim over the canon layout, pop for pop: per turn
     the queue's job / group pop (K2), the eligibility + per-node sums +
@@ -819,7 +831,8 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     state.progress = torch.ones((), dtype=torch.bool, device=st.device)
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     carry = _canon_seed(st, state, ctx)
-    order = _order_plan(st, sess, tiers)
+    order = _order_plan(st, sess, tiers)  # K17, bound once
+    pick_plan = _pick_plan(st, sess, state, ctx, carry, use_gang, use_prop, preds_on)  # K7
     i32 = torch.int32
     while True:
         nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
@@ -833,14 +846,10 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
             j, g, has_grp, req, pop, burn_now = _reclaim_pop(
                 st, sess, state, tiers, shared, q, carry.q_entries[q]
             )
-            q32, j32, g32 = q.to(i32), j.to(i32), g.to(i32)
-            pick = canon_pick(
-                st, ctx, carry.cand, carry.rank_nj, carry.cum_nq, state.job_ready_cnt,
-                sess.min_avail, state.queue_alloc, state.node_ports, state.node_num_tasks,
-                q32, g32, has_grp, pop, req, use_gang, use_prop, preds_on,
-            )
-            canon_commit(st, ctx, state, carry, pick, q32, j32, g32, has_grp, pop, burn_now,
-                         req, use_gang, use_prop)
+            pick = pick_plan(q, g, has_grp, pop, req)
+            # K8 reads i32 ordinals: the turn's last casts
+            canon_commit(st, ctx, state, carry, pick, q.to(i32), j.to(i32), g.to(i32), has_grp,
+                         pop, burn_now, req, use_gang, use_prop)
         state.rounds += 1
     return _canon_writeback(st, state, carry)
 

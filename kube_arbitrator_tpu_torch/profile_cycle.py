@@ -12,8 +12,10 @@ A first cycle (seed - 1) warms up the kernel builds and the allocator;
 the profiled cycle then runs alone.  Prints the stage times, the top
 operations by device time, the device-busy share of the cycle's wall
 time (the union of kernel intervals on the card over the wall clock) and
-the count of kernel launches (K1's and K19's by variant) and of the
-library sort and search calls
+the host's waits on the card (blocking calls, their time, the device
+kernels inside them and the kernel each wait ended on), the count of
+kernel launches (K1's and K19's by variant) and of the library sort and
+search calls
 (``aten::sort``, ``aten::argsort``, ``aten::searchsorted``; K19 took
 over the port's sorts), and writes ``profile_cycle.json`` and a gzipped
 Chrome trace to ``--out``.  A last, unprofiled pass runs the same world
@@ -25,6 +27,7 @@ and per window.  Needs a GPU.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 import time
@@ -77,6 +80,41 @@ def sync_counts(tasks, nodes, queues, tasks_per_job, seed, running_fraction, act
 
 
 LIBRARY_OPS = ("aten::sort", "aten::argsort", "aten::searchsorted")
+# host calls that block until the card catches up
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def host_waits(events, dev_events, top: int = 10) -> dict:
+    """The host's waits on the card: how many blocking calls, how long
+    they took in all, the device time that ran inside them by kernel
+    name, and the kernel that finished last before each wait ended (the
+    work the host was waiting for)."""
+    waits = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name in SYNC_CALLS
+                   and getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU)
+    starts = [w[0] for w in waits]
+    inside, last = {}, {}
+    ends = sorted(((e.time_range.end, e.name) for e in dev_events), key=lambda x: x[0])
+    for e in dev_events:
+        i = bisect.bisect_right(starts, e.time_range.end) - 1
+        if i < 0:
+            continue
+        ov = min(e.time_range.end, waits[i][1]) - max(e.time_range.start, waits[i][0])
+        if ov > 0:
+            inside[e.name] = inside.get(e.name, 0.0) + ov / 1e3
+    end_ts = [x[0] for x in ends]
+    for ws, we in waits:
+        j = bisect.bisect_right(end_ts, we) - 1
+        if j >= 0 and end_ts[j] >= ws:
+            last[ends[j][1]] = last.get(ends[j][1], 0) + 1
+    total_ms = sum(we - ws for ws, we in waits) / 1e3
+
+    def head(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:top])
+
+    return dict(count=len(waits), total_ms=total_ms,
+                mean_us=total_ms * 1e3 / max(len(waits), 1),
+                device_ms_inside_by_kernel=head(inside), last_kernel_before_end=head(last))
 
 
 def _busy_us(intervals) -> float:
@@ -127,6 +165,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if dev_events:
         span_ms = (max(e.time_range.end for e in dev_events)
                    - min(e.time_range.start for e in dev_events)) / 1e3
+    waits = host_waits(prof.events(), dev_events)
     rows = []
     library = dict.fromkeys(LIBRARY_OPS, 0)
     for ev in prof.key_averages():
@@ -148,7 +187,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         rounds=r["rounds"], device_busy_ms=busy_ms, device_span_ms=span_ms,
         device_kernels=len(dev_events), port_kernel_launches=launches,
         port_kernel_variants=by_variant, library_ops=library,
-        host_syncs=syncs, top=rows[:30],
+        host_syncs=syncs, host_waits=waits, top=rows[:30],
     )
     out = Path(a.out)
     out.mkdir(parents=True, exist_ok=True)

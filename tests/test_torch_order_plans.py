@@ -10,9 +10,9 @@
   own outputs.  The kernel's key build (``queue_keys_plain``'s share)
   equals ``fairness.queue_shares`` bit for bit on the same states and on
   subnormal ones.  XLA:CPU flushes subnormal floats to zero (a subnormal
-  deserved is a zero total there, ROADMAP C4); the port keeps them, as
-  torch does on both devices, so the states held against the reference
-  draw normal floats only.
+  deserved is a zero total there, a subnormal share is 0); the port's
+  share flushes them the same way (``common.safe_share``, ROADMAP C4), so
+  the order is held against the reference on subnormal states too.
 * ``PaShapePlan`` at every launch of an immediate allocate action (first
   fit and binpack) and of a preempt action on a pod-affinity pack at 5k x
   500: the rows it shapes in place equal the plain version of the rows
@@ -116,9 +116,9 @@ def test_queue_order_plan_equals_reference_lexsort(Q, n_prop):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_queue_keys_share_is_queue_shares(seed):
-    """The key build's share is fairness.queue_shares' (the reference's
-    arithmetic) bit for bit, NaN for NaN, subnormals kept; the
-    reference's on normal floats."""
+    """The key build's share is fairness.queue_shares' bit for bit, NaN
+    for NaN, and the reference's (subnormals flushed in both), on normal
+    and subnormal states."""
     rng = np.random.default_rng(seed)
     for subnormal in (True, False):
         active, alloc, deserved, uid = _queue_state(rng, 512, subnormal)
@@ -127,11 +127,29 @@ def test_queue_keys_share_is_queue_shares(seed):
                                     torch.from_numpy(uid))
         want = port_fair.queue_shares(torch.from_numpy(alloc), torch.from_numpy(deserved))
         assert torch.equal(keys[1].view(torch.int32), want.view(torch.int32))
-    ref = np.asarray(ref_fair.queue_shares(jnp.asarray(alloc), jnp.asarray(deserved)))
-    got = keys[1].numpy()
-    assert np.array_equal(np.isnan(got), np.isnan(ref))
-    ok = ~np.isnan(got)
-    assert np.array_equal(got[ok], ref[ok]) and np.isnan(got).any() and (got == 0).any()
+        ref = np.asarray(ref_fair.queue_shares(jnp.asarray(alloc), jnp.asarray(deserved)))
+        got = keys[1].numpy()
+        assert np.array_equal(np.isnan(got), np.isnan(ref))
+        ok = ~np.isnan(got)
+        assert np.array_equal(got[ok], ref[ok]) and np.isnan(got).any() and (got == 0).any()
+
+
+@pytest.mark.parametrize("Q", [8, 64, 512])
+def test_queue_order_plan_equals_reference_on_subnormal_states(Q):
+    """K17's plain form through ``QueueOrderPlan`` against the reference's
+    ``queue_shares``-based order on states with subnormal allocations,
+    totals and quotients (ROADMAP C4's rows among them)."""
+    rng = np.random.default_rng(100 + Q)
+    for n_prop in (1, 2):
+        active, alloc, deserved, uid = _queue_state(rng, Q, subnormal=True)
+        alloc[:3, 0], deserved[:3, 0] = [1e-39, 2e-38, 1.0], [1.0, 2000.0, 1e-39]
+        active[:3] = True
+        want_perm, want_nq = _ref_order(n_prop, active, alloc, deserved, uid)
+        plan = k17.QueueOrderPlan(_tiers(port_ord, n_prop), torch.from_numpy(deserved),
+                                  torch.from_numpy(uid))
+        perm, nq = plan(torch.from_numpy(active), torch.from_numpy(alloc))
+        assert np.array_equal(perm.numpy(), want_perm), n_prop
+        assert int(nq) == want_nq
 
 
 # ---------------------------------------------------------------- K12
@@ -250,14 +268,7 @@ def test_queue_order_plan_routes_on_card(cuda_device, Q):
     rng = np.random.default_rng(Q)
     for n_prop, subnormal in ((0, False), (1, False), (2, False), (1, True)):
         active, alloc, deserved, uid = _queue_state(rng, Q, subnormal)
-        if subnormal:  # the port's plain chain, which keeps subnormals
-            tiers = _tiers(port_ord, n_prop)
-            keys = k17.queue_keys_plain(tiers, *(torch.from_numpy(a) for a in
-                                                 (active, alloc, deserved, uid)))
-            want_perm, want_nq = (x.numpy() for x in k17.queue_order_plain(
-                keys, torch.from_numpy(active)))
-        else:
-            want_perm, want_nq = _ref_order(n_prop, active, alloc, deserved, uid)
+        want_perm, want_nq = _ref_order(n_prop, active, alloc, deserved, uid)
         for variant in k17.VARIANTS:
             plan = k17.QueueOrderPlan(_tiers(port_ord, n_prop),
                                       torch.from_numpy(deserved).to(cuda_device),

@@ -38,11 +38,13 @@ from kube_arbitrator_tpu_torch.ops import allocate as port_alloc
 from kube_arbitrator_tpu_torch.ops import cycle as port_cycle
 from kube_arbitrator_tpu_torch.ops.kernels import admit_chunk as k1
 from kube_arbitrator_tpu_torch.ops.kernels import build
+from kube_arbitrator_tpu_torch.ops.kernels import canon_pick as k7
 from kube_arbitrator_tpu_torch.ops.kernels import pa_fit as k11
 from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
 from kube_arbitrator_tpu_torch.ops.kernels import queue_order as k17
 from kube_arbitrator_tpu_torch.ops.kernels import round_products as k13
 from kube_arbitrator_tpu_torch.ops.kernels import turn_caps as k9
+from kube_arbitrator_tpu_torch.ops.kernels import turn_fill as k10
 from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS, with_node_order
 
 BIG = np.float32(3.0e38)
@@ -177,10 +179,10 @@ def test_pa_fit_plan_equals_plain_and_reference_group_after_group():
     assert flags > 0
 
 
-def _c_struct(source: str):
-    """[(name, is_pointer)] of ``struct Static`` in csrc/<source>.cu."""
+def _c_struct(source: str, struct: str = "Static"):
+    """[(name, is_pointer)] of ``struct <struct>`` in csrc/<source>.cu."""
     text = (build.CSRC / f"{source}.cu").read_text()
-    body = re.search(r"struct Static \{(.*?)\n\};", text, re.S).group(1)
+    body = re.search(rf"struct {struct} \{{(.*?)\n\}};", text, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     fields = []
     for decl in body.split(";"):
@@ -195,10 +197,18 @@ def _c_struct(source: str):
 
 @pytest.mark.parametrize("mod,source", [(k1, "admit_chunk"), (k9, "turn_caps"), (k11, "pa_fit"),
                                         (k12, "pa_shape"), (k13, "round_products"),
-                                        (k17, "queue_order")])
+                                        (k17, "queue_order"), (k7, "canon_pick"),
+                                        (k10, "turn_fill")])
 def test_plan_structs_mirror_the_c_structs(mod, source):
     want = _c_struct(source)
     got = [(name, typ is ctypes.c_void_p) for name, typ in mod._Static._fields_]
+    assert got == want
+
+
+def test_canon_pick_turn_mirrors_the_c_struct():
+    """K7's per-launch Turn, set in place by CanonPickPlan."""
+    want = _c_struct("canon_pick", "Turn")
+    got = [(name, typ is ctypes.c_void_p) for name, typ in k7._Turn._fields_]
     assert got == want
 
 
