@@ -14,11 +14,18 @@ rows):
    the tile, the backfill pass; a releasing fallback in a middle slot,
    ports, budget 0, slots landing on the same nodes) and on the main
    path's own recorded launches (the allocate world, seed 42: each launch
-   shape timed, and the same slots on N // 8 and N // 4 panels), K2-K4 on
-   seeded inputs at the allocate path's shapes (100k tasks, 10k nodes, 1k
-   groups, 8-slot chunks), K5-K8 on the inputs the evictive path gives them in the
-   50k-task x 5k-node world (its preempt victim panel, its first preempt
-   turn, its first claiming reclaim turn), K9-K10 on the binpack world's
+   shape timed, and the same slots on N // 8 and N // 4 panels), K2
+   through TurnPickPlan at the allocate chunk's shape (5 job keys, 1,024
+   jobs and groups, 8 rows; a NaN row, a row past BIG, ties, +-0.0, an
+   empty row; the select and pop forms; the unstaged route at 20,480
+   jobs and groups), K3-K4 on seeded inputs at the
+   allocate path's shapes (100k tasks, 10k nodes, 1k groups), K5 through
+   each victim layout's SegScanPlan (by_job, by_queue, by_node_queue,
+   each timed with its segments, padding tail and longest masked run;
+   the seg_cumsum form; one segment, no masked row, every row masked),
+   K6-K8 on the inputs the evictive path gives them in the 50k-task x
+   5k-node world (its preempt victim panel, its first preempt turn, its
+   first claiming reclaim turn), K9-K10 on the binpack world's
    turns (100k x 10k: the all-idle entry, where the binpack keys tie at
    -0.0, and a turn after two rounds, binpack and spread; K9 through its
    plans in every variant — one CTA and tiles, first fit, best effort,
@@ -40,7 +47,8 @@ rows):
    the evictive world's per-node 51,200 -> 5,120 shapes, _reclaim_fast's
    jstat with 24 slots in range, ordered_sum at 10,240 and 500 rows;
    each route with out= accumulation, i32, every slot dropped, T = 0 and
-   one launch a call),
+   one launch a call), K2, K5, K12 and K17: one device event and no
+   allocation a launch,
    K16 on its three callers' shapes (a commit list at T = 102,400 whose
    count passes the cap, allocate's feasibility cells at [K, 10,240],
    preempt's full-width victim panel at 51,200), K17 through
@@ -81,7 +89,8 @@ rows):
 3. allocate at full width — the ``python -m kube_arbitrator_tpu_torch``
    path on four 100k-task x 10k-node worlds (seeds 42, 43, 44 and one
    capacity-tight world): invariants hold and the integer decisions equal
-   the port's CPU run of the same world.
+   the port's CPU run of the same world; K2 launches once a turn
+   selection (seed 42).
 4. the evictive cycle at full width — 50k tasks x 5k nodes, 8 queues,
    half the jobs running, seeds 42 and 43, on the card only: stage times,
    rounds, binds and evictions by phase; invariants; seed 42's counts and
@@ -131,10 +140,11 @@ rows):
    the JAX package's (MIX_WORLD_45); card == CPU in every CycleDecisions
    field at 20k x 2k (seed 43; queue_deserved within its standing rtol
    1e-5).
-9. no library sort or search — the evictive and pod-affinity evictive
-   cycles (50k x 5k, seed 42) under torch.profiler: no ``aten::sort``,
-   ``aten::argsort`` or ``aten::searchsorted`` event; prints those counts
-   and the device kernels of each cycle.
+9. no library sort, search or cummax — the evictive and pod-affinity
+   evictive cycles (50k x 5k, seed 42) under torch.profiler: no
+   ``aten::sort``, ``aten::argsort``, ``aten::searchsorted`` or
+   ``aten::cummax`` event; prints those counts and the device kernels of
+   each cycle.
 
 Each path's launch counts are taken over its first world (seed 42; the
 priority-mix path's over seed 45), with every count set to 0 just
@@ -560,31 +570,128 @@ def k4_case(dev, fx):
                 shape=f"val f32[{T},{C}] -> [{J},{C}] (unordered)")
 
 
-def k2_case(dev):
-    from kube_arbitrator_tpu_torch.ops.kernels import lex_argmin as k2
-
+def k2_world(dev, J: int = 1024, G: int = 1024, Q: int = 8):
+    """A pack view and a round's state at the main path's pick shape (J
+    jobs, G groups, Q queues; the default tiers' five job keys and two
+    group keys).  Queue 3's best job has a NaN share (the index is then
+    0, as in the reference), queue 4's jobs have shares at or past BIG
+    (3.2e38, inf), queue 5's jobs tie on every key up to the creation
+    rank, queue 6's shares are +0.0 and -0.0, queue 7 has no pending
+    job, and group priorities tie within a job."""
     rng = np.random.default_rng(2)
-    K, M, S = 5, 1024, 8
-    keys = rng.integers(0, 3, (K, M)).astype(np.float32)
-    keys[3] = rng.random(M).astype(np.float32)          # a share column
-    keys[3][rng.random(M) < 0.5] = 0.25                 # with ties
-    keys[4] = np.arange(M, dtype=np.float32)            # the creation rank
-    mask = rng.random((S, M)) < 0.3
-    mask[5] = False                                      # an empty row
-    keys_t, mask_t = torch.from_numpy(keys).to(dev), torch.from_numpy(mask).to(dev)
-    kt = torch.from_numpy(keys[:4].copy()).to(dev)       # ties reach the index
-    got = [k2.lex_argmin(keys_t, mask_t), k2.lex_argmin(kt, mask_t)]
-    ref = [k2.lex_argmin_plain(keys_t.cpu(), mask_t.cpu()), k2.lex_argmin_plain(kt.cpu(), mask_t.cpu())]
-    err = 0.0
-    for (gi, ga), (ri, ra) in zip(got, ref):
-        err = max(err, max_err(gi, ri))
-        expect(torch.equal(gi.cpu(), ri) and torch.equal(ga.cpu(), ra), "K2 differs from its plain version")
-    t = kernel_times(lambda: k2.lex_argmin(keys_t, mask_t))
-    plain_ms = cuda_ms(lambda: k2.lex_argmin_plain(keys_t, mask_t))
-    b, by = bound_ms(K * M * 4 + S * M + S * 5, S * K * M * 2)
-    return dict(name="lex_argmin", max_abs_err=err, **t, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None,
-                shape=f"keys f32[{K},{M}], mask bool[{S},{M}]")
+    job_queue = (np.arange(J) % Q).astype(np.int32)
+    prio = rng.integers(0, 3, J).astype(np.int32)
+    share = rng.random(J).astype(np.float32)
+    share[rng.random(J) < 0.5] = 0.25
+    ready = rng.random(J) < 0.5
+    valid, pending = rng.random(J) < 0.97, rng.random(J) < 0.8
+    q3 = np.nonzero(job_queue == 3)[0]
+    prio[q3], ready[q3] = 2, True
+    share[q3[5]], valid[q3[5]], pending[q3[5]] = np.nan, True, True
+    q4 = np.nonzero(job_queue == 4)[0]
+    prio[q4], ready[q4] = 1, True
+    share[q4] = np.where(np.arange(q4.shape[0]) % 2, np.float32(3.2e38), np.inf)
+    q5 = np.nonzero(job_queue == 5)[0]
+    prio[q5], ready[q5], share[q5] = 1, True, 0.5
+    q6 = np.nonzero(job_queue == 6)[0]
+    prio[q6], ready[q6] = 0, True
+    share[q6] = np.where(np.arange(q6.shape[0]) % 2, np.float32(-0.0), np.float32(0.0))
+    pending[job_queue == 7] = False
+    group_job = rng.integers(0, J, G).astype(np.int32)
+    group_job[:J] = np.arange(J)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    st = types.SimpleNamespace(
+        job_queue=t(job_queue), job_valid=t(valid), group_job=t(group_job),
+        job_priority=t(prio), job_creation_rank=t(rng.permutation(J).astype(np.int32)),
+        group_priority=t(rng.integers(0, 2, G).astype(np.int32)),
+        group_uid_rank=t(rng.permutation(G).astype(np.int32)), queue_valid=t(np.ones(Q, bool)))
+    state = dict(job_has_pending=t(pending), job_ready=t(ready), job_share=t(share),
+                 grp_elig=t(rng.random(G) < 0.9))
+    return st, state
+
+
+def k2_case(dev):
+    """K2 through ``TurnPickPlan`` at the main path's shape (K = 5, J =
+    1,024, S = 8: an allocate chunk, with the job mask for the budget)
+    and in the pop form (reclaim rows: the OverusedFn row filter), each
+    equal to the plain version (the selection as the callers built it,
+    run on the CPU) with torch.equal: a NaN row (index 0), a row past
+    BIG, ties, +-0.0, an empty row and rows the filter drops; one device
+    event and no allocation a call."""
+    from kube_arbitrator_tpu_torch.ops.kernels import lex_argmin as k2
+    from kube_arbitrator_tpu_torch.ops.ordering import (
+        DEFAULT_TIERS, job_order_key_spec, job_order_keys,
+    )
+
+    st, s = k2_world(dev)
+    J, G, Q, R = st.job_queue.shape[0], st.group_job.shape[0], 8, 4
+    rng = np.random.default_rng(3)
+    deserved = torch.from_numpy(rng.integers(1, 4, (Q, R)).astype(np.float32) * 1000).to(dev)
+    queue_alloc = torch.from_numpy(rng.integers(0, 4, (Q, R)).astype(np.float32) * 1000).to(dev)
+    queue_alloc[2] = deserved[2] + 20.0  # queue 2 overused: its pop row burns
+    q = torch.arange(Q, dtype=torch.int64, device=dev)
+    ok = torch.ones(Q, dtype=torch.bool, device=dev)
+    ok[1] = False
+    q_entry = torch.tensor([3, 0, 2, 1, 1, 1, 1, 1], dtype=torch.int32, device=dev)
+    plan = k2.TurnPickPlan(st, DEFAULT_TIERS, deserved)
+    cpu_st = types.SimpleNamespace(**{k: v.cpu() for k, v in vars(st).items()})
+    cplan = k2.TurnPickPlan(cpu_st, DEFAULT_TIERS, deserved.cpu())
+    sel = (q, ok, s["job_has_pending"], s["job_ready"], s["job_share"], s["grp_elig"])
+    pop = (q, q_entry, queue_alloc, s["job_has_pending"], s["job_ready"], s["job_share"],
+           s["grp_elig"])
+    err, checks = 0.0, 0
+    for name, got, want in (
+            ("select", plan.select(*sel, jmask=True), cplan.select(*to_cpu(sel), jmask=True)),
+            ("pop", plan.pop(*pop), cplan.pop(*to_cpu(pop)))):
+        for a, w in zip(got, want):
+            err = max(err, max_err(a, w))
+            expect(torch.equal(a.cpu(), w), f"K2 {name} differs from its plain version")
+            checks += 1
+    j = plan.select(*sel)[0].cpu()
+    expect(int(j[3]) == 0, f"K2: the NaN row picked job {int(j[3])}, not 0")
+    expect(int(j[4]) == 0, f"K2: the row past BIG picked job {int(j[4])}, not 0")
+    per_call = device_events_per_call(lambda: plan.select(*sel, jmask=True))
+    expect(per_call == 1.0, f"K2: {per_call} device events a selection, not 1")
+    allocs = allocations_per_call(lambda: plan.select(*sel, jmask=True))
+    expect(allocs == 0, f"K2: {allocs} allocations a selection")
+    t = kernel_times(lambda: plan.select(*sel, jmask=True))
+    pop_t = kernel_times(lambda: plan.pop(*pop))
+    # the unstaged route: 20,480 jobs and groups, whose keys do not fit
+    # shared memory (each filter stage reads them from global memory)
+    wst, ws = k2_world(dev, J=20_480, G=20_480)
+    wide = k2.TurnPickPlan(wst, DEFAULT_TIERS, deserved)
+    expect(not wide.static.staged, "K2 at J = 20,480 took the staged route")
+    wcpu = k2.TurnPickPlan(types.SimpleNamespace(**{k: v.cpu() for k, v in vars(wst).items()}),
+                           DEFAULT_TIERS, deserved.cpu())
+    wsel = (q, ok, ws["job_has_pending"], ws["job_ready"], ws["job_share"], ws["grp_elig"])
+    wpop = (q, q_entry, queue_alloc) + wsel[2:]
+    for name, got, want in (
+            ("select", wide.select(*wsel, jmask=True), wcpu.select(*to_cpu(wsel), jmask=True)),
+            ("pop", wide.pop(*wpop), wcpu.pop(*to_cpu(wpop)))):
+        for a, w in zip(got, want):
+            err = max(err, max_err(a, w))
+            expect(torch.equal(a.cpu(), w), f"K2 unstaged {name} differs from its plain version")
+            checks += 1
+    wide_t = kernel_times(lambda: wide.select(*wsel, jmask=True))
+
+    def plain():  # the selection as the callers built it: keys, masks, two filters
+        jkeys = torch.stack(job_order_keys(DEFAULT_TIERS, st.job_priority, s["job_ready"],
+                                           st.job_creation_rank, s["job_share"]))
+        return k2.turn_pick_plain(st.job_queue, st.job_valid, st.group_job, jkeys, plan.gkeys, q,
+                                  ok, s["job_has_pending"], s["grp_elig"])
+
+    plain_ms = cuda_ms(plain)
+    K = len(job_order_key_spec(DEFAULT_TIERS))
+    # the job columns (queue, valid, pending, ready, share, three static
+    # rows) and group columns (job, elig, two keys) read once, the job
+    # mask and the picks written; a compare and a min a key and entry
+    nbytes = J * (4 + 1 + 1 + 1 + 4 + 3 * 4) + G * (4 + 1 + 2 * 4) + Q * (J + 2 * 9)
+    b, by = bound_ms(nbytes, Q * (K * J + 2 * G) * 2)
+    return dict(name="lex_argmin", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, events_per_call=per_call, checks=checks,
+                variants=[dict(form="pop (reclaim rows)", **pop_t),
+                          dict(form="unstaged, J = G = 20,480 (select, job mask)", **wide_t)],
+                shape=f"TurnPickPlan: K={K} job keys, J={J}, G={G}, S={Q} rows (select, job mask)")
 
 
 def k3_case(dev):
@@ -901,29 +1008,102 @@ def evict_fixture(dev):
                                  state0=state0, state=state, view=view)
 
 
+def k5_layout_stats(lay, mask, valid) -> dict:
+    """What bounds a K5 launch on one layout: P, the segments, the
+    longest segment, the padding tail (the invalid slots, which sort
+    last) and the most masked rows in one segment (its add chain)."""
+    start = lay.seg_start.cpu().numpy().copy()
+    P = start.shape[0]
+    start[0] = True
+    firsts = np.nonzero(start)[0]
+    lens = np.diff(np.append(firsts, P))
+    m_s = mask.cpu().numpy()[lay.order.cpu().numpy()]
+    masked = np.add.reduceat(m_s.astype(np.int64), firsts) if P else np.zeros(0, np.int64)
+    pad = ~valid.cpu().numpy()[lay.order.cpu().numpy()]
+    tail = int(P - (np.nonzero(~pad)[0][-1] + 1)) if (~pad).any() else P
+    return dict(P=P, segments=int(firsts.shape[0]), longest_segment=int(lens.max(initial=0)),
+                padding_tail=tail, longest_masked_run=int(masked.max(initial=0)),
+                masked=int(m_s.sum()))
+
+
 def k5_case(dev, fx):
+    """K5 through each layout's ``SegScanPlan`` at the evictive world's
+    victim panel (each layout timed, with its segments, longest segment,
+    padding tail and longest masked run), the functional ``seg_cumsum``
+    form (no order, every row masked), and synthetic layouts: one segment
+    of all P, a mask with no row, every row masked; each held with
+    torch.equal against the plain version; one device event and no
+    allocation a scan."""
+    from kube_arbitrator_tpu_torch.ops import common
     from kube_arbitrator_tpu_torch.ops.kernels import seg_scan as k5
 
     view = fx.view
     P, R = view.resreq.shape
     rng = np.random.default_rng(5)
     mask = view.running(fx.state.task_status) & torch.from_numpy(rng.random(P) < 0.7).to(dev)
+    m = int(mask.sum())
     err = 0.0
+
+    def held(what, got, order, seg_start, vals, msk):
+        nonlocal err
+        want = k5.seg_scan_plain(msk.cpu(), None if order is None else order.cpu(),
+                                 seg_start.cpu(), vals.cpu())
+        for a, w in zip(got, want):
+            err = max(err, max_err(a, w))
+            expect(torch.equal(a.cpu(), w), f"K5 {what} differs from its plain version")
+
+    # mask, order, seg_start, the masked rows' values read once; rank and
+    # cum written once; one add a masked row and column
+    b, by = bound_ms(P * (1 + 4 + 1) + m * 4 * R + P * (4 + 4 * R), m * (R + 1))
+    layouts = {}
     for name in ("by_job", "by_queue", "by_node_queue"):
         lay = getattr(view.layouts, name)
-        got = lay.rank_and_cum(mask)
-        want = k5.seg_scan_plain(mask.cpu(), lay.order.cpu(), lay.seg_start.cpu(), lay.res_sorted.cpu())
-        for a, b in zip(got, want):
-            err = max(err, max_err(a, b))
-            expect(torch.equal(a.cpu(), b), f"K5 {name} differs from its plain version")
+        plan = lay.plan
+        held(name, lay.rank_and_cum(mask), lay.order, lay.seg_start, lay.res_sorted, mask)
+        per_call = device_events_per_call(lambda: plan(mask))
+        expect(per_call == 1.0, f"K5 {name}: {per_call} device events a scan, not 1")
+        allocs = allocations_per_call(lambda: plan(mask))
+        expect(allocs == 0, f"K5 {name}: {allocs} allocations a scan")
+        layouts[name] = dict(layout=name, **k5_layout_stats(lay, mask, view.valid),
+                             **kernel_times(lambda plan=plan: plan(mask)),
+                             events_per_call=per_call, bound_ms=b, bound_by=by)
+        print(f"kernel seg_scan layout {json.dumps(layouts[name])}", flush=True)
     lay = view.layouts.by_node_queue
-    t = kernel_times(lambda: lay.rank_and_cum(mask))
+    t0 = time.perf_counter()
+    bind = k5.SegScanPlan(lay.order, lay.seg_start, lay.res_sorted)
+    torch.cuda.synchronize()
+    bind_ms = (time.perf_counter() - t0) * 1e3
+    expect(torch.equal(bind.base_pos.cpu(), k5.segment_table_plain(lay.seg_start.cpu())[1]),
+           "K5's bound segment bases differ from the plain table")
+    # the functional seg_cumsum form (the canon seed's): no order, every row
+    # masked, a plan of its own (a bind and a scan)
+    x = view.resreq
+    got = common.seg_cumsum(x, lay.seg_start)
+    want = k5.seg_scan_plain(torch.ones(P, dtype=torch.bool), None, lay.seg_start.cpu(), x.cpu())[1]
+    err = max(err, max_err(got, want))
+    expect(torch.equal(got.cpu(), want), "K5 seg_cumsum differs from its plain version")
+    forms = [dict(form="seg_cumsum (bind + scan)",
+                  **kernel_times(lambda: common.seg_cumsum(x, lay.seg_start)))]
+    # synthetic layouts: one segment of all P, no masked row, every row
+    # masked, fractional values whose serial and tree sums differ
+    frac = torch.from_numpy((rng.standard_normal((P, R)) * 1e3).astype(np.float32)).to(dev)
+    one_seg = torch.zeros(P, dtype=torch.bool, device=dev)
+    order = lay.order
+    for what, seg, msk in (("one segment", one_seg, mask),
+                           ("no masked row", lay.seg_start, torch.zeros_like(mask)),
+                           ("every row masked", lay.seg_start, torch.ones_like(mask))):
+        plan = k5.SegScanPlan(order, seg, frac)
+        got = plan(msk)
+        held(what, got, order, seg, frac, msk)
+        if what == "one segment":
+            forms.append(dict(form=f"one segment of {P}, {m} masked", **kernel_times(lambda: plan(msk))))
+    t = kernel_times(lambda: lay.plan(mask))
     plain_ms = cuda_ms(lambda: k5.seg_scan_plain(mask, lay.order, lay.seg_start, lay.res_sorted), reps=3)
-    # mask, order, seg_start and resreq read once; rank and cum written once
-    b, by = bound_ms(P * (1 + 4 + 1 + 4 * R) + P * (4 + 4 * R), P * (R + 1))
     return dict(name="seg_scan", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None,
-                shape=f"panel P={P}, R={R} (by_node_queue; by_job and by_queue held too)")
+                bound_by=by, library_ms=None, bind_ms=bind_ms,
+                variants=list(layouts.values()) + forms,
+                shape=f"panel P={P}, R={R}, {m} masked (by_node_queue; by_job and by_queue "
+                      f"timed too)")
 
 
 def k6_inputs(fx):
@@ -2856,12 +3036,23 @@ def main(kernels_only: bool = False) -> int:
     t0 = time.perf_counter()
     counts = peak = None
     by_variant = {}  # world -> launches by variant of K1 and K19
+    from kube_arbitrator_tpu_torch.ops import allocate as allocate_mod
+    select_turns, selections = allocate_mod.select_turns, [0]
+
+    def counting_select(*a, **kw):  # one call per turn selection
+        selections[0] += 1
+        return select_turns(*a, **kw)
+
     for i, w in enumerate(WORLDS):
         torch.cuda.synchronize()
         if i == 0:
             kernels.reset_counts()
             torch.cuda.reset_peak_memory_stats()
-        g = decide_world(device=dev, **FULL, **w)
+            allocate_mod.select_turns = counting_select
+        try:
+            g = decide_world(device=dev, **FULL, **w)
+        finally:
+            allocate_mod.select_turns = select_turns
         if i == 0:
             counts = kernels.counts()
             by_variant["allocate"] = kernels.variant_counts()
@@ -2882,6 +3073,10 @@ def main(kernels_only: bool = False) -> int:
           f"{peak / 2**30:.2f} GiB", flush=True)
     for k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum", "queue_order"):
         expect(counts[k] > 0, f"kernel {k} was not launched on the allocate path")
+    print(f"K2 on the allocate path (world seed 42): {counts['lex_argmin']} launches over "
+          f"{selections[0]} turn selections", flush=True)
+    expect(counts["lex_argmin"] == selections[0],
+           f"K2: {counts['lex_argmin']} launches over {selections[0]} selections, not one each")
     print(f"launches by variant on the allocate path (world seed 42): {by_variant['allocate']}",
           flush=True)
     expect(by_variant["allocate"]["stable_sort"]["count"] > 0,
@@ -2920,6 +3115,9 @@ def main(kernels_only: bool = False) -> int:
           f"memory {epeak / 2**30:.2f} GiB", flush=True)
     for k in SLICE2_KERNELS + ("queue_order", "stable_sort"):
         expect(evict_counts[k] > 0, f"kernel {k} was not launched on the evictive path")
+    print(f"K5 and K2 on the evictive path (seed 42): seg_scan {evict_counts['seg_scan']} "
+          f"{by_variant['evictive']['seg_scan']}, lex_argmin {evict_counts['lex_argmin']}",
+          flush=True)
     print(f"launches by variant on the evictive path (seed 42): {by_variant['evictive']}",
           flush=True)
     expect(by_variant["evictive"]["stable_sort"]["tiles"] > 0,
@@ -3015,6 +3213,9 @@ def main(kernels_only: bool = False) -> int:
     print(f"launches on the pod-affinity path (50k x 5k, seed 42): {pa_counts}; "
           f"_reclaim_fast turns {fast_turns[0]}", flush=True)
     print(f"launches on the binpack path (100k x 10k, seed 42): {order_counts}", flush=True)
+    print(f"K5 and K2 on the pod-affinity path (seed 42): seg_scan {pa_counts['seg_scan']} "
+          f"{by_variant['pa_evict']['seg_scan']}, lex_argmin {pa_counts['lex_argmin']}; on the "
+          f"binpack path: lex_argmin {order_counts['lex_argmin']}", flush=True)
     print(f"launches by variant on the pod-affinity path (seed 42): {by_variant['pa_evict']}",
           flush=True)
     expect(by_variant["pa_evict"]["stable_sort"]["tiles"] > 0,
@@ -3096,6 +3297,8 @@ def main(kernels_only: bool = False) -> int:
               f"q{cw['queues']} seed 42 (card {gs['cycle_ms']:.0f} ms, CPU {c['cycle_ms']:.0f} ms)",
               flush=True)
     print(f"launches on the optimistic reclaim path (q512_evict, seed 42): {opt_counts}", flush=True)
+    print(f"K5 and K2 on the optimistic reclaim path (q512_evict, seed 42): seg_scan "
+          f"{opt_counts['seg_scan']}, lex_argmin {opt_counts['lex_argmin']}", flush=True)
     for k in ("round_products", "union_fit", "window_gate", "stable_compact", "canon_commit",
               "lex_argmin", "segment_sum", "queue_order"):
         expect(opt_counts[k] > 0, f"kernel {k} was not launched on the optimistic reclaim path")
@@ -3224,7 +3427,7 @@ def main(kernels_only: bool = False) -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             g = decide_world(device=dev, actions=EVICT_ACTIONS, seed=42, **kw, **EVICT_FULL)
             torch.cuda.synchronize()
-        ops = dict.fromkeys(("aten::sort", "aten::argsort", "aten::searchsorted"), 0)
+        ops = dict.fromkeys(("aten::sort", "aten::argsort", "aten::searchsorted", "aten::cummax"), 0)
         for e in prof.key_averages():
             if e.key in ops:
                 ops[e.key] = e.count
@@ -3233,8 +3436,8 @@ def main(kernels_only: bool = False) -> int:
         n_kern = sum(1 for e in dev_ev if not e.name.startswith(("Memcpy", "Memset")))
         print(f"profiled {name} cycle (50k x 5k, seed 42): {ops}, {n_kern} device kernels "
               f"({len(dev_ev)} device events), profiled cycle {g['cycle_ms']:.1f} ms", flush=True)
-        expect(not any(ops.values()), f"the {name} cycle ran a library sort or search: {ops}")
-    print(f"phase 9 (profiled, no library sort or search) {time.perf_counter() - t0:.1f} s",
+        expect(not any(ops.values()), f"the {name} cycle ran a library sort, search or scan: {ops}")
+    print(f"phase 9 (profiled, no library sort, search or cummax) {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     replaces = {

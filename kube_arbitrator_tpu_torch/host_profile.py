@@ -12,7 +12,10 @@ Prints one JSON line per world: the cycle's wall time under the
 profiler, and for each wrapper module named in ``--wrappers``
 (``ops/kernels/<name>.py``; ``queue_perm``: that function of
 ops/allocate.py, whose cost includes the queue keys' build;
-``safe_share``: that function of ops/common.py) its
+``safe_share``: that function of ops/common.py; ``select_turns``:
+that function of ops/allocate.py and ``_pops`` of ops/preempt.py, the
+turn picks with their masks and keys; ``rank_and_cum`` of ops/preempt.py
+and ``seg_cumsum`` of ops/common.py, K5's callers) its
 functions' calls and cumulative seconds and the callees of those
 functions by cumulative seconds: the host items that cost most.  With
 ``queue_perm`` among the wrappers, the row also gives the device kernels
@@ -52,7 +55,11 @@ from kube_arbitrator_tpu_torch.cli import decide_world
 world, wrappers, seed = json.loads(sys.argv[1]), sys.argv[2].split(","), int(sys.argv[3])
 # a wrapper outside ops/kernels/: (file, function)
 OTHER = {"queue_perm": ("ops/allocate.py", "queue_perm"),
-         "safe_share": ("ops/common.py", "safe_share")}
+         "safe_share": ("ops/common.py", "safe_share"),
+         "select_turns": ("ops/allocate.py", "select_turns"),
+         "_pops": ("ops/preempt.py", "_pops"),
+         "rank_and_cum": ("ops/preempt.py", "rank_and_cum"),
+         "seg_cumsum": ("ops/common.py", "seg_cumsum")}
 decide_world(device="cuda", seed=seed - 1, **world)
 torch.cuda.synchronize()
 prof = cProfile.Profile()

@@ -7,8 +7,8 @@ in queue order.  Two paths, chosen as the reference chooses them
 * batched, deferred decode (first-fit node order, no pod affinity,
   within DEFER_MAX_CELLS [G, N] cells): a round walks its queues in
   chunks of TURN_CHUNK turns; the chunk's (job, group, budget) selections
-  are computed together (two K2 launches plus plain torch for the
-  budgets), K1 runs the chunk's node admission slot by slot, and
+  are computed together (one K2 launch, the job and group picks, plus
+  plain torch for the budgets), K1 runs the chunk's node admission slot by slot, and
   placements accumulate as per-(group, node) counts that K3 decodes into
   task placements once per action.  With pruning, K16 evaluates the
   feasibility cells and compacts each class's nodes into the panel
@@ -16,8 +16,8 @@ in queue order.  Two paths, chosen as the reference chooses them
   round each, and the panel's widest class once per action.
 * immediate (binpack / spread node order, pod affinity, larger packs,
   or ``turn_batch=False``, the reference's parity path): one turn per
-  active queue, each deciding its tasks at once — selection (two K2
-  launches), the group's pod-affinity fit (K11), per-node capacity and
+  active queue, each deciding its tasks at once — selection (one K2
+  launch), the group's pod-affinity fit (K11), per-node capacity and
   the packing order (K9), seed and domain cap (K12), fill, node
   writeback and task decode (K10).  Host reads: one per round (the
   progress flag and the active-queue count together); a turn reads
@@ -35,15 +35,16 @@ from typing import Optional, Tuple
 import torch
 
 from ..cache.snapshot import SnapshotTensors, pa_enabled
-from .common import BIG, EPS, ceil_div_pos, fair, lex_argmin, plugin_on, safe_share, to_i32
+from .common import BIG, EPS, ceil_div_pos, fair, plugin_on, safe_share, to_i32
 from .fairness import drf_shares, overused
 from .kernels.admit_chunk import AdmitPlan
 from .kernels.decode_deferred import decode_deferred
+from .kernels.lex_argmin import TurnPickPlan
 from .kernels.queue_order import QueueOrderPlan, queue_order
 from .kernels.stable_compact import FeasCells, stable_compact
 from .kernels.turn_caps import TurnCapsPlan
 from .kernels.turn_fill import TurnFillPlan
-from .ordering import Tiers, group_order_keys, job_order_keys, node_order_policy
+from .ordering import Tiers, node_order_policy
 from .podaffinity import PaFitPlan, PaShapePlan
 
 # Eviction-phase codes carried by AllocState.evict_phase (the reference's
@@ -300,36 +301,32 @@ def _compact_rows(feas, NC: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _selection_shared(st, sess, state, tiers, best_effort_pass):
     """Queue-independent arrays a turn's selection reads, from the
-    round-start aggregates."""
+    round-start aggregates (K2 builds the keys from ``job_ready`` and
+    ``job_share``)."""
     grp_remaining = st.group_size - state.group_placed
     grp_elig = group_live_mask(st, sess, state.group_placed, state.group_unfit, best_effort_pass)
     job_has_pending = _scatter_any(st.group_job, grp_elig, st.num_jobs)
     job_ready = state.job_ready_cnt >= sess.min_avail
     job_share = drf_shares(state.job_alloc, sess.drf_total)
-    jkeys = job_order_keys(tiers, st.job_priority, job_ready, st.job_creation_rank, job_share)
-    gkeys = group_order_keys(tiers, st.group_priority, st.group_uid_rank)
-    return grp_remaining, grp_elig, job_has_pending, job_ready, job_share, jkeys, gkeys
+    return grp_remaining, grp_elig, job_has_pending, job_ready, job_share
 
 
-def select_turns(st, sess, state, tiers, s_max, mode, shared, q_ids, q_ok):
+def select_turns(st, sess, state, tiers, s_max, mode, shared, q_ids, q_ok, pick=None):
     """Every slot's (job, group, has_grp, req, budget) at once: the
     reference's vmapped ``_select_turn`` with the slot axis written out.
     ``mode`` is one of :data:`SELECT_MODES`; ``q_ids`` i64[S], ``q_ok``
-    bool[S].  The two argmins go through K2; backfill grants up to
-    ``s_max`` per turn."""
+    bool[S].  Both picks are one K2 launch through ``pick``, the action's
+    :class:`TurnPickPlan` (None: a plan of its own); its j, g and job
+    mask are plan-owned, so a selection is consumed before the plan's
+    next selection of as many rows.  Backfill grants up to ``s_max`` per
+    turn."""
     if mode not in SELECT_MODES:
         raise ValueError(f"select mode {mode!r}; one of {SELECT_MODES}")
-    (grp_remaining, grp_elig, job_has_pending, job_ready, job_share, jkeys, gkeys) = shared
-    jmask = (
-        (st.job_queue[None, :] == q_ids[:, None])
-        & (job_has_pending & st.job_valid)[None, :]
-        & q_ok[:, None]
-    )
-    j, has_job = lex_argmin(jkeys, jmask)
-    j = j.to(torch.int64)
-    gmask = (st.group_job[None, :] == j[:, None]) & grp_elig[None, :] & has_job[:, None]
-    g, has_grp = lex_argmin(gkeys, gmask)
-    g = g.to(torch.int64)
+    grp_remaining, grp_elig, job_has_pending, job_ready, job_share = shared
+    if pick is None:
+        pick = TurnPickPlan(st, tiers)
+    j, has_job, g, has_grp, jmask = pick.select(q_ids, q_ok, job_has_pending, job_ready,
+                                                job_share, grp_elig, jmask=mode != "backfill")
     req = st.group_resreq[g]
     if mode == "backfill":
         budget = torch.full_like(g, s_max, dtype=torch.int32)
@@ -346,8 +343,10 @@ def select_turns(st, sess, state, tiers, s_max, mode, shared, q_ids, q_ok):
 TURN_CHUNK = 8  # queue turns selected per batched chunk
 
 
-def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, admit):
-    """One round: chunks of TURN_CHUNK turns, each selected together and
+def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, admit,
+                   pick=None):
+    """One round: chunks of TURN_CHUNK turns, each selected together (K2,
+    ``pick``, the action's TurnPickPlan; None: one for this round) and
     admitted by K1 (``admit``, the action's AdmitPlan over the node state
     and the [G, N] counts, which it updates in place).  Bit-exact with
     the sequential turn loop because a turn's selection reads only rows
@@ -355,6 +354,8 @@ def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, tr
     Q = st.num_queues
     S = TURN_CHUNK
     dev = st.device
+    if pick is None:
+        pick = TurnPickPlan(st, tiers)
     shared = _selection_shared(st, sess, state, tiers, best_effort_pass)
     if best_effort_pass:
         q_served = st.queue_valid
@@ -370,7 +371,7 @@ def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, tr
         j_sel, g_sel, has_grp, req_s, budget_s = select_turns(
             st, sess, state, tiers, s_max, "backfill" if best_effort_pass else "allocate",
             shared, q_idx,
-            q_served[q_idx] & (idx < trip),
+            q_served[q_idx] & (idx < trip), pick,
         )
         if preds_on:
             ports_s = st.group_ports[g_sel]
@@ -400,9 +401,10 @@ def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, tr
     return (gn_a, gn_p, any_a, any_p)
 
 
-def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order):
+def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order, pick):
     """One round over the ACTIVE queues in queue order (inactive ones
-    sort last and are not visited); ``order`` is the action's K17 plan."""
+    sort last and are not visited); ``order`` is the action's K17 plan,
+    ``pick`` its K2 plan."""
     grp_live = group_live_mask(st, sess, state.group_placed, state.group_unfit, best_effort_pass)
     q_active = st.queue_valid & queue_has_live_job(st, grp_live)
     if not best_effort_pass:
@@ -410,7 +412,8 @@ def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order):
     nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank,
                           order)
     trip = max(int(nq), 1)
-    gn = _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, admit)
+    gn = _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, admit,
+                        pick)
     state.rounds += 1
     return gn
 
@@ -434,14 +437,14 @@ def _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on):
 
 
 def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, preds_on, pa_on,
-                   plans=None):
+                   plans=None, pick=None):
     """One queue's turn on the immediate path, in place (the reference's
     _process_queue, :553-706): selection from the current aggregates,
     then K11 / K9 / K12 / K10 and the aggregate commit.  ``q`` is i64[1];
     a padding or drained queue's turn places nothing.  ``plans`` is the
     action's (K9, K11, K12, K10 plans; K11's and K12's None without pod
     affinity) from :func:`_turn_plans`; None builds them for this turn
-    alone."""
+    alone.  ``pick`` is the action's K2 plan (None: one for this turn)."""
     if plans is None:
         plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
     caps_plan, fit_plan, shape_plan, fill_plan = plans
@@ -452,7 +455,7 @@ def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, p
     shared = _selection_shared(st, sess, state, tiers, best_effort_pass)
     j, g, has_grp, req, budget = select_turns(
         st, sess, state, tiers, s_max, "backfill" if best_effort_pass else "allocate",
-        shared, q, q_ok,
+        shared, q, q_ok, pick,
     )
     req1 = req[0].contiguous()
     fit = None if fit_plan is None else fit_plan(g, state.task_status, state.task_node)
@@ -481,9 +484,11 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
     policy = node_order_policy(tiers)
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     pa_on = preds_on and pa_enabled(st)
-    # K9's, K11's, K12's, K10's and K17's launches over this action: checked and bound once
+    # K9's, K11's, K12's, K10's, K17's and K2's launches over this action: checked and
+    # bound once
     plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
     order = QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
+    pick = TurnPickPlan(st, tiers)
     while True:
         grp_live = group_live_mask(st, sess, state.group_placed, state.group_unfit,
                                    best_effort_pass)
@@ -498,7 +503,7 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
         state.progress = torch.zeros_like(state.progress)
         for qi in range(max(trip, 1)):
             _process_queue(perm[qi:qi + 1], st, sess, state, tiers, s_max, best_effort_pass,
-                           policy, preds_on, pa_on, plans)
+                           policy, preds_on, pa_on, plans, pick)
         state.rounds += 1
 
 
@@ -573,14 +578,15 @@ def allocate_action(
     gn_p = None if best_effort_pass else torch.zeros((G, N), dtype=torch.int32, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     gn = (gn_a, gn_p, no, no)
-    # K1's and K17's launches over this action: checked and bound once
+    # K1's, K17's and K2's launches over this action: checked and bound once
     admit = AdmitPlan(st, state.node_idle, state.node_releasing, state.node_ports,
                       state.node_num_tasks, gn_a, gn_p, prune_idx, s_max, best_effort_pass,
                       plugin_on(tiers, "predicates", "predicate_disabled"), TURN_CHUNK)
     order = QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
+    pick = TurnPickPlan(st, tiers)
     while state.rounds < max_rounds and bool(state.progress):
         state.progress = torch.zeros((), dtype=torch.bool, device=dev)
-        gn = _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order)
+        gn = _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order, pick)
     gn_a, gn_p, any_a, any_p = gn
     if bool(any_a | any_p):
         _decode_deferred(st, state, entry_placed, gn_a, gn_p if bool(any_p) else None)

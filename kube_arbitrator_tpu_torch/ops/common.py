@@ -8,13 +8,12 @@ that it is added in one order on the CPU and on the card.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
 from ..api.resource import NUM_FAIR_RESOURCES
 from ..cache.snapshot import DEVICE_EPSILON
-from .kernels.lex_argmin import lex_argmin as _lex_argmin_k2
 from .kernels.admit_chunk import to_i32
 from .kernels.ordered_scan import ordered_scan
 from .kernels.seg_scan import seg_scan
@@ -27,7 +26,7 @@ NUM_FAIR = NUM_FAIR_RESOURCES
 
 __all__ = [
     "BIG", "EPS", "FLT_MIN", "NUM_FAIR", "ceil_div_pos", "dominant_share", "fair", "fits", "ftz",
-    "lex_argmin", "lexsort", "mm_cumsum", "ordered_sum", "plugin_on", "safe_share",
+    "lexsort", "mm_cumsum", "ordered_sum", "plugin_on", "safe_share",
     "seg_cumsum", "segment_sum", "to_i32",
 ]
 
@@ -74,18 +73,6 @@ def safe_share(alloc: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
 def dominant_share(alloc: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     """max over FAIR resources of share(alloc_r, total_r)."""
     return safe_share(fair(alloc), fair(total)).amax(dim=-1)
-
-
-def lex_argmin(keys: Sequence[torch.Tensor], mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Index of the lexicographically smallest entry among ``mask``
-    (ties -> first index; 0 when nothing is masked) and any(mask).
-    ``keys`` are [M] columns shared by every row of ``mask`` ([M] or
-    [S, M]); each is cast to f32 as the reference does.  Goes through K2."""
-    k = torch.stack([c.to(torch.float32) for c in keys])
-    if mask.dim() == 1:
-        idx, any_ = _lex_argmin_k2(k, mask[None, :])
-        return idx[0], any_[0]
-    return _lex_argmin_k2(k, mask)
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:

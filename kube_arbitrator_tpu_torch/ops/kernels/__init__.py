@@ -2,10 +2,10 @@
 PyTorch version and with a launch counter:
 
 * K1 :func:`admit_chunk.admit_chunk`         — ops/allocate.py slot body
-* K2 :func:`lex_argmin.lex_argmin`           — ops/common.lex_argmin
+* K2 :class:`lex_argmin.TurnPickPlan`        — a turn selection's job and group picks
 * K3 :func:`decode_deferred.decode_deferred` — ops/allocate._decode_deferred
 * K4 :func:`segment_sum.segment_sum`         — slot-order segment sums
-* K5 :func:`seg_scan.seg_scan`               — ops/preempt victim-layout scans
+* K5 :func:`seg_scan.seg_scan`               — ops/preempt victim-layout scans (SegScanPlan)
 * K6 :func:`claim_nodes.claim_nodes`         — ops/preempt._apply_claim node half
 * K7 :func:`canon_pick.canon_pick`           — reclaim turn: per-node sums, first fit (CanonPickPlan)
 * K8 :func:`canon_commit.canon_commit`       — reclaim turn: window commit
@@ -31,10 +31,10 @@ from . import (
     segment_sum, stable_compact, stable_sort, turn_caps, turn_fill, union_fit, window_gate,
 )
 
-# kernel name -> wrapper (each wrapper carries its ``launches`` count)
+# kernel name -> wrapper or plan class (each carries its ``launches`` count)
 KERNELS = {
     "admit_chunk": admit_chunk.admit_chunk,
-    "lex_argmin": lex_argmin.lex_argmin,
+    "lex_argmin": lex_argmin.TurnPickPlan,
     "decode_deferred": decode_deferred.decode_deferred,
     "segment_sum": segment_sum.segment_sum,
     "seg_scan": seg_scan.seg_scan,
@@ -69,7 +69,7 @@ def counts() -> dict:
 
 def variant_counts() -> dict:
     """Launches by variant of the kernels that have more than one (K1's
-    panel / full width, one CTA / cluster; K9's first fit, one-CTA and
+    panel / full width, one CTA / cluster; K5's scans and plan binds; K9's first fit, one-CTA and
     tiled sort, by call; K10's by_group / walk routes and its plans'
     index builds; K19's one-CTA / tiled sort, counting segment order, run
     starts and lookups)."""

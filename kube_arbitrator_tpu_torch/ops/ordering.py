@@ -2,7 +2,7 @@
 kube_arbitrator_tpu/ops/ordering.py:30-142).
 
 Each enabled plugin contributes key columns; ordering is a lexicographic
-argmin over the stacked columns (ops/common.lex_argmin):
+argmin over the stacked columns (K2, ops/kernels/lex_argmin.py):
 
 * priority  — job: -priority; task: -pod priority
 * gang      — [ready? 1 : 0], then [ready? 0 : creation_rank + 1]
@@ -65,6 +65,26 @@ DEFAULT_TIERS: Tiers = (
 DEFAULT_ACTIONS: Tuple[str, ...] = ("allocate", "backfill")
 
 
+def job_order_key_spec(tiers: Tiers) -> Tuple[str, ...]:
+    """The job key stack's columns in order, by kind: ``neg_priority``
+    (-priority), ``ready`` ([ready? 1 : 0]), ``not_ready_rank`` ([ready?
+    0 : creation_rank + 1]), ``share`` (the DRF share) and ``rank`` (the
+    creation rank, always last).  K2 builds the same columns from it."""
+    kinds: List[str] = []
+    for tier in tiers:
+        for p in tier.plugins:
+            if p.job_order_disabled:
+                continue
+            if p.name == "priority":
+                kinds.append("neg_priority")
+            elif p.name == "gang":
+                kinds += ["ready", "not_ready_rank"]
+            elif p.name == "drf":
+                kinds.append("share")
+    kinds.append("rank")
+    return tuple(kinds)
+
+
 def job_order_keys(
     tiers: Tiers,
     job_priority: torch.Tensor,
@@ -72,21 +92,15 @@ def job_order_keys(
     job_creation_rank: torch.Tensor,
     job_share: torch.Tensor,
 ) -> List[torch.Tensor]:
-    keys: List[torch.Tensor] = []
     f32 = torch.float32
-    for tier in tiers:
-        for p in tier.plugins:
-            if p.job_order_disabled:
-                continue
-            if p.name == "priority":
-                keys.append(-job_priority.to(f32))
-            elif p.name == "gang":
-                keys.append(job_ready.to(f32))
-                keys.append(torch.where(job_ready, 0.0, job_creation_rank.to(f32) + 1.0))
-            elif p.name == "drf":
-                keys.append(job_share)
-    keys.append(job_creation_rank.to(f32))
-    return keys
+    make = {
+        "neg_priority": lambda: -job_priority.to(f32),
+        "ready": lambda: job_ready.to(f32),
+        "not_ready_rank": lambda: torch.where(job_ready, 0.0, job_creation_rank.to(f32) + 1.0),
+        "share": lambda: job_share,
+        "rank": lambda: job_creation_rank.to(f32),
+    }
+    return [make[k]() for k in job_order_key_spec(tiers)]
 
 
 def queue_share_key_count(tiers: Tiers) -> int:
@@ -132,13 +146,17 @@ def node_order_policy(tiers: Tiers) -> str:
     return "first_fit"
 
 
+def group_order_key_spec(tiers: Tiers) -> Tuple[str, ...]:
+    """The group (task) key stack's columns in order: ``neg_priority``
+    per enabled priority plugin, then ``uid_rank``."""
+    kinds = ["neg_priority" for tier in tiers for p in tier.plugins
+             if p.name == "priority" and not p.task_order_disabled]
+    return tuple(kinds + ["uid_rank"])
+
+
 def group_order_keys(
     tiers: Tiers, group_priority: torch.Tensor, group_uid_rank: torch.Tensor
 ) -> List[torch.Tensor]:
-    keys: List[torch.Tensor] = []
-    for tier in tiers:
-        for p in tier.plugins:
-            if p.name == "priority" and not p.task_order_disabled:
-                keys.append(-group_priority.to(torch.float32))
-    keys.append(group_uid_rank.to(torch.float32))
-    return keys
+    f32 = torch.float32
+    return [-group_priority.to(f32) if k == "neg_priority" else group_uid_rank.to(f32)
+            for k in group_order_key_spec(tiers)]

@@ -42,7 +42,7 @@ reads nothing on the host.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
+from functools import cached_property, partial
 from typing import Optional, Tuple
 
 import torch
@@ -66,15 +66,16 @@ from .allocate import (
     select_turns,
 )
 from .common import (
-    BIG, EPS, fair, lex_argmin, lexsort, mm_cumsum, plugin_on, safe_share, seg_cumsum,
+    BIG, EPS, fair, lexsort, mm_cumsum, plugin_on, safe_share, seg_cumsum,
 )
 from .fairness import drf_shares
 from .kernels.canon_commit import _scatter_set, canon_commit
 from .kernels.canon_pick import CanonPickPlan, canon_pick
 from .kernels.claim_nodes import claim_nodes
+from .kernels.lex_argmin import TurnPickPlan
 from .kernels.queue_order import QueueOrderPlan
 from .kernels.round_products import RoundProductsPlan
-from .kernels.seg_scan import seg_scan
+from .kernels.seg_scan import SegScanPlan
 from .kernels.segment_sum import segment_order, segment_sum
 from .kernels.stable_compact import stable_compact
 from .kernels.stable_sort import sorted_lookup, stable_sort
@@ -82,7 +83,7 @@ from .kernels.union_fit import union_fit
 from .kernels.window_gate import (
     CONFLICTS, GATED, ROUND_DONE, START, TRIP, new_gate, window_gate,
 )
-from .ordering import Tiers, group_order_keys, job_order_keys
+from .ordering import Tiers
 from .podaffinity import PaFitPlan, PaShapePlan
 
 RUNNING = int(TaskStatus.RUNNING)
@@ -126,11 +127,20 @@ class SortLayout:
         return cls(order=order.to(torch.int32), seg_start=seg_start,
                    res_sorted=resreq[order].contiguous())
 
+    @cached_property
+    def plan(self) -> SegScanPlan:
+        """K5's plan over this layout, bound at its first use (one launch
+        derives the segment table); its outputs are overwritten by its
+        next scan."""
+        return SegScanPlan(self.order, self.seg_start, self.res_sorted)
+
     def rank_and_cum(self, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per slot: the exclusive in-segment rank among ``mask`` (i32)
-        and the inclusive cumulative resreq of ``mask`` (f32), through K5.
-        Segment-local: a slot's values depend on its own segment only."""
-        return seg_scan(mask, self.order, self.seg_start, self.res_sorted)
+        and the inclusive cumulative resreq of ``mask`` (f32), one K5
+        launch.  Segment-local: a slot's values depend on its own segment
+        only.  Both are the layout plan's own tensors, overwritten by the
+        layout's next scan: the caller consumes them first."""
+        return self.plan(mask)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,15 +359,16 @@ def _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, re
     state.progress = state.progress | (placed_total > 0)[0] | short[0]
 
 
-def _claim_turn(q, st, sess, state, tiers, s_max, mode, view, pa_plan=None) -> None:
-    """One queue turn of a preempt phase, sequentially: selection, the
-    verdict over this queue's scope, then the shared claim tail
-    (``pa_plan`` as there)."""
+def _claim_turn(q, st, sess, state, tiers, s_max, mode, view, pa_plan=None, pick=None) -> None:
+    """One queue turn of a preempt phase, sequentially: selection (K2,
+    through the phase's ``pick`` plan), the verdict over this queue's
+    scope, then the shared claim tail (``pa_plan`` as there)."""
     P = view.idx.shape[0]
     q_ok = st.queue_valid[q]  # preempt has no overused gate
     shared = _selection_shared(st, sess, state, tiers, None)
     grp_remaining, job_ready = shared[0], shared[3]
-    j, g, has_grp, req, budget = select_turns(st, sess, state, tiers, s_max, mode, shared, q, q_ok)
+    j, g, has_grp, req, budget = select_turns(st, sess, state, tiers, s_max, mode, shared, q, q_ok,
+                                              pick)
     was_ready = job_ready[j]
     need = (sess.min_avail[j] - state.job_ready_cnt[j]).clamp(min=0)
     budget = _phase_budget(mode, budget, was_ready, need, has_grp, grp_remaining[g], s_max)
@@ -423,6 +434,7 @@ def _rounds(st, sess, state, tiers, s_max, max_rounds, mode, view) -> AllocState
     _start_rounds(state)
     pa_plan = _pa_plan(st, tiers)
     order = _order_plan(st, sess, tiers)
+    pick = TurnPickPlan(st, tiers)  # K2, bound once
     while True:
         q_active = _round_gate(st, sess, state, mode, view)
         nq, perm = _queue_perm(st, sess, state, tiers, q_active, order)
@@ -431,7 +443,7 @@ def _rounds(st, sess, state, tiers, s_max, max_rounds, mode, view) -> AllocState
             return state
         state.progress = torch.zeros_like(state.progress)
         for qi in range(trip):
-            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, pa_plan)
+            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, pa_plan, pick)
         state.rounds += 1
 
 
@@ -465,6 +477,9 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
     qp_s = view.queue.clamp(max=Q - 1).to(i64)
     pa_plan = _pa_plan(st, tiers)
     order = _order_plan(st, sess, tiers)
+    # K2, bound once: the panel's selection is consumed into the round's
+    # carried rows before an overflow turn selects one row
+    pick = TurnPickPlan(st, tiers)
 
     def verdicts_of(s, q_active, j_sel, g_sel, has_grp, req_all, scope_limit):
         p_running = view.running(s.task_status)
@@ -498,7 +513,7 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
         grp_remaining, job_ready = shared[0], shared[3]
         q_panel = perm[:QA]
         jp, gp, hgp, reqp, budp = select_turns(
-            st, sess, state, tiers, s_max, mode, shared, q_panel, q_active[q_panel]
+            st, sess, state, tiers, s_max, mode, shared, q_panel, q_active[q_panel], pick
         )
         wrp = job_ready[jp]
         needp = (sess.min_avail[jp] - state.job_ready_cnt[jp]).clamp(min=0)
@@ -533,7 +548,7 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
                 victims_all & (view.queue == q), node_rank, node_cum, pa_plan,
             )
         for qi in range(QA, trip):  # overflow turns: the full sequential turn
-            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, pa_plan)
+            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, pa_plan, pick)
         state.rounds += 1
         gated_rounds = gated_rounds + gated.to(i64)
         have, placed_prev = True, placed_entry
@@ -742,7 +757,8 @@ def _canon_seed(st, state, ctx) -> _CanonCarry:
 
 
 def _reclaim_shared(st, sess, state, tiers, job_consumed):
-    """Queue-independent pop inputs of one reclaim turn."""
+    """Queue-independent pop inputs of one reclaim turn (K2 builds the
+    keys from ``job_ready`` and ``job_share``)."""
     grp_elig = (
         group_live_mask(st, sess, state.group_placed, None)
         & ~job_consumed[st.group_job.to(torch.int64)]
@@ -750,42 +766,42 @@ def _reclaim_shared(st, sess, state, tiers, job_consumed):
     job_has_pending = _scatter_any(st.group_job, grp_elig, st.num_jobs)
     job_ready = state.job_ready_cnt >= sess.min_avail
     job_share = drf_shares(state.job_alloc, sess.drf_total)
-    jkeys = job_order_keys(tiers, st.job_priority, job_ready, st.job_creation_rank, job_share)
-    gkeys = group_order_keys(tiers, st.group_priority, st.group_uid_rank)
-    return grp_elig, job_has_pending, jkeys, gkeys
+    return grp_elig, job_has_pending, job_ready, job_share
 
 
-def _pops(st, sess, state, shared, q, q_entry):
+def _pick_pops(st, sess, tiers) -> TurnPickPlan:
+    """K2's plan for a reclaim engine call's pops (with the OverusedFn
+    rows against the session's ``deserved``)."""
+    return TurnPickPlan(st, tiers, sess.deserved)
+
+
+def _pops(st, sess, state, tiers, shared, q, q_entry, pick=None):
     """Reclaim pops of the queues ``q`` i64[S] with entry budgets
     ``q_entry`` i32[S]: the OverusedFn row, the job pop over each queue's
-    unconsumed jobs, the group pop (reclaim.go:54-105), both argmins
-    batched through K2.  Returns (j, g, has_grp, req f32[S, R], pop,
-    burn_now)."""
-    grp_elig, job_has_pending, jkeys, gkeys = shared
-    q_over = (fair(sess.deserved[q]) < fair(state.queue_alloc[q]) + EPS).all(dim=-1)
-    active = st.queue_valid[q] & (q_entry > 0)
-    jmask = ((st.job_queue[None, :] == q[:, None]) & (job_has_pending & st.job_valid)[None, :]
-             & (active & ~q_over)[:, None])
-    j, has_job = lex_argmin(jkeys, jmask)
-    pop = active & ~q_over & has_job
-    burn_now = active & (q_over | ~has_job)
-    gmask = (st.group_job[None, :] == j[:, None]) & grp_elig[None, :] & pop[:, None]
-    g, has_grp = lex_argmin(gkeys, gmask)
+    unconsumed jobs, the group pop (reclaim.go:54-105), in one K2 launch
+    through ``pick`` (None: a plan of its own; j, g, has_grp, pop and
+    burn_now are plan-owned, consumed before its next pop of S rows).
+    Returns (j i32, g i32, has_grp, req f32[S, R], pop, burn_now)."""
+    grp_elig, job_has_pending, job_ready, job_share = shared
+    if pick is None:
+        pick = _pick_pops(st, sess, tiers)
+    j, g, has_grp, pop, burn_now = pick.pop(q, q_entry, state.queue_alloc, job_has_pending,
+                                            job_ready, job_share, grp_elig)
     return j, g, has_grp, st.group_resreq[g.to(torch.int64)], pop, burn_now
 
 
-def _reclaim_pop(st, sess, state, tiers, shared, q, q_entry):
+def _reclaim_pop(st, sess, state, tiers, shared, q, q_entry, pick=None):
     """One queue's pop (``q`` i64[1]); ``req`` comes back as f32[R]."""
-    j, g, has_grp, req, pop, burn_now = _pops(st, sess, state, shared, q, q_entry)
+    j, g, has_grp, req, pop, burn_now = _pops(st, sess, state, tiers, shared, q, q_entry, pick)
     return j, g, has_grp, req[0], pop, burn_now
 
 
-def reclaim_select_turns(st, sess, state, tiers, shared, q_ids, q_entries):
+def reclaim_select_turns(st, sess, state, tiers, shared, q_ids, q_entries, pick=None):
     """Every panel row's pop at once (the reference's vmapped
     ``_reclaim_pop``, :2000-2010): ``q_ids`` i64[S], ``q_entries`` i32[Q].
-    One definition with the single-queue pop; the two argmins are one K2
-    launch each over [S, J] and [S, G]."""
-    return _pops(st, sess, state, shared, q_ids, q_entries[q_ids])
+    One definition with the single-queue pop: one K2 launch over the S
+    rows."""
+    return _pops(st, sess, state, tiers, shared, q_ids, q_entries[q_ids], pick)
 
 
 def _canon_round_order(st, sess, tiers, state, carry, order=None):
@@ -833,6 +849,7 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     carry = _canon_seed(st, state, ctx)
     order = _order_plan(st, sess, tiers)  # K17, bound once
     pick_plan = _pick_plan(st, sess, state, ctx, carry, use_gang, use_prop, preds_on)  # K7
+    pops = _pick_pops(st, sess, tiers)  # K2
     i32 = torch.int32
     while True:
         nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
@@ -844,7 +861,7 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
             q = perm[qi:qi + 1]
             shared = _reclaim_shared(st, sess, state, tiers, carry.job_consumed)
             j, g, has_grp, req, pop, burn_now = _reclaim_pop(
-                st, sess, state, tiers, shared, q, carry.q_entries[q]
+                st, sess, state, tiers, shared, q, carry.q_entries[q], pops
             )
             pick = pick_plan(q, g, has_grp, pop, req)
             # K8 reads i32 ordinals: the turn's last casts
@@ -889,7 +906,7 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
     to the canon walk.
 
     Per round: every panel queue's pop from round-start state (one K2
-    launch pair over [RP, J] and [RP, G]) and the round products (K13).
+    launch over RP rows) and the round products (K13).
     Per turn, in the round's queue order: the products refresh when the
     previous turn claimed (K13 reads K8's claimed bit on the device and
     returns at once otherwise); the turn takes its round-start pop until
@@ -911,6 +928,9 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
     carry = _canon_seed(st, state, ctx)
     products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
     order = _order_plan(st, sess, tiers)  # K17, bound once
+    # K2: the round's panel pops stay live while the turns pop, so each
+    # has a plan of its own
+    panel_pops, live_pops = _pick_pops(st, sess, tiers), _pick_pops(st, sess, tiers)
     prods = products.out
     dirty = torch.zeros(1, dtype=torch.bool, device=dev)        # the last turn claimed
     claimed_any = torch.zeros(1, dtype=torch.bool, device=dev)  # a turn of this round claimed
@@ -924,7 +944,7 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
         trip = max(nq_h, 1)
         panel = reclaim_select_turns(
             st, sess, state, tiers, _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
-            perm[:RP], carry.q_entries,
+            perm[:RP], carry.q_entries, panel_pops,
         )
         products()
         dirty.zero_()
@@ -934,7 +954,7 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
             q = perm[qi:qi + 1]
             live = _reclaim_pop(st, sess, state, tiers,
                                 _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
-                                q, carry.q_entries[q])
+                                q, carry.q_entries[q], live_pops)
             if qi < RP:
                 rows = [x[qi:qi + 1] for x in panel]
                 rows[3] = rows[3][0]
@@ -960,7 +980,7 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
 
     A speculation window is RP consecutive turns of the round's queue
     order from position START.  From window-start state: every row's
-    pop (K2 over [RP, J] and [RP, G]), the products (K13) and every
+    pop (one K2 launch over RP rows), the products (K13) and every
     row's first feasible node (K14 over RP rows; a row outside the
     window does not pop).  The gate (K15) commits the burn / fail prefix
     before the first speculative claim, counts the later speculative
@@ -983,6 +1003,7 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
     carry = _canon_seed(st, state, ctx)
     products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
     order = _order_plan(st, sess, tiers)  # K17, bound once
+    pops = _pick_pops(st, sess, tiers)  # K2, bound once
     prods = products.out
     ctl, sel = new_gate(ctx.cres.shape[1], dev)
     sel_i, sel_b, sel_req = sel
@@ -1000,7 +1021,7 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
         in_window = pos < ctl[TRIP]
         jp, gp, hgp, reqp, popp, burnp = reclaim_select_turns(
             st, sess, state, tiers, _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
-            q_panel, carry.q_entries,
+            q_panel, carry.q_entries, pops,
         )
         products()
         qp32 = q_panel.to(i32)
@@ -1020,17 +1041,17 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
     return _canon_writeback(st, state, carry)
 
 
-def _task_layout(segment, priority, uid_rank, resreq, extra_keys=()):
+def _task_layout(segment, priority, uid_rank, resreq, extra_keys=(), with_base=True):
     """A fixed victim order over the whole task axis: (SortLayout, inv
     i64[T] task -> sorted position, base i64[T] sorted position -> its
-    segment's first position)."""
+    segment's first position, from the layout's K5 segment table; None
+    without ``with_base``)."""
     lay = SortLayout.build(segment, priority, uid_rank, resreq, extra_keys)
     T = lay.order.shape[0]
     pos = torch.arange(T, device=lay.order.device)
     inv = torch.empty_like(pos)
     inv[lay.order.to(torch.int64)] = pos
-    base = torch.cummax(torch.where(lay.seg_start, pos, 0), dim=0).values
-    return lay, inv, base
+    return lay, inv, lay.plan.base_pos.to(torch.int64) if with_base else None
 
 
 def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
@@ -1060,12 +1081,13 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
     pa_on = preds_on and pa_enabled(st)
     pa_plan = PaFitPlan(st) if pa_on else None  # K11's launches, bound once
     order = _order_plan(st, sess, tiers)  # K17's, bound once
+    pops = _pick_pops(st, sess, tiers)  # K2's
     defer = not pa_on and _claim_key_fits(st.num_groups, T)
 
     node_key = state.task_node.clamp(min=0)
     # within-node victim order (queue, job, priority, uid)
     L_node, inv_node, _ = _task_layout(node_key, st.task_priority, st.task_uid_rank, rr,
-                                       extra_keys=(vj, vq))
+                                       extra_keys=(vj, vq), with_base=False)
     order_node = L_node.order.to(i64)
     node_sorted = node_key[order_node]
     cand0 = (state.task_status == RUNNING) & st.task_valid & (state.task_node >= 0)
@@ -1111,7 +1133,7 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
             q = perm[qi:qi + 1]
             shared = _reclaim_shared(st, sess, state, tiers, job_consumed)
             j, g, has_grp, req, pop, burn_now = _reclaim_pop(
-                st, sess, state, tiers, shared, q, q_entries[q]
+                st, sess, state, tiers, shared, q, q_entries[q], pops
             )
             j64, g64 = j.to(i64), g.to(i64)
             # ---- victim eligibility: corrected gang rank, lean prop cum

@@ -10,6 +10,7 @@ integer-valued inputs the reference's jnp tree scan gives the same bits).
 """
 import dataclasses
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from kube_arbitrator_tpu.cache.synth import build_synthetic_snapshot as ref_synt
 from kube_arbitrator_tpu.ops import allocate as ref_alloc
 from kube_arbitrator_tpu.ops import common as ref_common
 from kube_arbitrator_tpu.ops import cycle as ref_cycle
+from kube_arbitrator_tpu.ops import ordering as ref_ord_mod
 from kube_arbitrator_tpu.ops import preempt as ref_pre
 from kube_arbitrator_tpu.ops.ordering import DEFAULT_TIERS as REF_TIERS
 from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
@@ -152,6 +154,11 @@ def test_round_matches_reference_slot_body(seed, pruned):
 
 
 def test_lex_argmin_matches_reference():
+    """K2's filter (the plan's plain version) against the reference's
+    ``lex_argmin`` on free key columns and masks, and through
+    ``TurnPickPlan``: rows are queues whose job columns (-priority, the
+    DRF share with entries at BIG, the creation rank) hold the same
+    kind of values, against the reference over the same columns."""
     rng = np.random.default_rng(2)
     K, M, S = 4, 300, 9
     keys = rng.integers(0, 3, (K, M)).astype(np.float32)
@@ -162,9 +169,35 @@ def test_lex_argmin_matches_reference():
     mask[7] = True
     for k in (keys, keys[:2]):
         want_i, want_a = ref_common.lex_argmin([jnp.asarray(c) for c in k], jnp.asarray(mask))
-        got_i, got_a = k2.lex_argmin(t(k.copy()), t(mask))
+        got_i, got_a = k2.lex_argmin_plain(t(k.copy()), t(mask))
         assert np.array_equal(got_i.numpy(), np.asarray(want_i).astype(np.int32))
         assert np.array_equal(got_a.numpy(), np.asarray(want_a))
+    # through the plan: tiers (priority, drf), S queues
+    tiers = [m.Tier(plugins=(m.PluginOption.of("priority"), m.PluginOption.of("drf")))
+             for m in (ref_ord_mod, port_ord)]
+    prio = -keys[0].astype(np.int32)
+    rank = keys[3].astype(np.int32)
+    share = keys[1]
+    job_queue = (np.arange(M) % S).astype(np.int32)
+    pending = rng.random(M) < 0.8
+    pending[job_queue == 4] = False
+    G = M
+    st = types.SimpleNamespace(
+        job_queue=t(job_queue), job_valid=t(np.ones(M, bool)), group_job=t(np.arange(G, dtype=np.int32)),
+        job_priority=t(prio), job_creation_rank=t(rank), group_priority=t(np.zeros(G, np.int32)),
+        group_uid_rank=t(np.arange(G, dtype=np.int32)))
+    plan = k2.TurnPickPlan(st, (tiers[1],))
+    q = np.arange(S, dtype=np.int64)
+    ready = np.zeros(M, bool)
+    got_j, got_a, _, _, got_mask = plan.select(t(q), t(np.ones(S, bool)), t(pending), t(ready),
+                                               t(share), t(np.ones(G, bool)), jmask=True)
+    jkeys = ref_ord_mod.job_order_keys((tiers[0],), jnp.asarray(prio), jnp.asarray(ready),
+                                       jnp.asarray(rank), jnp.asarray(share))
+    jmask = (job_queue[None, :] == q[:, None]) & pending[None, :]
+    want_i, want_a = ref_common.lex_argmin([c[None, :] for c in jkeys], jnp.asarray(jmask))
+    assert np.array_equal(got_j.numpy(), np.asarray(want_i))
+    assert np.array_equal(got_a.numpy(), np.asarray(want_a))
+    assert np.array_equal(got_mask.numpy(), jmask)
 
 
 # ---------------------------------------------------------------- K3
@@ -480,11 +513,23 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
     idx = torch.from_numpy(rng.integers(-1, 60, 4000).astype(np.int32))
     got = k4.segment_sum(val.to(cuda_device), idx.to(cuda_device), 50).cpu()
     assert torch.equal(got, k4.segment_sum_plain(val, idx, 50))
-    keys = torch.from_numpy(rng.integers(0, 3, (3, 500)).astype(np.float32))
-    mask = torch.from_numpy(rng.random((8, 500)) < 0.3)
-    gi, ga = k2.lex_argmin(keys.to(cuda_device), mask.to(cuda_device))
-    pi, pa = k2.lex_argmin_plain(keys, mask)
-    assert torch.equal(gi.cpu(), pi) and torch.equal(ga.cpu(), pa)
+    M, S = 500, 8
+    st = dict(job_queue=rng.integers(0, S, M).astype(np.int32), job_valid=rng.random(M) < 0.9,
+              group_job=rng.integers(0, M, M).astype(np.int32),
+              job_priority=rng.integers(0, 3, M).astype(np.int32),
+              job_creation_rank=rng.integers(0, 100, M).astype(np.int32),
+              group_priority=rng.integers(0, 2, M).astype(np.int32),
+              group_uid_rank=rng.integers(0, 100, M).astype(np.int32))
+    args = [rng.random(M) < 0.8, rng.random(M) < 0.5,
+            rng.integers(0, 3, M).astype(np.float32), rng.random(M) < 0.8]
+    q, ok = t(np.arange(S, dtype=np.int64)), t(rng.random(S) < 0.9)
+    cpu = k2.TurnPickPlan(types.SimpleNamespace(**{k: t(v) for k, v in st.items()}), PORT_TIERS)
+    card = k2.TurnPickPlan(types.SimpleNamespace(**{k: t(v).to(cuda_device) for k, v in st.items()}),
+                           PORT_TIERS)
+    got = card.select(q.to(cuda_device), ok.to(cuda_device), *(t(a).to(cuda_device) for a in args))
+    want = cpu.select(q, ok, *(t(a) for a in args))
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
