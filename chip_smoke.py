@@ -25,7 +25,10 @@ rows):
    the seg_cumsum form; one segment, no masked row, every row masked),
    K6-K8 on the inputs the evictive path gives them in the 50k-task x
    5k-node world (its preempt victim panel, its first preempt turn, its
-   first claiming reclaim turn), K9-K10 on the binpack world's
+   first claiming reclaim turn; K8 through CanonCommitPlan in each canon
+   engine's form — i64 and i32 ordinals, claimed_out, active clear — a
+   covering prefix over two jobs and two queues, a failing turn, a window
+   longer than its block), K9-K10 on the binpack world's
    turns (100k x 10k: the all-idle entry, where the binpack keys tie at
    -0.0, and a turn after two rounds, binpack and spread; K9 through its
    plans in every variant — one CTA and tiles, first fit, best effort,
@@ -48,7 +51,7 @@ rows):
    jstat with 24 slots in range, ordered_sum at 10,240 and 500 rows;
    each route with out= accumulation, i32, every slot dropped, T = 0 and
    one launch a call), K2, K5, K12 and K17: one device event and no
-   allocation a launch,
+   allocation a launch (K8 and K20 too),
    K16 on its three callers' shapes (a commit list at T = 102,400 whose
    count passes the cap, allocate's feasibility cells at [K, 10,240],
    preempt's full-width victim panel at 51,200), K17 through
@@ -65,11 +68,13 @@ rows):
    (the one-CTA and the tiled sort at n from 1 to 1,048,576 on 1-6 keys
    with and without bounds, keys all equal, descending, INT_MIN /
    INT_MAX, heavy duplicates; the segment order's one-CTA, counting and
-   tiled routes; the lookup on both sides), K20 on
-   _reclaim_fast's cumulatives at [51,200, 3 / 4 / 1] whose totals pass
-   2^24.  K17, K19 and K20 are held against their plain versions run on
-   the CPU.  Times the kernel, the plain version and, where one PyTorch
-   call computes the same function (K4's, K7's, K11's, K12's and K13's
+   tiled routes; the lookup on both sides), K20 through OrderedScanPlan,
+   plain and masked, and ``mm_cumsum`` at every edge of its 16-row blocks
+   and 4,096-row tiles (V 1 to 65,537, 200,000 and 1,048,576; C 1 / 3 / 4
+   / 9; -0.0; totals past 2^24), timed at _reclaim_fast's shapes.  K17,
+   K19 and K20 are held against their plain versions run on the CPU.
+   Times the kernel, the plain version and, where one PyTorch call
+   computes the same function (K4's, K7's, K11's, K12's and K13's
    sums: ``Tensor.index_add_``; K9's order, K17's and K19's:
    ``torch.sort(stable=True)``; K16: ``torch.nonzero`` plus padding; K18:
    the upload of each field's rows and indices and one ``index_copy_``
@@ -144,7 +149,9 @@ rows):
    evictive cycles (50k x 5k, seed 42) under torch.profiler: no
    ``aten::sort``, ``aten::argsort``, ``aten::searchsorted`` or
    ``aten::cummax`` event; prints those counts and the device kernels of
-   each cycle.
+   each cycle.  Then one canon walk of the evictive world with
+   ``Tensor.to`` watched: its turns hand K8 their ordinals as they come
+   (no cast from ``_reclaim_canon``'s own frame).
 
 Each path's launch counts are taken over its first world (seed 42; the
 priority-mix path's over seed 45), with every count set to 0 just
@@ -308,6 +315,28 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2, setup=None) -> float:
     return total / reps
 
 
+SPIN = "spin_kernel"  # torch.cuda._sleep's kernel, launched by no wrapper
+
+
+def profiled_device_events(run) -> list:
+    """The device events (kernels, memsets, copies) of ``run()`` under
+    torch.profiler.  The profile can lose the record of the first launch
+    after it starts (on an H100, 1 profile in 100 of 20 one-kernel
+    calls, always the first launch; never one after it): so a spin
+    kernel is launched and waited for first, inside the profile, and its
+    own event left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2000)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and SPIN not in e.name]
+
+
 def device_us(fn, setup=None, calls: int = 50) -> tuple:
     """(device us per call of ``fn``, device kernels per call, source):
     the summed time of the port's own kernels (torch.profiler's CUDA
@@ -318,24 +347,22 @@ def device_us(fn, setup=None, calls: int = 50) -> tuple:
     pair around ``calls`` back-to-back calls with no synchronisation
     between them (that time includes the wrapper's host work wherever
     the host is the slower)."""
-    from torch.profiler import ProfilerActivity, profile
-
     if setup:
         setup()
     fn()
     torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            if setup:
+                setup()
+            fn()
+
     # two tries: a profile of a kernel that showed on the card in a fresh
     # process once came back without its events late in a phase-1 run
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                if setup:
-                    setup()
-                fn()
-            torch.cuda.synchronize()
-        own = [e for e in prof.events()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-               and e.name.startswith(("(anonymous namespace)::", "void (anonymous namespace)::"))]
+        own = [e for e in profiled_device_events(run)
+               if e.name.startswith(("(anonymous namespace)::", "void (anonymous namespace)::"))]
         if own:
             return (sum(e.time_range.elapsed_us() for e in own) / calls, len(own) / calls,
                     "profiler")
@@ -1202,12 +1229,11 @@ def k7_case(dev, fx):
     each pick equal to ``canon_pick_plain``'s; one device event and no
     allocation a launch; the library call re-taken in the same call."""
     from kube_arbitrator_tpu_torch.ops import allocate, preempt
-    from kube_arbitrator_tpu_torch.ops.kernels import canon_commit as k8
     from kube_arbitrator_tpu_torch.ops.kernels import canon_pick as k7
+    from kube_arbitrator_tpu_torch.ops.kernels.canon_commit import CanonCommitPlan
 
     st, sess, tiers = fx.st, fx.sess, fx.tiers
     N = st.num_nodes
-    i32 = torch.int32
     cases = []
 
     def launch(plan, *turn):
@@ -1259,6 +1285,7 @@ def k7_case(dev, fx):
     wctx = preempt._canon_ctx(st, sess)
     wc = preempt._canon_seed(st, ws, wctx)
     wplan = preempt._pick_plan(st, sess, ws, wctx, wc, use_gang, use_prop, preds_on)
+    wcommit = CanonCommitPlan(st, wctx, ws, wc, use_gang, use_prop)
     nq, perm = preempt._canon_round_order(st, sess, tiers, ws, wc)
     turns = claims = 0
     for qi in range(min(int(nq), 48)):
@@ -1268,8 +1295,7 @@ def k7_case(dev, fx):
         wp = plain(st, wctx, wc, ws, sess, (use_gang, use_prop, preds_on), qq, gg, hg, pop_, req_)
         expect(torch.equal(pk, wp), f"K7 turn {qi} of the walk differs from the plain version")
         claims += int(pk) < N
-        k8.canon_commit(st, wctx, ws, wc, pk, qq.to(i32), j.to(i32), gg.to(i32), hg, pop_, burn,
-                        req_, use_gang, use_prop)
+        wcommit(pk, qq, j, gg, hg, pop_, burn, req_)
         turns += 1
     expect(claims > 1, f"K7's walk claimed {claims} times in {turns} turns")
     cases.append(dict(case="first round of the canon walk, K8 between launches", turns=turns,
@@ -1318,28 +1344,121 @@ def k7_case(dev, fx):
                       f"turn, CanonPickPlan)")
 
 
+def clone_carry(carry):
+    return dataclasses.replace(carry, **{f.name: getattr(carry, f.name).clone()
+                                         for f in dataclasses.fields(carry)})
+
+
 def k8_case(dev, fx):
+    """K8 through ``CanonCommitPlan`` in every canon engine's form: the
+    evictive world's first claiming reclaim turn (the canon walk's i64
+    queue and i32 ordinals; timed), the same turn with i64 ordinals and
+    with ``claimed_out`` (the batched engine's), a turn whose covering
+    prefix evicts several slots over >= 2 jobs and >= 2 queues, a failing
+    turn (no node: the claim log's row J), a launch with ``active`` clear
+    (nothing changes), a window longer than its node's block (blen < W);
+    each launch on copies of the entry state against the plain version
+    on CPU copies, every state and carry field and progress equal; one
+    launch, one device event and no allocation a call."""
     from kube_arbitrator_tpu_torch.ops import allocate
     from kube_arbitrator_tpu_torch.ops.kernels import canon_commit as k8
-    from kube_arbitrator_tpu_torch.ops.kernels.canon_pick import canon_pick
+    from kube_arbitrator_tpu_torch.ops.kernels.canon_pick import canon_elig, canon_pick
 
+    st, sess = fx.st, fx.sess
     ctx, state, carry, pick_args, turn = canon_inputs(fx)
-    pick = canon_pick(fx.st, *pick_args)
-    s_gpu, c_gpu = allocate._copy(state), dataclasses.replace(carry, **{
-        f.name: getattr(carry, f.name).clone() for f in dataclasses.fields(carry)})
-    s_cpu, c_cpu = to_cpu(state), to_cpu(carry)
-    k8.canon_commit(fx.st, ctx, s_gpu, c_gpu, pick, *turn)
-    k8.canon_commit_plain(fx.st_cpu, to_cpu(ctx), s_cpu, c_cpu, pick.cpu(), *to_cpu(turn))
-    err = 0.0
-    for obj_g, obj_c in ((s_gpu, s_cpu), (c_gpu, c_cpu)):
-        for f in dataclasses.fields(obj_c):
-            a, b = getattr(obj_g, f.name), getattr(obj_c, f.name)
-            if isinstance(b, torch.Tensor):
-                err = max(err, max_err(a, b))
-                expect(torch.equal(a.cpu().reshape(b.shape), b), f"K8 {f.name} differs from its plain version")
-    expect(int(c_gpu.evicted_c.sum()) > 0, "K8 inputs evicted nothing")
-    work_s, work_c = allocate._copy(state), dataclasses.replace(carry, **{
-        f.name: getattr(carry, f.name).clone() for f in dataclasses.fields(carry)})
+    pick = canon_pick(st, *pick_args).clone()
+    q32, j, g, has_grp, pop, burn, req, use_gang, use_prop = turn
+    q = q32.long()
+    flags = (use_gang, use_prop)
+    N, W, J = st.num_nodes, st.rv_window, st.num_jobs
+    R, F = ctx.cres.shape[1], carry.cum_nq.shape[1]
+    bstart = st.rv_block_start.cpu()
+    cases = []
+    err = [0.0]
+
+    def held(what, targs, active=None, claimed_out=None):
+        """One plan launch on card copies of the entry state against the
+        plain version on CPU copies; -> (card state, card carry)."""
+        s_gpu, c_gpu = allocate._copy(state), clone_carry(carry)
+        s_cpu, c_cpu = to_cpu(s_gpu), to_cpu(c_gpu)
+        plan = k8.CanonCommitPlan(st, ctx, s_gpu, c_gpu, *flags)
+        n0 = k8.canon_commit.launches
+        plan(*targs, active=active, claimed_out=claimed_out)
+        expect(k8.canon_commit.launches == n0 + 1, f"K8 {what}: one launch a call")
+        co_cpu = None if claimed_out is None else torch.zeros(1, dtype=torch.bool)
+        k8.canon_commit_plain(fx.st_cpu, to_cpu(ctx), s_cpu, c_cpu, *to_cpu(tuple(targs)), *flags,
+                              to_cpu(active), co_cpu)
+        for obj_g, obj_c in ((s_gpu, s_cpu), (c_gpu, c_cpu)):
+            for f in dataclasses.fields(obj_c):
+                a, b = getattr(obj_g, f.name), getattr(obj_c, f.name)
+                if isinstance(b, torch.Tensor):
+                    err[0] = max(err[0], max_err(a, b))
+                    expect(torch.equal(a.cpu().reshape(b.shape), b),
+                           f"K8 {what}: {f.name} differs from its plain version")
+        if claimed_out is not None:
+            expect(torch.equal(claimed_out.cpu(), co_cpu), f"K8 {what}: claimed_out differs")
+        return s_gpu, c_gpu
+
+    def evicted(c_gpu, n):
+        ev = c_gpu.evicted_c.cpu()
+        b0 = int(bstart[n])
+        return dict(evicted=int(ev.sum()), jobs=len(set(ctx.cj.cpu()[ev].tolist())),
+                    queues=len(set(ctx.cq.cpu()[ev].tolist())),
+                    blen=int(bstart[n + 1]) - b0, window=W, first_slot=b0)
+
+    n_first = int(pick)
+    base = (pick, q, j, g, has_grp, pop, burn, req)
+    _, c1 = held("first claiming turn", base)
+    first = evicted(c1, n_first)
+    expect(first["evicted"] > 0, "K8 inputs evicted nothing")
+    cases.append(dict(case="first claiming turn (canon walk: q i64, j / g i32)", q=int(q),
+                      j=int(j), g=int(g), node=n_first, **first))
+    held("i64 ordinals", (pick, q, j.long(), g.long(), has_grp, pop, burn, req))
+    cases.append(dict(case="i64 q / j / g"))
+    flag = torch.zeros(1, dtype=torch.bool, device=dev)
+    held("claimed_out", base, claimed_out=flag)
+    expect(bool(flag), "K8 claimed_out: the claiming turn's bit is clear")
+    cases.append(dict(case="claimed_out (the batched engine's form)", claimed=bool(flag)))
+    # active clear: nothing moves (the plain version returns at once too)
+    s_off, c_off = held("active clear", base, active=torch.zeros(1, dtype=torch.bool, device=dev))
+    expect(int(c_off.evicted_c.sum()) == 0 and int(c_off.n_claims) == 0,
+           "K8 active clear: the launch changed the carry")
+    cases.append(dict(case="active clear"))
+    # a failing turn: no node, so the pop burns its entry and the log's row J takes the writes
+    s_f, c_f = held("failing turn", (torch.full_like(pick, N), q, j, g, has_grp, pop, burn, req))
+    expect(int(c_f.n_claims) == 0 and int(c_f.log_g[J]) == int(g), "K8 failing turn: log row J")
+    cases.append(dict(case="failing turn (no node)", q_entries=int(c_f.q_entries[q])))
+    # a covering prefix over >= 2 jobs and >= 2 queues: the first node whose
+    # window holds victims of two jobs and two queues, one of the two with
+    # two victims (a group the sums add up), a request above them all
+    ctx_c = to_cpu(ctx)
+    elig = canon_elig(ctx_c, carry.cand.cpu(), carry.rank_nj.cpu(), carry.cum_nq.cpu(),
+                      state.job_ready_cnt.cpu(), sess.min_avail.cpu(), state.queue_alloc.cpu(),
+                      *flags) & (ctx_c.cq != int(q))
+    wide = None
+    for n in range(N):
+        b0, b1 = int(bstart[n]), int(bstart[n + 1])
+        m = elig[b0:b1]
+        nj, nq = len(set(ctx_c.cj[b0:b1][m].tolist())), len(set(ctx_c.cq[b0:b1][m].tolist()))
+        if int(m.sum()) >= 3 and nj >= 2 and nq >= 2 and int(m.sum()) > min(nj, nq):
+            wide = (n, ctx_c.cres[b0:b1][m].sum(dim=0))
+            break
+    expect(wide is not None, "K8: no node holds victims of two jobs and two queues")
+    n_w, tot = wide
+    big = (tot + 100.0).to(dev)
+    _, c_w = held("several jobs and queues",
+                  (torch.full_like(pick, n_w), q, j, g, has_grp, pop, burn, big))
+    several = evicted(c_w, n_w)
+    expect(several["evicted"] >= 3 and several["jobs"] >= 2 and several["queues"] >= 2
+           and several["evicted"] > min(several["jobs"], several["queues"]),
+           f"K8 several jobs and queues: {several}")
+    cases.append(dict(case="covering prefix over several jobs and queues", **several))
+    expect(min(first["blen"], several["blen"]) < W, "K8: no window longer than its block")
+    cases.append(dict(case="blen < W", blen=first["blen"], window=W))
+
+    # timed: the first claiming turn through one plan, the entry state restored
+    work_s, work_c = allocate._copy(state), clone_carry(carry)
+    plan = k8.CanonCommitPlan(st, ctx, work_s, work_c, *flags)
 
     def setup():
         for obj, src in ((work_s, state), (work_c, carry)):
@@ -1348,20 +1467,43 @@ def k8_case(dev, fx):
                 if isinstance(v, torch.Tensor):
                     getattr(obj, f.name).copy_(v)
 
-    t = kernel_times(lambda: k8.canon_commit(fx.st, ctx, work_s, work_c, pick, *turn), setup=setup)
-    plain_ms = cuda_ms(lambda: k8.canon_commit_plain(fx.st, ctx, work_s, work_c, pick, *turn),
+    t = kernel_times(lambda: plan(*base), setup=setup)
+    setup()
+    per_call = device_events_per_call(lambda: plan(*base))
+    expect(per_call == 1.0, f"K8's plan made {per_call} device events a launch, not 1")
+    allocs = allocations_per_call(lambda: plan(*base))
+    expect(allocs == 0, f"K8's plan allocates {allocs} times a launch")
+    functional = kernel_times(lambda: k8.canon_commit(st, ctx, work_s, work_c, *base, *flags),
+                              setup=setup)
+    # the launch floor: the same launch with active clear returns at once
+    off = torch.zeros(1, dtype=torch.bool, device=dev)
+    floor = kernel_times(lambda: plan(*base, active=off))
+    cases.append(dict(case="active clear (the launch floor)", ms=floor["ms"],
+                      device_us=floor["device_us"], host_us=floor["host_us"]))
+    cases.insert(0, dict(case="functional canon_commit (a throwaway plan a call)",
+                         ms=functional["ms"], host_us=functional["host_us"]))
+    plain_ms = cuda_ms(lambda: k8.canon_commit_plain(st, ctx, work_s, work_c, *base, *flags),
                        reps=5, setup=setup)
-    W, R = fx.st.rv_window, ctx.cres.shape[1]
-    F = carry.cum_nq.shape[1]
-    # the window's canon slots read once and its flags / scans written;
-    # the touched job, queue and node rows read and written; the evicted
-    # tasks' three audit fields written
-    n_ev = int(c_gpu.evicted_c.sum())
-    nbytes = W * (1 + 4 + 4 * F + 4 + 4 + 4 * F + 4 * R + 1 + 1 + 4) + W * (1 + 1 + 4 + 4 * F) \
-        + 2 * (n_ev + 1) * 2 * (4 * R + 4) + 12 * n_ev + 64
-    b, by = bound_ms(nbytes, W * (3 * R + 2 * F + 4))
-    return dict(name="canon_commit", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None, shape=f"window W={W}, R={R}, {n_ev} evicted")
+    # the bound at the timed case: the window's canon slots read once
+    # (job, queue, task, cand, segment flags, rank, F-wide cumulative and
+    # deserved, R-wide resreq), the rows the mask reads (its jobs' ready
+    # counts and floors, its queues' allocations), the scans written back,
+    # the evicted slots' flags and audit fields, the evicted jobs' and
+    # queues' rows and the claimant's job / queue / node rows read and
+    # written, the ports and the scalars
+    b0 = first["first_slot"]
+    win_j = len(set(ctx.cj.cpu()[b0:b0 + W].tolist()))
+    win_q = len(set(ctx.cq.cpu()[b0:b0 + W].tolist()))
+    PW = state.node_ports.shape[1]
+    n_ev = first["evicted"]
+    nbytes = (W * (4 + 4 + 4 + 1 + 1 + 1 + 4 + 8 * F + 4 * R) + win_j * 8 + win_q * 4 * R
+              + W * 4 * (1 + F) + n_ev * 14 + (first["jobs"] + first["queues"]) * (8 * R + 8)
+              + 3 * 8 * R + 12 * PW + 64)
+    b, by = bound_ms(nbytes, W * (2 * R + 2 * F + 4) + n_ev * 3 * R)
+    return dict(name="canon_commit", max_abs_err=err[0], **t, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, events_per_call=per_call, variants=cases,
+                shape=f"window W={W}, R={R}, {n_ev} evicted over {first['jobs']} jobs "
+                      f"(CanonCommitPlan, the first claiming reclaim turn)")
 
 
 # ---- K9-K12: the immediate path's own inputs (binpack 100k x 10k, the
@@ -1797,21 +1939,18 @@ def device_events_per_call(fn, calls: int = 20) -> float:
     """Every device event (kernels, memsets, copies) torch.profiler sees
     per call of ``fn``: a plan's call must launch its one kernel and
     nothing around it."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    # a profile can come back without some of its device events (see
-    # device_us; once 19 of 20 one-kernel calls): fewer events than calls
-    # is a lost record, since each call launches at least once, so profile
-    # again; more than one a call is never retried away
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    # fewer events than calls is a lost record (see profiled_device_events),
+    # since each call launches at least once, so profile again; more than
+    # one a call is never retried away
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        n = sum(getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                for e in prof.events())
+        n = len(profiled_device_events(run))
         if n >= calls:
             break
     return n / calls
@@ -2596,35 +2735,102 @@ def k19_case(dev, fx):
 
 
 def k20_case(dev):
-    """K20 at _reclaim_fast's cumulative shapes, [51,200, 3] (the fair
-    resources, the case timed) and [51,200, 4], and a [V] column, on
-    fractional values whose totals pass 2^24 with -0.0 among them:
-    bit for bit its plain version run on the CPU."""
+    """K20 through ``OrderedScanPlan`` and ``mm_cumsum``'s throwaway plan:
+    every edge of the recursion's 16-row blocks and of the 4,096-row tiles
+    (V 1 to 65,537, 200,000 and 16^5 = 1,048,576 rows: a chain, one tile,
+    up to 16 tiles and more), C 1 / 3 / 4 (and 9: three column chunks),
+    fractional values with -0.0 among them, plain and masked (``where(mask,
+    rows, 0)``, the masked rows kept), each plan launched twice (its next
+    launch number and ticket), bit for bit the plain version run on the
+    CPU; one launch, one device event and no allocation a call; timed at
+    _reclaim_fast's shapes ([51,200, 3], the case of the row; the masked
+    [51,200, 4] of its covering prefix)."""
     from kube_arbitrator_tpu_torch.ops import common
     from kube_arbitrator_tpu_torch.ops.kernels import ordered_scan as k20
 
     rng = np.random.default_rng(20)
-    V = 51_200
-    err = 0.0
-    for C in (3, 4, 1):
+    err, checked = 0.0, 0
+
+    def bits_equal(a, b, what):
+        expect(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
+               f"K20 differs from its plain version: {what}")
+
+    def launch(plan, **kw):
+        n0 = k20.ordered_scan.launches
+        out = plan(**kw)
+        expect(k20.ordered_scan.launches == n0 + 1, "K20: one launch a call")
+        return out
+
+    grid = [(V, C) for V in (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 51_200, 65_536,
+                             65_537, 200_000) for C in (1, 3, 4)]
+    grid += [(51_200, 9), (k20.MAX_ROWS, 3)]
+    for V, C in grid:
         x = (rng.integers(1, 64_000, (V, C)) * rng.random((V, C))).astype(np.float32)
         x[rng.random((V, C)) < 0.02] = -0.0
         xc = torch.from_numpy(x)
+        mask = torch.from_numpy(rng.random(V) < 0.7)
         want = k20.ordered_scan_plain(xc)
-        got = (k20.ordered_scan(xc.to(dev)) if C > 1 else common.mm_cumsum(xc[:, 0].to(dev))[:, None]).cpu()
-        err = max(err, max_err(got, want))
-        expect(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-               f"K20 differs from its plain version at [{V}, {C}]")
-        expect(float(want[-1, 0]) > 2**24, "K20 inputs: the total does not pass 2^24")
-    x = torch.from_numpy((rng.integers(1, 64_000, (V, 3)) * rng.random((V, 3))).astype(np.float32)).to(dev)
-    t = kernel_times(lambda: k20.ordered_scan(x))
-    plain_ms = cuda_ms(lambda: k20.ordered_scan_plain(x), reps=5)
-    lib_ms = cuda_ms(lambda: torch.cumsum(x, dim=0))
+        want_m = k20.ordered_scan_plain(k20.masked_rows_plain(mask, xc))
+        xd, md = xc.to(dev), mask.to(dev)
+        plan = k20.OrderedScanPlan(V, C, dev)
+        for _ in range(2):
+            got = launch(plan, x=xd)
+            bits_equal(got, want, f"[{V}, {C}]")
+        mplan = k20.OrderedScanPlan(V, C, dev, rows=xd)
+        for _ in range(2):
+            got = launch(mplan, mask=md)
+            bits_equal(got, want_m, f"masked [{V}, {C}]")
+            bits_equal(mplan.masked, k20.masked_rows_plain(mask, xc), f"masked rows [{V}, {C}]")
+        if C == 1:
+            bits_equal(common.mm_cumsum(xd[:, 0])[:, None], want, f"mm_cumsum [{V}]")
+        else:
+            bits_equal(common.mm_cumsum(xd), want, f"mm_cumsum [{V}, {C}]")
+        err = max(err, max_err(got, want_m))
+        checked += 1
+        if V == 51_200 and C == 3:
+            expect(float(want[-1, 0]) > 2**24, "K20 inputs: the total does not pass 2^24")
+    V = 51_200
+    x = (rng.integers(1, 64_000, (V, 4)) * rng.random((V, 4))).astype(np.float32)
+    x = torch.from_numpy(x).to(dev)
+    mask = torch.from_numpy(rng.random(V) < 0.3).to(dev)
+    x3 = x[:, :3].contiguous()
+    plan = k20.OrderedScanPlan(V, 3, dev)
+    mplan = k20.OrderedScanPlan(V, 4, dev, rows=x)
+    cases = [dict(case="edges", shapes=checked)]
+    for p_, kw in ((plan, dict(x=x3)), (mplan, dict(mask=mask))):
+        per_call = device_events_per_call(lambda: p_(**kw))
+        expect(per_call == 1.0, f"K20's plan made {per_call} device events a launch, not 1")
+        allocs = allocations_per_call(lambda: p_(**kw))
+        expect(allocs == 0, f"K20's plan allocates {allocs} times a launch")
+    t = kernel_times(lambda: plan(x=x3))
+    tm = kernel_times(lambda: mplan(mask=mask))
+    bm, bym = bound_ms(V * 1 + 3 * V * 4 * 4, 2 * V * 4)
+    cases.append(dict(case="masked [51,200, 4] (_reclaim_fast's covering prefix, 30% masked)",
+                      ms=tm["ms"], device_us=tm["device_us"], host_us=tm["host_us"],
+                      bound_ms=bm, bound_by=bym, library_ms=cuda_ms(lambda: torch.cumsum(
+                          torch.where(mask[:, None], x, 0.0), dim=0)),
+                      library="torch.where + torch.cumsum (another add order)"))
+    # where the device time goes: one chain (V 16), one tile (4,096), two
+    # tiles (8,192), at C 3
+    for Vs in (16, 4096, 8192):
+        ps = k20.OrderedScanPlan(Vs, 3, dev)
+        xs = x3[:Vs].contiguous()
+        ts = kernel_times(lambda: ps(x=xs))
+        cases.append(dict(case=f"[{Vs}, 3] ({k20.layout(Vs, 3)['tiles']} tile(s), levels "
+                               f"{k20.layout(Vs, 3)['levels']})", ms=ts["ms"],
+                          device_us=ts["device_us"], host_us=ts["host_us"]))
+    functional = kernel_times(lambda: common.mm_cumsum(x3))
+    cases.append(dict(case="mm_cumsum [51,200, 3] (a throwaway plan a call)",
+                      ms=functional["ms"], device_us=functional["device_us"],
+                      host_us=functional["host_us"]))
+    plain_ms = cuda_ms(lambda: k20.ordered_scan_plain(x3), reps=5)
+    lib_ms = cuda_ms(lambda: torch.cumsum(x3, dim=0))
     b, by = bound_ms(2 * V * 3 * 4, V * 3)
+    shape = k20.layout(V, 3)
     return dict(name="ordered_scan", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms,
-                shape=f"f32[{V},3] (_reclaim_fast's proportion cumulative); library: "
-                      f"torch.cumsum (another add order)")
+                bound_by=by, library_ms=lib_ms, variants=cases,
+                shape=f"f32[{V},3] through OrderedScanPlan ({shape['tiles']} tiles of "
+                      f"{k20.TILE} rows); library: torch.cumsum (another add order)")
 
 
 def k16_case(dev, efx, tfx):
@@ -2858,6 +3064,36 @@ def reclaim_once(device, w, turn_batch, count_syncs=False):
             torch.cuda.synchronize()
         out[tb] = (r, (time.perf_counter() - t0) * 1e3, syncs, canon_commit.launches - k8_before)
     return out if turn_batch == "all" else out[turn_batch][0]
+
+
+def canon_walk_casts(dev) -> dict:
+    """One canon walk (``reclaim_action``'s default engine) of the
+    evictive world (50k x 5k, seed 42) on the card with ``Tensor.to``
+    watched: the dtype casts issued from ``_reclaim_canon``'s own frame
+    (before the K8 plan, ``q`` / ``j`` / ``g`` were cast to i32 there for
+    K8 every turn), and K8's launches."""
+    from kube_arbitrator_tpu_torch.ops.kernels.canon_commit import canon_commit
+
+    own = {"n": 0}
+    to = torch.Tensor.to
+
+    def watched(self, *a, **kw):
+        out = to(self, *a, **kw)
+        if out.dtype != self.dtype and sys._getframe(1).f_code.co_name == "_reclaim_canon":
+            own["n"] += 1
+        return out
+
+    k8_before = canon_commit.launches
+    shadowed = "to" in torch.Tensor.__dict__
+    torch.Tensor.to = watched
+    try:
+        reclaim_once(dev, dict(EVICT_FULL, seed=42), None)
+    finally:
+        if shadowed:
+            torch.Tensor.to = to
+        else:
+            del torch.Tensor.to
+    return dict(casts=own["n"], k8_launches=canon_commit.launches - k8_before)
 
 
 def compare_states(a, b) -> list:
@@ -3437,6 +3673,11 @@ def main(kernels_only: bool = False) -> int:
         print(f"profiled {name} cycle (50k x 5k, seed 42): {ops}, {n_kern} device kernels "
               f"({len(dev_ev)} device events), profiled cycle {g['cycle_ms']:.1f} ms", flush=True)
         expect(not any(ops.values()), f"the {name} cycle ran a library sort, search or scan: {ops}")
+    walk = canon_walk_casts(dev)
+    print(f"canon walk (evictive 50k x 5k, seed 42): {walk['casts']} casts from _reclaim_canon's "
+          f"own frame over {walk['k8_launches']} K8 launches", flush=True)
+    expect(walk["k8_launches"] > 0 and walk["casts"] == 0,
+           f"the canon walk casts its ordinals for K8: {walk}")
     print(f"phase 9 (profiled, no library sort, search or cummax) {time.perf_counter() - t0:.1f} s",
           flush=True)
 

@@ -1,7 +1,7 @@
 """Time the port's cycle on two or more trees in turns, on one card.
 
     python -m kube_arbitrator_tpu_torch.cycle_turns --parent DIR [--order PCCPCP] \\
-        [--tree X=DIR2 ...] [--worlds allocate,evictive,pa_evict,binpack,q512_evict] \\
+        [--tree X=DIR2 ...] [--worlds allocate,evictive,pa_evict,binpack,q512_evict,priority_mix] \\
         [--out FILE]
 
 DIR is a second checkout of the repository (for example the parent
@@ -44,6 +44,11 @@ WORLDS = {
                    "--running-fraction", "0.5",
                    "--actions", "reclaim_optimistic,allocate,backfill,preempt", "--cycles", "3",
                    "--seed", "42"],
+    # chip_smoke.py phase 8's priority-mix world (MIX_FULL; seeds 44-46)
+    "priority_mix": ["--tasks", "50000", "--nodes", "5000", "--queues", "64",
+                     "--running-fraction", "0.5", "--fit-fraction", "1.0", "--priority-mix",
+                     "--actions", "reclaim,allocate,backfill,preempt", "--cycles", "3",
+                     "--seed", "44"],
 }
 
 

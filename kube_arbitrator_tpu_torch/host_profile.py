@@ -1,7 +1,7 @@
 """Where a kernel wrapper's host time goes: one cycle under cProfile.
 
     python -m kube_arbitrator_tpu_torch.host_profile [--tree DIR]
-        [--worlds pa_evict,binpack,q512_evict,allocate,evictive]
+        [--worlds pa_evict,binpack,q512_evict,allocate,evictive,priority_mix]
         [--wrappers turn_caps,pa_fit,segment_sum,queue_perm,...] [--out FILE]
 
 For each world, a child process run from DIR (a checkout of the
@@ -15,7 +15,9 @@ ops/allocate.py, whose cost includes the queue keys' build;
 ``safe_share``: that function of ops/common.py; ``select_turns``:
 that function of ops/allocate.py and ``_pops`` of ops/preempt.py, the
 turn picks with their masks and keys; ``rank_and_cum`` of ops/preempt.py
-and ``seg_cumsum`` of ops/common.py, K5's callers) its
+and ``seg_cumsum`` of ops/common.py, K5's callers; ``mm_cumsum`` of
+ops/common.py; ``_reclaim_canon`` and ``_reclaim_fast`` of
+ops/preempt.py, the reclaim walks that launch K7 / K8 and K20) its
 functions' calls and cumulative seconds and the callees of those
 functions by cumulative seconds: the host items that cost most.  With
 ``queue_perm`` among the wrappers, the row also gives the device kernels
@@ -45,6 +47,10 @@ WORLDS = {
     # chip_smoke.py phase 6's q512_evict world under the optimistic engine
     "q512_evict": dict(tasks=50_000, nodes=5_000, queues=512, running_fraction=0.5,
                        actions=("reclaim_optimistic", "allocate", "backfill", "preempt")),
+    # chip_smoke.py phase 8's priority-mix world (MIX_FULL)
+    "priority_mix": dict(tasks=50_000, nodes=5_000, queues=64, running_fraction=0.5,
+                         fit_fraction=1.0, priority_mix=True,
+                         actions=("reclaim", "allocate", "backfill", "preempt")),
 }
 
 CHILD = r'''
@@ -59,7 +65,10 @@ OTHER = {"queue_perm": ("ops/allocate.py", "queue_perm"),
          "select_turns": ("ops/allocate.py", "select_turns"),
          "_pops": ("ops/preempt.py", "_pops"),
          "rank_and_cum": ("ops/preempt.py", "rank_and_cum"),
-         "seg_cumsum": ("ops/common.py", "seg_cumsum")}
+         "seg_cumsum": ("ops/common.py", "seg_cumsum"),
+         "mm_cumsum": ("ops/common.py", "mm_cumsum"),
+         "_reclaim_canon": ("ops/preempt.py", "_reclaim_canon"),
+         "_reclaim_fast": ("ops/preempt.py", "_reclaim_fast")}
 decide_world(device="cuda", seed=seed - 1, **world)
 torch.cuda.synchronize()
 prof = cProfile.Profile()

@@ -8,7 +8,7 @@ PyTorch version and with a launch counter:
 * K5 :func:`seg_scan.seg_scan`               — ops/preempt victim-layout scans (SegScanPlan)
 * K6 :func:`claim_nodes.claim_nodes`         — ops/preempt._apply_claim node half
 * K7 :func:`canon_pick.canon_pick`           — reclaim turn: per-node sums, first fit (CanonPickPlan)
-* K8 :func:`canon_commit.canon_commit`       — reclaim turn: window commit
+* K8 :func:`canon_commit.canon_commit`       — reclaim turn: window commit (CanonCommitPlan)
 * K9 :func:`turn_caps.turn_caps`             — immediate turn: capacity, packing order
 * K10 :func:`turn_fill.turn_fill`            — immediate turn: fill, writeback, decode (TurnFillPlan)
 * K11 :func:`pa_fit.pa_fit`                  — pod-affinity fit of a turn's group
@@ -20,7 +20,7 @@ PyTorch version and with a launch counter:
 * K17 :func:`queue_order.queue_order`        — a round's queue order, keys built (QueueOrderPlan)
 * K18 :func:`row_scatter.row_scatter`        — an epoch's changed rows into the resident pack
 * K19 :func:`stable_sort.stable_sort`        — victim lexsorts, K4's segment order, the claim join, searches
-* K20 :func:`ordered_scan.ordered_scan`      — ops/common.mm_cumsum in XLA:CPU's add order
+* K20 :func:`ordered_scan.ordered_scan`      — ops/common.mm_cumsum in XLA:CPU's order (OrderedScanPlan)
 
 A wrapper takes the plain version only for CPU tensors; on CUDA tensors
 it launches its kernel (built on first use, see build.py) or raises.

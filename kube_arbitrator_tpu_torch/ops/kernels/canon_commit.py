@@ -11,30 +11,60 @@ count updates and the audit aux.  ``pick`` is K7's output on the device.
 ``state`` is the action's AllocState and ``carry`` the canon walk's
 carried arrays (ops/preempt._CanonCarry); both are updated in place.
 The claim log has J + 1 rows: row J takes the writes of turns that did
-not claim.  CUDA source: csrc/canon_commit.cu.
+not claim.  :class:`CanonCommitPlan` binds one engine call's launches
+once (a launch passes only the turn); :func:`canon_commit` is the same
+through a throwaway plan.  CUDA source: csrc/canon_commit.cu.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ...api.resource import NUM_FAIR_RESOURCES
 from ...cache.snapshot import DEVICE_EPSILON
 from . import build
-from .build import I, P
-from .canon_pick import canon_elig
+from .build import P
+from .canon_pick import WIDE, canon_elig
 from .seg_scan import seg_scan_plain
 from .segment_sum import segment_sum_plain
 
 EPS = DEVICE_EPSILON
 EVICT_PHASE_RECLAIM = 3  # ops/allocate.EVICT_PHASE_RECLAIM
 
-# C signature of csrc/canon_commit.cu
-SIGNATURES = {
-    "kat_canon_commit": (
-        P, P, P, P, P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-        P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P, P,
-    ),
-}
+MAX_R = 8  # csrc/canon_commit.cu's MAX_R
+SMEM_LIMIT = 227 * 1024  # shared memory one CTA can have on an H100
+
+
+def smem_bytes(W: int, R: int) -> int:
+    """Shared memory of a window of ``W`` slots (csrc's smem_bytes): the
+    resreq rows and the job / queue rows an eviction updates (3 W R f32),
+    four i32 and five flags a slot, a short bit a slot."""
+    return W * (12 * R + 16 + 5) + 4 * (-(-W // 32))
+
+# C signature of csrc/canon_commit.cu: (static, turn, stream)
+SIGNATURES = {"kat_canon_commit": (P, P, P)}
+
+
+class _Static(ctypes.Structure):
+    """csrc/canon_commit.cu's Static: the fixed arguments of a plan."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "cj", "cq", "cres", "deserved_c", "min_avail", "bstart", "rv_idx", "nj_start",
+        "nq_start", "group_ports", "cand", "evicted_c", "rank_nj", "cum_nq", "q_entries",
+        "job_consumed", "log_g", "log_n", "log_r", "n_claims", "job_alloc", "queue_alloc",
+        "job_ready_cnt", "group_placed", "node_releasing", "node_ports", "node_num_tasks",
+        "evict_claimant", "evict_phase", "evict_round",
+    )] + [(n, ctypes.c_int) for n in (
+        "R", "F", "use_gang", "use_prop", "N", "W", "PW", "J", "phase_code")]
+
+
+class _Turn(ctypes.Structure):
+    """csrc/canon_commit.cu's Turn: a launch's own arguments, set in place."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "pick", "q", "j", "g", "has_grp", "pop", "burn", "req", "active", "claimed_out",
+        "progress")] + [(n, ctypes.c_int) for n in ("q_wide", "j_wide", "g_wide", "rounds")]
 
 
 def _scatter_set(dst: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, value) -> None:
@@ -111,7 +141,7 @@ def canon_commit_plain(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_
     carry.job_consumed[jj] |= pop
 
     slot = torch.where(claimed, carry.n_claims, J).to(i64)
-    carry.log_g[slot] = g
+    carry.log_g[slot] = g.to(torch.int32)
     carry.log_n[slot] = n_star.to(torch.int32)
     carry.log_r[slot] = state.group_placed[gg]
     carry.n_claims += claimed.to(torch.int32)
@@ -128,66 +158,136 @@ def canon_commit_plain(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_
     state.progress = state.progress | pop[0]
 
 
+class CanonCommitPlan:
+    """K8's launches over one canon engine call.
+
+    Built once per call beside the engine's other plans: it checks the
+    dtypes and shapes once and binds the fixed pointers (the canon
+    context, the carry — ``cand``, ``evicted_c``, ``rank_nj``,
+    ``cum_nq``, ``q_entries``, ``job_consumed``, the claim log and
+    ``n_claims`` —, ``job_alloc``, ``queue_alloc``, ``job_ready_cnt``,
+    ``group_placed``, the node releasing / ports / pod counts, the three
+    audit fields and the pack's canon arrays) and the flags, and keeps
+    the stream current when it was built.  Every bound tensor must be
+    updated IN PLACE between launches (the canon engines never reassign
+    them).  ``state.progress`` and ``state.rounds`` are read at each
+    launch: the engines give progress a new tensor every round.  CPU
+    tensors take the plain version on the same state."""
+
+    def __init__(self, st, ctx, state, carry, use_gang: bool, use_prop: bool):
+        self.st, self.ctx, self.state, self.carry = st, ctx, state, carry
+        self.flags = (bool(use_gang), bool(use_prop))
+        dev = carry.cand.device
+        self.dev = dev
+        self.first = True
+        if dev.type == "cpu":
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"canon_commit: tensors on {dev}")
+        W = st.rv_window
+        if W <= 0:
+            raise ValueError("canon_commit: the pack has no canon window")
+        Vp, R = ctx.cres.shape
+        F = carry.cum_nq.shape[1]
+        N, J = st.num_nodes, st.num_jobs
+        PW = state.node_ports.shape[1]
+        if not 1 <= R <= MAX_R or F > R:
+            raise ValueError(f"canon_commit: R = {R}, F = {F}; want 1 <= F <= R <= {MAX_R}")
+        if smem_bytes(W, R) > SMEM_LIMIT:
+            raise ValueError(f"canon_commit: a window of {W} slots needs more shared memory "
+                             "than a CTA has")
+        checks = [
+            (ctx.cj, torch.int32, (Vp,)), (ctx.cq, torch.int32, (Vp,)),
+            (ctx.cres, torch.float32, (Vp, R)), (ctx.deserved_c, torch.float32, (Vp, F)),
+            (ctx.min_avail, torch.int32, (J,)), (st.rv_block_start, torch.int32, (N + 1,)),
+            (st.rv_idx, torch.int32, (Vp,)), (st.rv_nj_start, torch.bool, (Vp,)),
+            (st.rv_nq_start, torch.bool, (Vp,)), (st.group_ports, torch.int32, None),
+            (carry.cand, torch.bool, (Vp,)), (carry.evicted_c, torch.bool, (Vp,)),
+            (carry.rank_nj, torch.float32, (Vp,)), (carry.cum_nq, torch.float32, (Vp, F)),
+            (carry.q_entries, torch.int32, None), (carry.job_consumed, torch.bool, (J,)),
+            (carry.log_g, torch.int32, (J + 1,)), (carry.log_n, torch.int32, (J + 1,)),
+            (carry.log_r, torch.int32, (J + 1,)), (carry.n_claims, torch.int32, (1,)),
+            (state.job_alloc, torch.float32, (J, R)), (state.queue_alloc, torch.float32, None),
+            (state.job_ready_cnt, torch.int32, (J,)), (state.group_placed, torch.int32, None),
+            (state.node_releasing, torch.float32, (N, R)), (state.node_ports, torch.int32, (N, PW)),
+            (state.node_num_tasks, torch.int32, (N,)), (state.evict_claimant, torch.int32, None),
+            (state.evict_phase, torch.int32, None), (state.evict_round, torch.int32, None),
+        ]
+        for i, (t, dt, shape) in enumerate(checks):
+            build.require(t, dt, f"canon_commit.arg{i}", dev)
+            if shape is not None and tuple(t.shape) != shape:
+                raise ValueError(f"canon_commit.arg{i}: shape {tuple(t.shape)}, want {shape}")
+        if state.queue_alloc.dim() != 2 or state.queue_alloc.shape[1] != R:
+            raise ValueError("canon_commit: queue_alloc must be f32[Q, R]")
+        if st.group_ports.dim() != 2 or st.group_ports.shape[1] != PW:
+            raise ValueError("canon_commit: group_ports must be i32[G, PW]")
+        p = build.ptr
+        self.static = _Static(
+            p(ctx.cj), p(ctx.cq), p(ctx.cres), p(ctx.deserved_c), p(ctx.min_avail),
+            p(st.rv_block_start), p(st.rv_idx), p(st.rv_nj_start), p(st.rv_nq_start),
+            p(st.group_ports), p(carry.cand), p(carry.evicted_c), p(carry.rank_nj),
+            p(carry.cum_nq), p(carry.q_entries), p(carry.job_consumed), p(carry.log_g),
+            p(carry.log_n), p(carry.log_r), p(carry.n_claims), p(state.job_alloc),
+            p(state.queue_alloc), p(state.job_ready_cnt), p(state.group_placed),
+            p(state.node_releasing), p(state.node_ports), p(state.node_num_tasks),
+            p(state.evict_claimant), p(state.evict_phase), p(state.evict_round),
+            R, F, int(use_gang), int(use_prop), N, W, PW, J, EVICT_PHASE_RECLAIM,
+        )
+        self.static_ptr = ctypes.addressof(self.static)
+        self.turn = _Turn()
+        self.turn_ptr = ctypes.addressof(self.turn)
+        self.fn = build.bind("canon_commit", "kat_canon_commit", SIGNATURES)
+        self.stream = build.stream()
+
+    def __call__(self, pick, q, j, g, has_grp, pop, burn_now, req, active=None,
+                 claimed_out=None) -> None:
+        """Commit one turn in place: ``pick`` i32[1] (K7's or K14's), ``q``
+        / ``j`` / ``g`` i32 or i64 [1], ``has_grp`` / ``pop`` / ``burn_now``
+        bool[1], ``req`` f32[R]; ``active`` / ``claimed_out`` optional
+        bool[1] device flags; all on the plan's device."""
+        state = self.state
+        if self.dev.type == "cpu":
+            canon_commit_plain(self.st, self.ctx, state, self.carry, pick, q, j, g, has_grp,
+                               pop, burn_now, req, *self.flags, active, claimed_out)
+            return
+        t = self.turn
+        t.q_wide, t.j_wide, t.g_wide = (WIDE.get(x.dtype, -1) for x in (q, j, g))
+        if min(t.q_wide, t.j_wide, t.g_wide) < 0:
+            raise TypeError(f"canon_commit: q / j / g dtypes {q.dtype} / {j.dtype} / {g.dtype}, "
+                            "want i32 or i64")
+        progress = state.progress
+        if self.first:  # the turn's tensors keep their types all action
+            R = self.ctx.cres.shape[1]
+            for name, x, dt in (("pick", pick, torch.int32), ("has_grp", has_grp, torch.bool),
+                                ("pop", pop, torch.bool), ("burn_now", burn_now, torch.bool),
+                                ("req", req, torch.float32), ("progress", progress, torch.bool),
+                                ("active", active, torch.bool),
+                                ("claimed_out", claimed_out, torch.bool)):
+                if x is not None:
+                    build.require(x, dt, f"canon_commit.{name}", self.dev)
+            if req.shape != (R,) or progress.dim() != 0:
+                raise ValueError("canon_commit: req must be f32[R], progress a bool scalar")
+            if not all(x.device == self.dev for x in (q, j, g)):
+                raise ValueError("canon_commit: q / j / g off the plan's device")
+            self.first = False
+        t.pick, t.q, t.j, t.g = pick.data_ptr(), q.data_ptr(), j.data_ptr(), g.data_ptr()
+        t.has_grp, t.pop, t.burn = has_grp.data_ptr(), pop.data_ptr(), burn_now.data_ptr()
+        t.req, t.active, t.claimed_out = req.data_ptr(), build.ptr(active), build.ptr(claimed_out)
+        t.progress, t.rounds = progress.data_ptr(), state.rounds
+        build.check(self.fn(self.static_ptr, self.turn_ptr, self.stream), "canon_commit")
+        canon_commit.launches += 1
+
+
 def canon_commit(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, req,
                  use_gang: bool, use_prop: bool, active=None, claimed_out=None) -> None:
     """Commit one turn in place.  ``pick`` i32[1] from K7 or K14;
-    ``q``/``j``/``g`` i32[1]; ``has_grp``/``pop``/``burn_now`` bool[1];
-    ``req`` f32[R].  Optional bool[1] device flags: ``active`` (clear: do
-    nothing) and ``claimed_out`` (receives the turn's claimed bit).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    args = (st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, req,
-            use_gang, use_prop, active, claimed_out)
-    if req.device.type == "cpu":
-        canon_commit_plain(*args)
-        return
-    dev = req.device
-    if dev.type != "cuda":
-        raise ValueError(f"canon_commit: tensors on {dev}")
-    if state.progress.dim() != 0 or state.progress.dtype != torch.bool:
-        raise ValueError("canon_commit: progress must be a bool scalar")
-    checks = [
-        (carry.cand, torch.bool), (carry.rank_nj, torch.float32), (carry.cum_nq, torch.float32),
-        (ctx.cj, torch.int32), (ctx.cq, torch.int32), (ctx.deserved_c, torch.float32),
-        (state.job_ready_cnt, torch.int32), (ctx.min_avail, torch.int32),
-        (state.queue_alloc, torch.float32), (pick, torch.int32), (q, torch.int32),
-        (j, torch.int32), (g, torch.int32), (has_grp, torch.bool), (pop, torch.bool),
-        (burn_now, torch.bool), (req, torch.float32), (st.rv_block_start, torch.int32),
-        (st.rv_idx, torch.int32), (ctx.cres, torch.float32), (st.rv_nj_start, torch.bool),
-        (st.rv_nq_start, torch.bool), (st.group_ports, torch.int32),
-        (carry.evicted_c, torch.bool), (state.job_alloc, torch.float32),
-        (carry.q_entries, torch.int32), (carry.job_consumed, torch.bool),
-        (state.group_placed, torch.int32), (carry.log_g, torch.int32),
-        (carry.log_n, torch.int32), (carry.log_r, torch.int32), (carry.n_claims, torch.int32),
-        (state.node_releasing, torch.float32), (state.node_ports, torch.int32),
-        (state.node_num_tasks, torch.int32), (state.evict_claimant, torch.int32),
-        (state.evict_phase, torch.int32), (state.evict_round, torch.int32),
-        (state.progress, torch.bool),
-    ] + [(t, torch.bool) for t in (active, claimed_out) if t is not None]
-    for i, (t, dt) in enumerate(checks):
-        build.require(t, dt, f"canon_commit.arg{i}", dev)
-    W = st.rv_window
-    if W <= 0:
-        raise ValueError("canon_commit: the pack has no canon window")
-    R = ctx.cres.shape[1]
-    fn = build.bind("canon_commit", "kat_canon_commit", SIGNATURES)
-    build.check(fn(
-        build.ptr(carry.cand), build.ptr(carry.rank_nj), build.ptr(carry.cum_nq),
-        build.ptr(ctx.cj), build.ptr(ctx.cq), build.ptr(ctx.deserved_c),
-        build.ptr(state.job_ready_cnt), build.ptr(ctx.min_avail), build.ptr(state.queue_alloc),
-        R, carry.cum_nq.shape[1], int(use_gang), int(use_prop), build.ptr(pick), build.ptr(q),
-        build.ptr(j), build.ptr(g), build.ptr(has_grp), build.ptr(pop), build.ptr(burn_now),
-        build.ptr(req), build.ptr(st.rv_block_start), build.ptr(st.rv_idx),
-        build.ptr(ctx.cres), build.ptr(st.rv_nj_start), build.ptr(st.rv_nq_start),
-        build.ptr(st.group_ports), build.ptr(carry.evicted_c), build.ptr(state.job_alloc),
-        build.ptr(carry.q_entries), build.ptr(carry.job_consumed), build.ptr(state.group_placed),
-        build.ptr(carry.log_g), build.ptr(carry.log_n), build.ptr(carry.log_r),
-        build.ptr(carry.n_claims), build.ptr(state.node_releasing), build.ptr(state.node_ports),
-        build.ptr(state.node_num_tasks), build.ptr(state.evict_claimant),
-        build.ptr(state.evict_phase), build.ptr(state.evict_round), build.ptr(state.progress),
-        st.num_nodes, W, state.node_ports.shape[1], state.rounds, EVICT_PHASE_RECLAIM,
-        build.ptr(active), build.ptr(claimed_out), build.stream(),
-    ), "canon_commit")
-    canon_commit.launches += 1
+    ``q``/``j``/``g`` i32 or i64 [1]; ``has_grp``/``pop``/``burn_now``
+    bool[1]; ``req`` f32[R].  Optional bool[1] device flags: ``active``
+    (clear: do nothing) and ``claimed_out`` (receives the turn's claimed
+    bit).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel once through a plan of its own."""
+    CanonCommitPlan(st, ctx, state, carry, use_gang, use_prop)(
+        pick, q, j, g, has_grp, pop, burn_now, req, active, claimed_out)
 
 
 canon_commit.launches = 0

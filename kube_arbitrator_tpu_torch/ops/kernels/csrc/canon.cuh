@@ -20,20 +20,22 @@ struct CanonElig {
 };
 
 // preempt.py:_canon_elig (:2012-2032): canon slot s's victim eligibility
-// from the carried scans, before any turn's own-queue exclusion.
+// from the carried scans, before any turn's own-queue exclusion.  The
+// tests are joined with & (no short circuit), so every read is issued at
+// once rather than each after the last test's.
 __device__ __forceinline__ bool kat_canon_elig(const CanonElig& e, int s) {
-  bool ok = e.cand[s] != 0;
   if (!(e.use_gang || e.use_prop)) return false;
+  bool ok = e.cand[s] != 0;
   if (e.use_gang) {
     const int j = e.cj[s];
     const int cap = max(e.job_ready_cnt[j] - e.min_avail[j], 0);
-    ok = ok && e.rank_nj[s] < __int2float_rn(cap);
+    ok &= e.rank_nj[s] < __int2float_rn(cap);
   }
   if (e.use_prop) {
     const int qq = e.cq[s];
     for (int r = 0; r < e.F; ++r) {
       const float after = __fsub_rn(e.queue_alloc[(size_t)qq * e.R + r], e.cum_nq[(size_t)s * e.F + r]);
-      ok = ok && e.deserved_c[(size_t)s * e.F + r] < __fadd_rn(after, KAT_EPS);
+      ok &= e.deserved_c[(size_t)s * e.F + r] < __fadd_rn(after, KAT_EPS);
     }
   }
   return ok;

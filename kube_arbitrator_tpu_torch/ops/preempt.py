@@ -66,13 +66,14 @@ from .allocate import (
     select_turns,
 )
 from .common import (
-    BIG, EPS, fair, lexsort, mm_cumsum, plugin_on, safe_share, seg_cumsum,
+    BIG, EPS, fair, lexsort, plugin_on, safe_share, seg_cumsum,
 )
 from .fairness import drf_shares
-from .kernels.canon_commit import _scatter_set, canon_commit
+from .kernels.canon_commit import CanonCommitPlan, _scatter_set, canon_commit
 from .kernels.canon_pick import CanonPickPlan, canon_pick
 from .kernels.claim_nodes import claim_nodes
 from .kernels.lex_argmin import TurnPickPlan
+from .kernels.ordered_scan import OrderedScanPlan
 from .kernels.queue_order import QueueOrderPlan
 from .kernels.round_products import RoundProductsPlan
 from .kernels.seg_scan import SegScanPlan
@@ -849,8 +850,8 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     carry = _canon_seed(st, state, ctx)
     order = _order_plan(st, sess, tiers)  # K17, bound once
     pick_plan = _pick_plan(st, sess, state, ctx, carry, use_gang, use_prop, preds_on)  # K7
+    commit = CanonCommitPlan(st, ctx, state, carry, use_gang, use_prop)  # K8
     pops = _pick_pops(st, sess, tiers)  # K2
-    i32 = torch.int32
     while True:
         nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
         go, nq_h = _host(state.progress, nq)
@@ -864,9 +865,7 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
                 st, sess, state, tiers, shared, q, carry.q_entries[q], pops
             )
             pick = pick_plan(q, g, has_grp, pop, req)
-            # K8 reads i32 ordinals: the turn's last casts
-            canon_commit(st, ctx, state, carry, pick, q.to(i32), j.to(i32), g.to(i32), has_grp,
-                         pop, burn_now, req, use_gang, use_prop)
+            commit(pick, q, j, g, has_grp, pop, burn_now, req)
         state.rounds += 1
     return _canon_writeback(st, state, carry)
 
@@ -928,6 +927,7 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
     carry = _canon_seed(st, state, ctx)
     products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
     order = _order_plan(st, sess, tiers)  # K17, bound once
+    commit = CanonCommitPlan(st, ctx, state, carry, use_gang, use_prop)  # K8, bound once
     # K2: the round's panel pops stay live while the turns pop, so each
     # has a plan of its own
     panel_pops, live_pops = _pick_pops(st, sess, tiers), _pick_pops(st, sess, tiers)
@@ -960,11 +960,10 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
                 rows[3] = rows[3][0]
                 live = [torch.where(claimed_any, lv, pv) for lv, pv in zip(live, rows)]
             j, g, has_grp, req, pop, burn_now = live
-            q32, j32, g32 = q.to(i32), j.to(i32), g.to(i32)
-            pick = _union_fit(st, state, ctx, prods, preds_on, q32, g32, has_grp,
+            # K14 reads i32 ordinals (the pops' g is i32 already); K8 either
+            pick = _union_fit(st, state, ctx, prods, preds_on, q.to(i32), g.to(i32), has_grp,
                               req[None, :].contiguous(), pop)
-            canon_commit(st, ctx, state, carry, pick, q32, j32, g32, has_grp, pop, burn_now, req,
-                         use_gang, use_prop, claimed_out=dirty)
+            commit(pick, q, j, g, has_grp, pop, burn_now, req, claimed_out=dirty)
             claimed_any |= dirty
         state.rounds += 1
         if trip <= RP:
@@ -1003,6 +1002,7 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
     carry = _canon_seed(st, state, ctx)
     products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
     order = _order_plan(st, sess, tiers)  # K17, bound once
+    commit = CanonCommitPlan(st, ctx, state, carry, use_gang, use_prop)  # K8, bound once
     pops = _pick_pops(st, sess, tiers)  # K2, bound once
     prods = products.out
     ctl, sel = new_gate(ctx.cres.shape[1], dev)
@@ -1029,9 +1029,8 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
         window_gate(pick, N, qp32, jp, gp, hgp, reqp, popp, burnp, ctl, carry.q_entries,
                     carry.job_consumed, state.progress, sel)
         state.rounds = rounds
-        canon_commit(st, ctx, state, carry, sel_i[3:4], sel_i[0:1], sel_i[1:2], sel_i[2:3],
-                     sel_b[0:1], sel_b[1:2], sel_b[2:3], sel_req, use_gang, use_prop,
-                     active=sel_b[3:4])
+        commit(sel_i[3:4], sel_i[0:1], sel_i[1:2], sel_i[2:3], sel_b[0:1], sel_b[1:2],
+               sel_b[2:3], sel_req, active=sel_b[3:4])
         vals = torch.cat([ctl, state.progress.reshape(1).to(i32)]).tolist()
         start, progress = vals[START], bool(vals[-1])
         rounds += vals[ROUND_DONE]
@@ -1105,7 +1104,9 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
         L_nq, inv_nq, base_nq = _task_layout((vq, node_key), st.task_priority,
                                              st.task_uid_rank, rr, extra_keys=(vj,))
         order_nq = L_nq.order.to(i64)
-        res_nq = fair(L_nq.res_sorted)
+        # K20 over the live candidates' fair rows, bound once
+        res_nq = fair(L_nq.res_sorted).contiguous()
+        nq_scan = OrderedScanPlan(T, res_nq.shape[1], dev, rows=res_nq)
         deserved_t = fair(sess.deserved)[vq64]
 
     state.progress = torch.ones((), dtype=torch.bool, device=dev)
@@ -1119,6 +1120,8 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
     log_r = torch.zeros(J + 1, dtype=i32, device=dev)
     n_claims = torch.zeros(1, dtype=i32, device=dev)
     node_ids = torch.arange(N, device=dev)
+    # K20 over the claim node's victims for the covering prefix, bound once
+    node_scan = OrderedScanPlan(T, rr.shape[1], dev, rows=L_node.res_sorted)
     while True:
         q_active = st.queue_valid & (q_entries > 0) & queue_has_live_job(
             st, group_live_mask(st, sess, state.group_placed, None), job_extra=~job_consumed,
@@ -1143,9 +1146,8 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
                 cap = (state.job_ready_cnt - sess.min_avail).clamp(min=0)
                 elig = elig & (rank_now < cap[vj64])
             if use_prop:
-                m_nq = cand[order_nq]
-                v_nq = torch.where(m_nq[:, None], res_nq, 0.0)
-                c_nq = mm_cumsum(v_nq)
+                c_nq = nq_scan(mask=cand[order_nq])  # mm_cumsum of the masked rows
+                v_nq = nq_scan.masked
                 cum_seg = c_nq - (c_nq[base_nq] - v_nq[base_nq])  # inclusive in-segment
                 after = fair(state.queue_alloc)[vq64] - cum_seg[inv_nq]
                 elig = elig & (deserved_t < after + EPS).all(dim=-1)
@@ -1178,8 +1180,8 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
             # ---- the minimal covering prefix on n_star (only its victims
             # are non-zero, so one cumulative in node order is in-node)
             m_s = mask_v[order_node] & (node_sorted == n_star)
-            v_s = torch.where(m_s[:, None], L_node.res_sorted, 0.0)
-            cum_s = mm_cumsum(v_s)
+            cum_s = node_scan(mask=m_s)  # mm_cumsum of the masked rows
+            v_s = node_scan.masked
             evict_s = m_s & claimed & ((cum_s - v_s) < (req - EPS)[None, :]).any(dim=-1)
             evict = evict_s[inv_node]
             evict_res = torch.where(evict[:, None], rr, 0.0)

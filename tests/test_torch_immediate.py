@@ -12,8 +12,7 @@
   decode);
 * K9's plain version against the reference's ``_node_capacity`` and its
   packing ``lexsort``; K9 and K10 (K11 / K12 under pod affinity) turn by
-  turn against the reference's ``_process_queue``;
-* ``mm_cumsum`` adds in the order of the reference's CPU cumsum.
+  turn against the reference's ``_process_queue``.
 
 Device units are integers and every sum stays under 2^24 (asserted where
 the capacities come from a fit fraction), so every field must be equal
@@ -38,7 +37,6 @@ from kube_arbitrator_tpu.ops import preempt as ref_pre
 from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy, pa_enabled
 from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
 from kube_arbitrator_tpu_torch.ops import allocate as port_alloc
-from kube_arbitrator_tpu_torch.ops import common as port_common
 from kube_arbitrator_tpu_torch.ops import cycle as port_cycle
 from kube_arbitrator_tpu_torch.ops import ordering as port_ord
 from kube_arbitrator_tpu_torch.ops import preempt as port_pre
@@ -263,21 +261,6 @@ def test_turns_match_reference_process_queue(policy, pod_affinity):
                 assert bool(state.progress) == bool(pstate.progress), f"{ctx}progress"
         placed = int((pstate.task_status == int(TaskStatus.ALLOCATED)).sum())
     assert placed > 50
-
-
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 257, 4097, 51_200])
-def test_mm_cumsum_adds_in_the_reference_order(n):
-    """``mm_cumsum`` equals the reference's on the CPU (``jnp.cumsum``) bit
-    for bit, on fractional values whose totals pass 2^24 (where the order
-    of adds shows), in one and two dimensions."""
-    rng = np.random.default_rng(n)
-    x = (rng.integers(1, 64_000, size=(n, 4)) * rng.random((n, 4))).astype(np.float32)
-    for a in (x, x[:, 1]):
-        want = np.asarray(ref_common.mm_cumsum(jnp.asarray(a)))
-        got = port_common.mm_cumsum(torch.from_numpy(np.ascontiguousarray(a))).numpy()
-        assert got.dtype == np.float32 and np.array_equal(want.view(np.int32), got.view(np.int32))
-    if n == 51_200:
-        assert float(np.asarray(ref_common.mm_cumsum(jnp.asarray(x)))[-1, 0]) > 2**24
 
 
 # ---------------------------------------------------------------- _reclaim_fast

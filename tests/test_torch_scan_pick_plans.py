@@ -14,8 +14,8 @@ plain version.
   ``lex_argmin`` over the reference's key columns (ties, +-0.0, inf,
   keys at and past BIG, NaN, empty and all-true rows), and on a world
   against the reference's ``select_turns`` and ``_reclaim_pop``.
-* The plans' ctypes structs mirror the C structs; the plans own their
-  outputs.
+* The plans' ctypes structs mirror the C structs (K8's and K20's plans
+  too); the plans own their outputs.
 
 Inputs are made with numpy from a seed.  Every comparison is exact.
 """
@@ -48,7 +48,9 @@ from kube_arbitrator_tpu_torch.ops import cycle as port_cycle
 from kube_arbitrator_tpu_torch.ops import ordering as port_ord
 from kube_arbitrator_tpu_torch.ops import preempt as port_pre
 from kube_arbitrator_tpu_torch.ops.kernels import build
+from kube_arbitrator_tpu_torch.ops.kernels import canon_commit as k8
 from kube_arbitrator_tpu_torch.ops.kernels import lex_argmin as k2
+from kube_arbitrator_tpu_torch.ops.kernels import ordered_scan as k20
 from kube_arbitrator_tpu_torch.ops.kernels import seg_scan as k5
 
 LAYOUTS = ("by_job", "by_queue", "by_node_queue")
@@ -423,7 +425,9 @@ def _c_fields(source: str, struct: str):
 
 @pytest.mark.parametrize("mod,source,struct,cls", [
     (k2, "lex_argmin", "Static", "_Static"), (k2, "lex_argmin", "Call", "_Call"),
-    (k5, "seg_scan", "Static", "_Static")])
+    (k5, "seg_scan", "Static", "_Static"), (k8, "canon_commit", "Static", "_Static"),
+    (k8, "canon_commit", "Turn", "_Turn"), (k20, "ordered_scan", "Static", "_Static"),
+    (k20, "ordered_scan", "Call", "_Call")])
 def test_plan_structs_mirror_the_c_structs(mod, source, struct, cls):
     got = [(name, typ is ctypes.c_void_p, getattr(typ, "_length_", 0))
            for name, typ in getattr(mod, cls)._fields_]

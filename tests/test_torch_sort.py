@@ -9,7 +9,8 @@ the JAX package, exactly.
   claim-dense (512 queues) and the priority-mix worlds; ``segment_order``
   against numpy's stable argsort and ``searchsorted``.
 * K20 (``ops/common.mm_cumsum``) against the reference's ``mm_cumsum`` on
-  the CPU at the 16-row block edges, for [V] and [V, C].
+  the CPU at the 16-row block edges and K20's tile edges, for [V] and
+  [V, C] (the one test of ``mm_cumsum``'s order), and K20's launch shape.
 
 Twins marked ``cuda`` hold the kernels against these plain versions on
 the card and skip without one."""
@@ -215,21 +216,24 @@ def test_replay_claim_log_equals_reference(world):
 # ---------------------------------------------------------------- K20
 
 
-@pytest.mark.parametrize("two_d", (False, True))
-@pytest.mark.parametrize("V", (15, 16, 17, 255, 256, 257, 51_200))
-def test_mm_cumsum_at_block_edges(V, two_d):
-    """Bit for bit the reference's ``mm_cumsum`` on the CPU (``jnp.cumsum``)
-    on fractional values with -0.0 among them; at 51,200 rows the totals
-    pass 2^24, where the order of the adds shows."""
-    rng = np.random.default_rng(V)
-    x = (rng.integers(1, 64_000, size=(V, 3)) * rng.random((V, 3))).astype(np.float32)
-    x[rng.random((V, 3)) < 0.05] = -0.0
-    a = x if two_d else np.ascontiguousarray(x[:, 0])
+@pytest.mark.parametrize("C", (None, 3, 4))
+@pytest.mark.parametrize("V", (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 51_200, 65_536,
+                               65_537))
+def test_mm_cumsum_adds_in_the_reference_order(V, C):
+    """``mm_cumsum`` equals the reference's on the CPU (``jnp.cumsum``) bit
+    for bit, [V] (C None) and [V, C], on fractional values with -0.0 among
+    them, at the edges of the recursion's 16-row blocks and of K20's
+    4,096-row tiles (65,537: more than 16 tiles); from 51,200 rows the
+    totals pass 2^24, where the order of the adds shows."""
+    rng = np.random.default_rng(V * 5 + (C or 1))
+    x = (rng.integers(1, 64_000, size=(V, C or 1)) * rng.random((V, C or 1))).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = -0.0
+    a = x if C else np.ascontiguousarray(x[:, 0])
     want = np.asarray(ref_common.mm_cumsum(jnp.asarray(a)))
     got = port_common.mm_cumsum(torch.from_numpy(a)).numpy()
     assert got.dtype == np.float32 and np.array_equal(want.view(np.int32), got.view(np.int32))
-    if V == 51_200:
-        assert float(want[-1] if not two_d else want[-1, 0]) > 2**24
+    if V >= 51_200:
+        assert float(want[-1] if not C else want[-1, 0]) > 2**24
 
 
 def test_ordered_scan_refusals():
@@ -237,7 +241,15 @@ def test_ordered_scan_refusals():
         k20.ordered_scan(torch.zeros(4))
     with pytest.raises(TypeError):
         k20.ordered_scan(torch.zeros((4, 2), dtype=torch.float64))
-    assert k20.smem_bytes(16) == 0 and k20.smem_bytes(51_200) == 4 * (3200 + 200 + 13)
+    # the launch shape: one chain, one tile, tiles; the limit (16^5 rows)
+    # past every V the one-CTA-a-column design took (its level sums in
+    # shared memory: ~871k rows)
+    assert k20.layout(16, 1)["levels"] == 0 and k20.layout(4096, 3)["tiles"] == 1
+    shape = k20.layout(51_200, 3)
+    assert (shape["levels"], shape["tiles"], shape["chunks"]) == (3, 13, 1)
+    assert k20.layout(k20.MAX_ROWS, 9)["ctas"] == 256 * 9 and k20.MAX_ROWS == 16**5 > 871_000
+    with pytest.raises(ValueError):
+        k20.layout(k20.MAX_ROWS + 1, 1)
 
 
 # ---------------------------------------------------------------- on the card
