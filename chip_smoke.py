@@ -45,13 +45,20 @@ rows):
    K13 through RoundProductsPlan, the engines' form: a clear dirty flag,
    three launches back to back over in-place changes of the carry, and
    two more packs — one whose padding is its longest run, one with node
-   blocks past 32 slots), K4 in its callers' forms (ordered and
+   blocks past 32 slots; K14 through UnionFitPlan with and without the
+   window's ctl, a window partly and wholly past the trip, no claim, a
+   claim only at the last row, every pick at the last schedulable node,
+   the batched engine's one-row form, i32 and i64 q, and packs of N =
+   1,536 and 128, not multiples of its 1,024-node tile; K15 through
+   WindowGatePlan: a claim at row 0 with conflicts, i64 and i32 q_panel,
+   no claim, a claim only at the last row, a window before the trip),
+   K4 in its callers' forms (ordered and
    unordered at open_session's 102,400 -> 1,024 and
    the evictive world's per-node 51,200 -> 5,120 shapes, _reclaim_fast's
    jstat with 24 slots in range, ordered_sum at 10,240 and 500 rows;
    each route with out= accumulation, i32, every slot dropped, T = 0 and
    one launch a call), K2, K5, K12 and K17: one device event and no
-   allocation a launch (K8 and K20 too),
+   allocation a launch (K8, K14, K15 and K20 too),
    K16 on its three callers' shapes (a commit list at T = 102,400 whose
    count passes the cap, allocate's feasibility cells at [K, 10,240],
    preempt's full-width victim panel at 51,200), K17 through
@@ -125,7 +132,10 @@ rows):
    conflicts; seed 42's counts, digest and reclaim counters equal the
    JAX package's (Q512_WORLD_42, ROUNDS_Q4_WORLD_42); card == CPU on the
    integer fields (rounds_q4 at full width, the q512 shape at 20k x 2k);
-   K13-K16 launched.
+   K13-K16 launched.  Then one optimistic reclaim action of q512_evict
+   (seed 42) under torch.profiler with ``Tensor.to`` watched: its device
+   events a window, no cast from ``_reclaim_canon_optimistic``'s own
+   frame, K14, K15 and K8 each launched once a window.
 7. the serving path at full width — the evictive world (50k x 5k, seed
    42) served for five epochs through ``framework.TorchDecider`` on the
    card: epoch 1 uploads in full and decides like the JAX package
@@ -254,6 +264,13 @@ K13_PADDING_WORLD = dict(tasks=4_000, nodes=2_000, queues=8, tasks_per_job=100,
                          running_fraction=0.05, fit_fraction=1.2)
 K13_LONG_BLOCKS_WORLD = dict(tasks=8_000, nodes=60, queues=8, tasks_per_job=100,
                              running_fraction=0.5, fit_fraction=1.2)
+# K14's packs whose N (padded to 128) is not a multiple of its 1,024-node
+# tile: 1,536 nodes (a tile and a half), and 128 (less than one)
+K14_TILE_EDGE_WORLDS = (
+    ("N = 1,536", dict(tasks=12_000, nodes=1_500, queues=64, tasks_per_job=100,
+                       running_fraction=0.5, fit_fraction=1.2), 9),
+    ("N = 128", K13_LONG_BLOCKS_WORLD, 8),
+)
 # card vs CPU for the q512 shape at a size the CPU decides quickly
 Q512_CPU_CHECK = dict(tasks=20_000, nodes=2_000, queues=512, tasks_per_job=100,
                       running_fraction=0.5, fit_fraction=1.2)
@@ -2124,11 +2141,12 @@ def window_fixture(dev):
     in_window = torch.arange(RP, device=dev) < trip
     shared = preempt._reclaim_shared(st, sess, state, tiers, carry.job_consumed)
     pops = preempt.reclaim_select_turns(st, sess, state, tiers, shared, q_panel, carry.q_entries)
-    prods = preempt._products_plan(st, sess, state, ctx, carry, use_gang, use_prop)()
+    products = preempt._products_plan(st, sess, state, ctx, carry, use_gang, use_prop)
+    prods = products()
     return types.SimpleNamespace(
         st=st, st_cpu=from_numpy(arrays, "cpu"), sess=sess, state=state, ctx=ctx, carry=carry,
-        flags=(use_gang, use_prop, preds_on), RP=RP, trip=trip, q_panel=q_panel.to(torch.int32),
-        in_window=in_window, pops=pops, prods=prods)
+        flags=(use_gang, use_prop, preds_on), RP=RP, trip=trip, q_panel=q_panel,
+        in_window=in_window, pops=pops, products=products, prods=prods)
 
 
 def canon_world(dev, w, seed):
@@ -2270,44 +2288,210 @@ def k13_case(dev, fx):
                 shape=f"Vp={Vp}, N={N}, R={R} (q512_evict first window, RoundProductsPlan)")
 
 
-def k14_case(dev, fx):
+def k14_plain(fx, st_cpu, pn, segcum, q, g, hg, pp, req):
+    """K14's plain version on the CPU over the fixture's state."""
     from kube_arbitrator_tpu_torch.ops.kernels import union_fit as k14
+
+    s = to_cpu(fx.state)
+    return k14.union_fit_plain(st_cpu, to_cpu(fx.ctx.skey), segcum.cpu(), pn.cpu(), q.cpu(),
+                               g.cpu(), hg.cpu(), pp.cpu(), req.cpu(), s.node_ports,
+                               s.node_num_tasks, fx.flags[2])
+
+
+def k14_bound(fx, segcum, pn, g, live, pick) -> dict:
+    """K14's bound from the timed launch's inputs: what the first-fit
+    function needs, not what the kernel's tiles touch.  Each live row
+    (popped, with a group, below the trip) screens the nodes up to its
+    pick (every node where it has none): 8 screen operations a node and,
+    on a node that passes the row's node screens, the own-queue search of
+    the node's block (ceil(log2(block length + 1)) levels) and the
+    subtract-and-compare of the R + 1 sums.  Bytes: the node rows and the
+    canon slots of the blocks below the highest node any row needs, each
+    read once, the live rows' inputs, every row's flags and pick.  Also
+    the dense figure of the earlier design's bound (every row x every
+    node x a search of the whole skey), kept so that the old rows
+    compare."""
+    st, s, ctx = fx.st, fx.state, fx.ctx
+    N, RP = st.num_nodes, live.shape[0]
+    Vp, R = ctx.cres.shape
+    W = s.node_ports.shape[1]
+    i64 = torch.int64
+    b = st.rv_block_start.to(i64)
+    levels = torch.ceil(torch.log2((b[1:] - b[:-1]).double() + 1.0))
+    node_ok = (st.node_valid[None, :].expand(RP, N)).clone()
+    if fx.flags[2]:
+        gg = g.to(i64)
+        node_ok &= ~st.node_unsched[None, :]
+        node_ok &= st.class_fit[st.group_klass[gg].to(i64)][:, st.node_klass.to(i64)]
+        node_ok &= ((st.group_ports[gg][:, None, :] & s.node_ports[None]) == 0).all(dim=-1)
+        node_ok &= (st.node_max_tasks - s.node_num_tasks > 0)[None, :]
+    nodes = torch.arange(N, device=pick.device)
+    need = live[:, None] & (nodes[None, :] <= pick.to(i64)[:, None])
+    cost = 8.0 + node_ok.double() * (levels[None, :] + 2 * (R + 1))
+    nops = float((cost * need.double()).sum())
+    n_hi = int(need.sum(dim=1).max()) if bool(live.any()) else 0
+    slots = int(b[n_hi])
+    n_live = int(live.sum())
+    nbytes = slots * 4 * (R + 2) + n_hi * (4 * (R + 1) + 4 + 4 * W + 4 + 4 + 3 + 4) \
+        + n_live * (4 + 4 + 4 * R) + RP * (2 + 4)
+    dense_b, dense_by = bound_ms(
+        Vp * 4 + Vp * 4 * (R + 1) + N * 4 * (R + 1) + N * (4 + 4 * W + 4 + 4 + 3)
+        + RP * (4 + 4 + 2 + 4 * R) + RP * 4,
+        RP * N * (int(np.ceil(np.log2(Vp))) + 2 * (R + 1) + 8))
+    bnd, by = bound_ms(nbytes, nops)
+    return dict(bound_ms=bnd, bound_by=by, bound_ops=nops, bound_bytes=nbytes,
+                live_rows=n_live, nodes_needed_max=n_hi, dense_bound_ms=dense_b,
+                dense_bound_by=dense_by)
+
+
+def k14_case(dev, fx):
+    """K14 through ``UnionFitPlan`` in every form: the q512_evict first
+    window with ``ctl`` (the optimistic engine's form, timed) and with the
+    rows masked outside, a window partly and wholly past the trip, no
+    claim, a claim only at the last row, a pick at the last node, the
+    batched engine's one-row form, i32 and i64 q, and a pack whose N is
+    not a multiple of the tile; each pick equal to the plain version's on
+    the CPU; one device event and no allocation a launch."""
+    from kube_arbitrator_tpu_torch.ops import preempt
+    from kube_arbitrator_tpu_torch.ops.kernels import union_fit as k14
+    from kube_arbitrator_tpu_torch.ops.kernels import window_gate as k15
 
     _, _, preds_on = fx.flags
     st, ctx, s = fx.st, fx.ctx, fx.state
     jp, gp, hgp, reqp, popp, burnp = fx.pops
     _, pn, segcum = fx.prods
-    rows = (fx.q_panel, gp, hgp, popp & fx.in_window)
+    N, RP = st.num_nodes, fx.RP
+    q = fx.q_panel
+    cases = []
+    plan = preempt._fit_plan(st, s, ctx, fx.products, preds_on, RP)
+    ctl, _ = k15.new_gate(ctx.cres.shape[1], dev)
 
-    def args(st_, ctx_, s_, pn_, seg_, q, g, hg, pp, req):
-        return (st_, ctx_.skey, seg_, pn_, q, g, hg, pp, req, s_.node_ports, s_.node_num_tasks,
-                preds_on)
+    def launch(p, *rows, **kw):
+        n0 = k14.union_fit.launches
+        got = p(*rows, **kw)
+        expect(k14.union_fit.launches == n0 + 1, "K14: one launch a call")
+        expect(got is p.pick, "K14: the plan's own pick")
+        return got.clone()
 
-    q, g, hg, pp = rows
-    got = k14.union_fit(*args(st, ctx, s, pn, segcum, q, g, hg, pp, reqp))
-    want = k14.union_fit_plain(*args(fx.st_cpu, to_cpu(ctx), to_cpu(s), pn.cpu(), segcum.cpu(),
-                                     q.cpu(), g.cpu(), hg.cpu(), pp.cpu(), reqp.cpu()))
-    expect(torch.equal(got.cpu(), want), "K14 differs from its plain version")
-    N = st.num_nodes
-    n_claim = int((got < N).sum())
-    expect(n_claim > 1 and int((got == N).sum()) > 0, f"K14 inputs: {n_claim} rows claim")
-    t = kernel_times(lambda: k14.union_fit(*args(st, ctx, s, pn, segcum, q, g, hg, pp, reqp)))
-    plain_ms = cuda_ms(lambda: k14.union_fit_plain(*args(st, ctx, s, pn, segcum, q, g, hg, pp,
-                                                         reqp)), reps=3)
-    RP = q.shape[0]
-    Vp, R = ctx.cres.shape
-    W = s.node_ports.shape[1]
-    nbytes = Vp * 4 + Vp * 4 * (R + 1) + N * 4 * (R + 1) + N * (4 + 4 * W + 4 + 4 + 3) \
-        + RP * (4 + 4 + 2 + 4 * R) + RP * 4
-    nops = RP * N * (int(np.ceil(np.log2(Vp))) + 2 * (R + 1) + 8)
-    b, by = bound_ms(nbytes, nops)
-    return dict(name="union_fit", max_abs_err=float((got.cpu() - want).abs().max()), **t,
-                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+    def check(what, got, want, **extra):
+        expect(torch.equal(got.cpu(), want), f"K14 {what} differs from its plain version")
+        claims = int((want < N).sum())
+        cases.append(dict(case=what, claims=claims, first=int((want < N).nonzero()[0, 0])
+                          if claims else None, **extra))
+        return claims
+
+    # the first window, with ctl and with the pop masked outside
+    ctl[k15.START], ctl[k15.TRIP] = 0, fx.trip
+    want = k14_plain(fx, fx.st_cpu, pn, segcum, q, gp, hgp, popp & fx.in_window, reqp)
+    got = launch(plan, q, gp, hgp, popp, reqp, ctl=ctl)
+    n_claim = check("q512_evict first window, ctl, i64 q", got, want)
+    expect(n_claim > 1 and int((want == N).sum()) > 0 and int(want[0]) < N,
+           f"K14 inputs: {n_claim} rows claim, row 0 picks {int(want[0])}")
+    check("q512_evict first window, pop masked outside, i32 q",
+          launch(plan, q.to(torch.int32), gp, hgp, popp & fx.in_window, reqp), want)
+    # a window partly, then wholly, past the trip
+    for start in (fx.trip - 5, fx.trip):
+        ctl[k15.START] = start
+        inw = torch.arange(RP, device=dev) + start < fx.trip
+        check(f"START {start}, TRIP {fx.trip}", launch(plan, q, gp, hgp, popp, reqp, ctl=ctl),
+              k14_plain(fx, fx.st_cpu, pn, segcum, q, gp, hgp, popp & inw, reqp))
+    ctl[k15.START] = 0
+    # no claim: requests above every node's victims
+    big = torch.full_like(reqp, 3.0e38)
+    expect(check("no claim (every live row walks every tile)",
+                 launch(plan, q, gp, hgp, popp, big, ctl=ctl),
+                 k14_plain(fx, fx.st_cpu, pn, segcum, q, gp, hgp, popp & fx.in_window, big),
+                 **kernel_times(lambda: plan(q, gp, hgp, popp, big, ctl=ctl))) == 0,
+           "K14: a request above every node's victims claimed")
+    # a claim only at the last row: a claiming row's queue, group and
+    # request moved there, every other row not popping
+    c = int((want < N).nonzero()[-1, 0])
+    q2, g2, h2, r2 = q.clone(), gp.clone(), hgp.clone(), reqp.clone()
+    q2[-1], g2[-1], h2[-1], r2[-1] = q[c], gp[c], hgp[c], reqp[c]
+    p2 = torch.zeros_like(popp)
+    p2[-1] = True
+    last = check("a claim only at the last row", launch(plan, q2, g2, h2, p2, r2),
+                 k14_plain(fx, fx.st_cpu, pn, segcum, q2, g2, h2, p2, r2))
+    expect(last == 1, f"K14: {last} rows claim, not only the last")
+    # a pick at the last schedulable node (the pack pads N past it):
+    # every other node's union count cleared
+    n_last = int((st.node_valid & ~st.node_unsched).nonzero()[-1, 0])
+    pn_last = pn.clone()
+    pn_last[:, 0] = 0.0
+    pn_last[n_last] = 1.0e9
+    lplan = k14.UnionFitPlan(st, ctx.skey, segcum, pn_last, s.node_ports, s.node_num_tasks,
+                             preds_on, RP)
+    lw = k14_plain(fx, fx.st_cpu, pn_last, segcum, q, gp, hgp, popp & fx.in_window, reqp)
+    check(f"every pick at the last schedulable node ({n_last} of N = {N})",
+          launch(lplan, q, gp, hgp, popp, reqp, ctl=ctl), lw,
+          **kernel_times(lambda: lplan(q, gp, hgp, popp, reqp, ctl=ctl)))
+    expect(int((lw == n_last).sum()) > 0, f"K14: no row picks node {n_last}")
+    # the batched engine's one-row form: the turn's q i64[1], req f32[R]
+    one = preempt._fit_plan(st, s, ctx, fx.products, preds_on, 1)
+    row = (q[c:c + 1], gp[c:c + 1], hgp[c:c + 1], popp[c:c + 1], reqp[c])
+    check("batched engine's one-row form", launch(one, *row),
+          k14_plain(fx, fx.st_cpu, pn, segcum, *row[:4], reqp[c:c + 1]),
+          **kernel_times(lambda: one(*row)))
+    # N not a multiple of the tile: every queue's pop on two more packs
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
+    for what, w, seed in K14_TILE_EDGE_WORLDS:
+        wf = canon_world(dev, w, seed)
+        wst = wf.st
+        qs = torch.arange(wst.num_queues, device=dev)
+        shared = preempt._reclaim_shared(wst, wf.sess, wf.state, tiers, wf.carry.job_consumed)
+        _, wg, wh, wr, wp, _ = preempt.reclaim_select_turns(wst, wf.sess, wf.state, tiers, shared,
+                                                            qs, wf.carry.q_entries)
+        wprod = preempt._products_plan(wst, wf.sess, wf.state, wf.ctx, wf.carry, *wf.flags[:2])
+        _, wpn, wseg = wprod()
+        wplan = preempt._fit_plan(wst, wf.state, wf.ctx, wprod, wf.flags[2], qs.shape[0])
+        ww = k14_plain(wf, wf.st_cpu, wpn, wseg, qs, wg, wh, wp, wr)
+        expect(wst.num_nodes % 1024 != 0, f"K14 {what}: N is a multiple of the tile")
+        wc = check(f"{what} (not a multiple of the tile), every queue",
+                   launch(wplan, qs, wg, wh, wp, wr), ww, N=wst.num_nodes)
+        expect(wc > 0, f"K14 {what}: no row claims")
+        # the picks pushed into the last tile: the union counts of the
+        # first three quarters of the schedulable nodes cleared
+        cut = int((wst.node_valid & ~wst.node_unsched).sum()) * 3 // 4
+        wpn_cut = wpn.clone()
+        wpn_cut[:cut, 0] = 0.0
+        cplan = k14.UnionFitPlan(wst, wf.ctx.skey, wseg, wpn_cut, wf.state.node_ports,
+                                 wf.state.node_num_tasks, wf.flags[2], qs.shape[0])
+        cw = k14_plain(wf, wf.st_cpu, wpn_cut, wseg, qs, wg, wh, wp, wr)
+        cc = check(f"{what}, nodes below {cut} without victims", launch(cplan, qs, wg, wh, wp, wr),
+                   cw, N=wst.num_nodes, least_pick=int(cw.min()))
+        expect(cc > 0 and int(cw.min()) >= cut, f"K14 {what}: {cc} rows claim past node {cut}")
+        del wf, wplan, wprod, cplan
+    t = kernel_times(lambda: plan(q, gp, hgp, popp, reqp, ctl=ctl))
+    per_call = device_events_per_call(lambda: plan(q, gp, hgp, popp, reqp, ctl=ctl))
+    expect(per_call == 1.0, f"K14's plan made {per_call} device events a launch, not 1")
+    allocs = allocations_per_call(lambda: plan(q, gp, hgp, popp, reqp, ctl=ctl))
+    expect(allocs == 0, f"K14's plan allocates {allocs} times a launch")
+    inw = popp & fx.in_window
+    functional = kernel_times(lambda: k14.union_fit(st, ctx.skey, segcum, pn, q, gp, hgp, inw, reqp,
+                                                    s.node_ports, s.node_num_tasks, preds_on))
+    cases.insert(0, dict(case="functional union_fit (a throwaway plan a call)",
+                         ms=functional["ms"], host_us=functional["host_us"]))
+    plain_ms = cuda_ms(lambda: k14.union_fit_plain(st, ctx.skey, segcum, pn, q, gp, hgp, inw, reqp,
+                                                    s.node_ports, s.node_num_tasks, preds_on),
+                       reps=3)
+    bnd = k14_bound(fx, segcum, pn, gp, inw & hgp, want.to(dev))
+    cases.append(dict(case="bound of the timed launch (first fit's needs) and the earlier "
+                           "design's dense figure", **bnd))
+    Vp = ctx.cres.shape[0]
+    return dict(name="union_fit", max_abs_err=0.0, **t, plain_ms=plain_ms, **bnd,
+                library_ms=None, events_per_call=per_call, variants=cases,
                 shape=f"RP={RP} rows x N={N}, Vp={Vp}, {n_claim} rows claim (q512_evict first "
-                      f"window); library: none, no PyTorch call searches and screens per cell")
+                      f"window, UnionFitPlan with ctl); library: none, no PyTorch call searches "
+                      f"and screens per cell")
 
 
 def k15_case(dev, fx):
+    """K15 through ``WindowGatePlan``: the q512_evict first window (a
+    claim at row 0 and conflicts; timed) with i64 and i32 q_panel, a
+    window with no claim, a claim only at the last row, a window partly
+    past the trip; ctl, sel, q_entries, job_consumed and progress equal
+    to the plain version's on the CPU; one device event and no allocation
+    a launch."""
     from kube_arbitrator_tpu_torch.ops.kernels import union_fit as k14
     from kube_arbitrator_tpu_torch.ops.kernels import window_gate as k15
 
@@ -2315,51 +2499,94 @@ def k15_case(dev, fx):
     st, ctx, s, c = fx.st, fx.ctx, fx.state, fx.carry
     jp, gp, hgp, reqp, popp, burnp = fx.pops
     _, pn, segcum = fx.prods
-    N, R = st.num_nodes, ctx.cres.shape[1]
-    pick = k14.union_fit(st, ctx.skey, segcum, pn, fx.q_panel, gp, hgp, popp & fx.in_window, reqp,
-                         s.node_ports, s.node_num_tasks, preds_on)
+    N, R, RP = st.num_nodes, ctx.cres.shape[1], fx.RP
+    inw = popp & fx.in_window
+    pick = k14.union_fit(st, ctx.skey, segcum, pn, fx.q_panel, gp, hgp, inw, reqp, s.node_ports,
+                         s.node_num_tasks, preds_on).clone()
     base = dict(q_entries=c.q_entries, job_consumed=c.job_consumed, progress=s.progress)
-    rows = (pick, N, fx.q_panel, jp, gp, hgp, reqp, popp, burnp)
+    cases = []
 
-    def run(fn, dev_, t):
-        ctl, sel = k15.new_gate(R, dev_)
-        ctl[k15.TRIP] = fx.trip
-        fn(*[r.to(dev_) if isinstance(r, torch.Tensor) else r for r in rows], ctl,
-           t["q_entries"], t["job_consumed"], t["progress"], sel)
-        return ctl, sel
+    def equal(what, pk, q_panel, start):
+        """One launch of a plan over ``pk`` against the plain version."""
+        g_t = {k: v.clone() for k, v in base.items()}
+        plan = k15.WindowGatePlan(pk, N, jp, gp, hgp, popp, burnp, g_t["q_entries"],
+                                  g_t["job_consumed"], R)
+        plan.ctl[k15.START], plan.ctl[k15.TRIP] = start, fx.trip
+        n0 = k15.window_gate.launches
+        plan(q_panel, reqp, g_t["progress"])
+        expect(k15.window_gate.launches == n0 + 1, "K15: one launch a call")
+        c_t = {k: v.cpu() for k, v in base.items()}
+        c_ctl, c_sel = k15.new_gate(R, "cpu")
+        c_ctl[k15.START], c_ctl[k15.TRIP] = start, fx.trip
+        k15.window_gate_plain(pk.cpu(), N, q_panel.cpu(), jp.cpu(), gp.cpu(), hgp.cpu(),
+                              reqp.cpu(), popp.cpu(), burnp.cpu(), c_ctl, c_t["q_entries"],
+                              c_t["job_consumed"], c_t["progress"], c_sel)
+        for name, a, b in [("ctl", plan.ctl, c_ctl)] + list(zip(("sel_i", "sel_b", "sel_req"),
+                                                                plan.sel, c_sel)) \
+                + [(k, g_t[k], c_t[k]) for k in base]:
+            expect(torch.equal(a.cpu(), b), f"K15 {what}: {name} differs from its plain version")
+        cases.append(dict(case=what, ctl=c_ctl.tolist(), has_claim=bool(c_sel[1][3])))
+        return c_ctl
 
-    g_t = {k: v.clone() for k, v in base.items()}
-    c_t = {k: v.cpu() for k, v in base.items()}
-    g_ctl, g_sel = run(k15.window_gate, dev, g_t)
-    c_ctl, c_sel = run(k15.window_gate_plain, "cpu", c_t)
-    for name, a, b in [("ctl", g_ctl, c_ctl)] + list(zip(("sel_i", "sel_b", "sel_req"), g_sel, c_sel)) \
-            + [(k, g_t[k], c_t[k]) for k in base]:
-        expect(torch.equal(a.cpu(), b), f"K15 {name} differs from its plain version")
-    conflicts = int(g_ctl[k15.CONFLICTS])
-    expect(bool(g_sel[1][3]) and conflicts > 0, f"K15 inputs: no claim or no conflict ({conflicts})")
+    got = equal("q512_evict first window, i64 q_panel", pick, fx.q_panel, 0)
+    conflicts = int(got[k15.CONFLICTS])
+    expect(bool(cases[-1]["has_claim"]) and conflicts > 0 and int(pick[0]) < N,
+           f"K15 inputs: no claim at row 0 or no conflict ({conflicts})")
+    equal("q512_evict first window, i32 q_panel", pick, fx.q_panel.to(torch.int32), 0)
+    none = torch.full_like(pick, N)
+    got = equal("no claim", none, fx.q_panel, 0)
+    expect(int(got[k15.ROUND_DONE]) == 1 and int(got[k15.GATED]) == 1,
+           "K15: a first window with no claim did not end a gated round")
+    last = torch.full_like(pick, N)
+    last[-1] = 7
+    equal("a claim only at the last row", last, fx.q_panel, 0)
+    got = equal("START 5 rows before the trip, no claim", none, fx.q_panel, fx.trip - 5)
+    expect(int(got[k15.ROUND_DONE]) == 1 and int(got[k15.GATED]) == 0,
+           "K15: a window past the trip did not end the round, ungated")
+    equal("START 5 rows before the trip, a claim at row 0", pick, fx.q_panel, fx.trip - 5)
     work = {k: v.clone() for k, v in base.items()}
-    ctl, sel = k15.new_gate(R, dev)
+    plan = k15.WindowGatePlan(pick, N, jp, gp, hgp, popp, burnp, work["q_entries"],
+                              work["job_consumed"], R)
 
     def setup():
         for k, v in base.items():
             work[k].copy_(v)
+        plan.ctl.zero_()
+        plan.ctl[k15.TRIP] = fx.trip
+
+    def gate():
+        return plan(fx.q_panel, reqp, work["progress"])
+
+    t = kernel_times(gate, setup=setup)
+    setup()
+    per_call = device_events_per_call(gate)
+    expect(per_call == 1.0, f"K15's plan made {per_call} device events a launch, not 1")
+    allocs = allocations_per_call(gate)
+    expect(allocs == 0, f"K15's plan allocates {allocs} times a launch")
+    ctl, sel = k15.new_gate(R, dev)
+    rows = (pick, N, fx.q_panel, jp, gp, hgp, reqp, popp, burnp)
+
+    def functional(fn):
+        return lambda: fn(*rows, ctl, work["q_entries"], work["job_consumed"], work["progress"],
+                          sel)
+
+    def fsetup():
+        setup()
         ctl.zero_()
         ctl[k15.TRIP] = fx.trip
 
-    def gate(fn):
-        return lambda: fn(*rows, ctl, work["q_entries"], work["job_consumed"], work["progress"], sel)
-
-    t = kernel_times(gate(k15.window_gate), setup=setup)
-    plain_ms = cuda_ms(gate(k15.window_gate_plain), reps=5, setup=setup)
-    RP = pick.shape[0]
+    f = kernel_times(functional(k15.window_gate), setup=fsetup)
+    cases.insert(0, dict(case="functional window_gate (a throwaway plan a call)", ms=f["ms"],
+                         host_us=f["host_us"]))
+    plain_ms = cuda_ms(functional(k15.window_gate_plain), reps=5, setup=fsetup)
     first = int((pick.cpu() < N).nonzero()[0, 0])
     nbytes = RP * (4 * 4 + 3 + 4 * R) + first * (4 + 1) + 64
     b, by = bound_ms(nbytes, RP * 8)
     return dict(name="window_gate", max_abs_err=0.0, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None,
+                bound_by=by, library_ms=None, events_per_call=per_call, variants=cases,
                 shape=f"RP={RP}, first claim at row {first}, {conflicts} conflicts (q512_evict "
-                      f"first window); library: none, the gate is a chain of dependent scalar "
-                      f"decisions")
+                      f"first window, WindowGatePlan); library: none, the gate is a chain of "
+                      f"dependent scalar decisions")
 
 
 def order_inputs(fx):
@@ -3096,6 +3323,19 @@ def canon_walk_casts(dev) -> dict:
     return dict(casts=own["n"], k8_launches=canon_commit.launches - k8_before)
 
 
+def optimistic_window(dev) -> dict:
+    """One optimistic reclaim action of the q512_evict world (50k x 5k,
+    seed 42) from its open_session state on the card (host_profile.py's
+    ``optimistic_events``): the device events a window, the dtype casts
+    issued from ``_reclaim_canon_optimistic``'s own frame, and the
+    launches of K14, K15 and K8 beside the windows."""
+    from kube_arbitrator_tpu_torch.host_profile import optimistic_events
+
+    w = Q512_EVICT
+    return optimistic_events(dev, w["tasks"], w["nodes"], w["queues"], 42, w["running_fraction"],
+                             w["tasks_per_job"], w["fit_fraction"])
+
+
 def compare_states(a, b) -> list:
     """The AllocState fields (tensors and counters) where ``a`` and
     ``b`` differ."""
@@ -3186,8 +3426,9 @@ def main(kernels_only: bool = False) -> int:
     fx = window_fixture(dev)
     for case in (k13_case, k14_case, k15_case):
         report(case(dev, fx))
-    for v in rows["round_products"]["variants"]:
-        print(f"kernel round_products case {json.dumps(v)}", flush=True)
+    for k in ("round_products", "union_fit", "window_gate"):
+        for v in rows[k]["variants"]:
+            print(f"kernel {k} case {json.dumps(v)}", flush=True)
     report(k17_case(dev, fx, alloc_round))
     for v in rows["queue_order"]["variants"]:
         print(f"kernel queue_order form {json.dumps(v)}", flush=True)
@@ -3533,6 +3774,12 @@ def main(kernels_only: bool = False) -> int:
               f"q{cw['queues']} seed 42 (card {gs['cycle_ms']:.0f} ms, CPU {c['cycle_ms']:.0f} ms)",
               flush=True)
     print(f"launches on the optimistic reclaim path (q512_evict, seed 42): {opt_counts}", flush=True)
+    win = optimistic_window(dev)
+    print(f"optimistic reclaim action (q512_evict, seed 42) under the profiler: {json.dumps(win)}",
+          flush=True)
+    expect(win["casts"] == 0, f"_reclaim_canon_optimistic casts in its own frame: {win}")
+    expect(all(n == win["windows"] > 0 for n in win["launches"].values()),
+           f"K14 / K15 / K8 not launched once a window: {win}")
     print(f"K5 and K2 on the optimistic reclaim path (q512_evict, seed 42): seg_scan "
           f"{opt_counts['seg_scan']}, lex_argmin {opt_counts['lex_argmin']}", flush=True)
     for k in ("round_products", "union_fit", "window_gate", "stable_compact", "canon_commit",

@@ -17,12 +17,17 @@ that function of ops/allocate.py and ``_pops`` of ops/preempt.py, the
 turn picks with their masks and keys; ``rank_and_cum`` of ops/preempt.py
 and ``seg_cumsum`` of ops/common.py, K5's callers; ``mm_cumsum`` of
 ops/common.py; ``_reclaim_canon`` and ``_reclaim_fast`` of
-ops/preempt.py, the reclaim walks that launch K7 / K8 and K20) its
+ops/preempt.py, the reclaim walks that launch K7 / K8 and K20;
+``_reclaim_canon_optimistic`` / ``_reclaim_canon_batched`` of
+ops/preempt.py, the opt-in engines that launch K13-K15 and K8) its
 functions' calls and cumulative seconds and the callees of those
 functions by cumulative seconds: the host items that cost most.  With
 ``queue_perm`` among the wrappers, the row also gives the device kernels
 one ``queue_perm`` call launches (torch.profiler over 20 calls at the
-world's queue count, between entry and return).  cProfile slows every
+world's queue count, between entry and return); with
+``_reclaim_canon_optimistic``, the device events of one optimistic
+reclaim action from the world's open_session state by name, its windows
+and the events per window.  cProfile slows every
 Python call, so compare items within one run, not with the cycle times
 of cycle_turns.py.  Needs the GPU, as the CLI does.
 """
@@ -68,6 +73,8 @@ OTHER = {"queue_perm": ("ops/allocate.py", "queue_perm"),
          "seg_cumsum": ("ops/common.py", "seg_cumsum"),
          "mm_cumsum": ("ops/common.py", "mm_cumsum"),
          "_reclaim_canon": ("ops/preempt.py", "_reclaim_canon"),
+         "_reclaim_canon_optimistic": ("ops/preempt.py", "_reclaim_canon_optimistic"),
+         "_reclaim_canon_batched": ("ops/preempt.py", "_reclaim_canon_batched"),
          "_reclaim_fast": ("ops/preempt.py", "_reclaim_fast")}
 decide_world(device="cuda", seed=seed - 1, **world)
 torch.cuda.synchronize()
@@ -118,8 +125,71 @@ if "queue_perm" in wrappers:
         Q=Q, kernels=sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev_ev) / calls,
         memsets=sum(e.name.startswith("Memset") for e in dev_ev) / calls,
         names=sorted({e.name[:80] for e in dev_ev}))
+if "_reclaim_canon_optimistic" in wrappers:
+    from kube_arbitrator_tpu_torch.host_profile import optimistic_events
+    out["optimistic_device_events"] = optimistic_events(
+        "cuda", world["tasks"], world["nodes"], world.get("queues", 8), seed,
+        world["running_fraction"])
 print(json.dumps(out))
 '''
+
+
+def optimistic_events(device, tasks: int, nodes: int, queues: int, seed: int,
+                      running_fraction: float, tasks_per_job: int = 100,
+                      fit_fraction: float = 1.2) -> dict:
+    """One optimistic reclaim action of a synthetic world from its
+    open_session state, under torch.profiler with ``Tensor.to`` watched:
+    its windows and rounds, its device events (all, kernels alone, a
+    window, by name), the dtype casts issued from
+    ``_reclaim_canon_optimistic``'s own frame, and the launches of K14,
+    K15 and K8."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+    from kube_arbitrator_tpu_torch.ops import cycle, kernels, preempt
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS
+
+    arrays, _ = build_synthetic_arrays(tasks, nodes, queues, tasks_per_job, seed,
+                                       running_fraction=running_fraction,
+                                       fit_fraction=fit_fraction)
+    st = from_numpy(arrays, device)
+    sess, state = cycle.open_session(st, DEFAULT_TIERS)
+    own = {"n": 0}
+    to = torch.Tensor.to
+
+    def watched(self, *a, **kw):
+        out = to(self, *a, **kw)
+        if out.dtype != self.dtype and \
+                sys._getframe(1).f_code.co_name == "_reclaim_canon_optimistic":
+            own["n"] += 1
+        return out
+
+    torch.cuda.synchronize()
+    before = kernels.counts()
+    shadowed = "to" in torch.Tensor.__dict__
+    torch.Tensor.to = watched
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r = preempt.reclaim_action(st, sess, state, DEFAULT_TIERS, turn_batch="optimistic")
+            torch.cuda.synchronize()
+    finally:
+        if shadowed:
+            torch.Tensor.to = to
+        else:
+            del torch.Tensor.to
+    after = kernels.counts()
+    dev_ev = [e for e in prof.events()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return dict(
+        windows=r.windows, rounds=r.rounds, device_events=len(dev_ev),
+        kernels=sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev_ev),
+        events_per_window=len(dev_ev) / max(r.windows, 1), casts=own["n"],
+        launches={k: after[k] - before[k] for k in ("union_fit", "window_gate", "canon_commit")},
+        by_name=dict(Counter(e.name[:90] for e in dev_ev).most_common(40)))
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -14,8 +14,8 @@ PyTorch version and with a launch counter:
 * K11 :func:`pa_fit.pa_fit`                  — pod-affinity fit of a turn's group
 * K12 :func:`pa_shape.pa_shape`              — pod-affinity seed and domain cap (PaShapePlan)
 * K13 :func:`round_products.round_products`  — opt-in reclaim: union eligibility, sums, scan
-* K14 :func:`union_fit.union_fit`            — opt-in reclaim: own-queue subtraction, first fit
-* K15 :func:`window_gate.window_gate`        — optimistic reclaim: the window's commit gate
+* K14 :func:`union_fit.union_fit`            — opt-in reclaim: own-queue subtraction, first fit (UnionFitPlan)
+* K15 :func:`window_gate.window_gate`        — optimistic reclaim: the window's commit gate (WindowGatePlan)
 * K16 :func:`stable_compact.stable_compact`  — commit lists, allocate's panel, preempt's panel
 * K17 :func:`queue_order.queue_order`        — a round's queue order, keys built (QueueOrderPlan)
 * K18 :func:`row_scatter.row_scatter`        — an epoch's changed rows into the resident pack

@@ -64,7 +64,7 @@ class _Turn(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "pick", "q", "j", "g", "has_grp", "pop", "burn", "req", "active", "claimed_out",
-        "progress")] + [(n, ctypes.c_int) for n in ("q_wide", "j_wide", "g_wide", "rounds")]
+        "progress", "progress_out")] + [(n, ctypes.c_int) for n in ("q_wide", "j_wide", "g_wide", "rounds")]
 
 
 def _scatter_set(dst: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, value) -> None:
@@ -82,7 +82,7 @@ def _scatter_set(dst: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, value
 
 
 def canon_commit_plain(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, req,
-                       use_gang, use_prop, active=None, claimed_out=None):
+                       use_gang, use_prop, active=None, claimed_out=None, progress_out=None):
     """The plain version, op for op in the kernel's order."""
     if active is not None and not bool(active.reshape(())):
         return
@@ -156,6 +156,8 @@ def canon_commit_plain(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_
     _scatter_set(state.evict_phase, ev_t, evict_w, EVICT_PHASE_RECLAIM)
     _scatter_set(state.evict_round, ev_t, evict_w, state.rounds)
     state.progress = state.progress | pop[0]
+    if progress_out is not None:
+        progress_out.masked_fill_(pop.reshape(progress_out.shape), 1)
 
 
 class CanonCommitPlan:
@@ -240,15 +242,17 @@ class CanonCommitPlan:
         self.stream = build.stream()
 
     def __call__(self, pick, q, j, g, has_grp, pop, burn_now, req, active=None,
-                 claimed_out=None) -> None:
+                 claimed_out=None, progress_out=None) -> None:
         """Commit one turn in place: ``pick`` i32[1] (K7's or K14's), ``q``
         / ``j`` / ``g`` i32 or i64 [1], ``has_grp`` / ``pop`` / ``burn_now``
         bool[1], ``req`` f32[R]; ``active`` / ``claimed_out`` optional
-        bool[1] device flags; all on the plan's device."""
+        bool[1] device flags, ``progress_out`` an optional i32[1] set to 1
+        wherever progress is set; all on the plan's device."""
         state = self.state
         if self.dev.type == "cpu":
             canon_commit_plain(self.st, self.ctx, state, self.carry, pick, q, j, g, has_grp,
-                               pop, burn_now, req, *self.flags, active, claimed_out)
+                               pop, burn_now, req, *self.flags, active, claimed_out,
+                               progress_out)
             return
         t = self.turn
         t.q_wide, t.j_wide, t.g_wide = (WIDE.get(x.dtype, -1) for x in (q, j, g))
@@ -262,7 +266,8 @@ class CanonCommitPlan:
                                 ("pop", pop, torch.bool), ("burn_now", burn_now, torch.bool),
                                 ("req", req, torch.float32), ("progress", progress, torch.bool),
                                 ("active", active, torch.bool),
-                                ("claimed_out", claimed_out, torch.bool)):
+                                ("claimed_out", claimed_out, torch.bool),
+                                ("progress_out", progress_out, torch.int32)):
                 if x is not None:
                     build.require(x, dt, f"canon_commit.{name}", self.dev)
             if req.shape != (R,) or progress.dim() != 0:
@@ -273,6 +278,7 @@ class CanonCommitPlan:
         t.pick, t.q, t.j, t.g = pick.data_ptr(), q.data_ptr(), j.data_ptr(), g.data_ptr()
         t.has_grp, t.pop, t.burn = has_grp.data_ptr(), pop.data_ptr(), burn_now.data_ptr()
         t.req, t.active, t.claimed_out = req.data_ptr(), build.ptr(active), build.ptr(claimed_out)
+        t.progress_out = build.ptr(progress_out)
         t.progress, t.rounds = progress.data_ptr(), state.rounds
         build.check(self.fn(self.static_ptr, self.turn_ptr, self.stream), "canon_commit")
         canon_commit.launches += 1

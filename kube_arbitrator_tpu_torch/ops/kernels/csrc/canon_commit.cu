@@ -10,10 +10,11 @@
 // writes of a turn that did not claim), the node releasing / ports /
 // pod-count updates and the audit aux (:2176-2196).  n_star comes from
 // K7's pick (or K14's, in the batched and optimistic engines) on the
-// device, so a turn needs no host sync.  Two optional device flags:
+// device, so a turn needs no host sync.  Three optional device words:
 // active (clear: the launch does nothing; the optimistic window's
-// has_claim) and claimed_out (receives the turn's claimed bit; the
-// batched engine's refresh flag for K13).
+// has_claim), claimed_out (receives the turn's claimed bit; the batched
+// engine's refresh flag for K13) and progress_out (an i32 set to 1
+// wherever progress is set; the optimistic window's ctl[PROGRESS]).
 //
 // One CTA of four warps, every read of the window from shared memory:
 // * stage: one coalesced pass loads the window's W x R resreq rows and,
@@ -103,12 +104,9 @@ struct Turn {
   const uint8_t* active;      // bool[1] or null: clear, the launch does nothing
   uint8_t* claimed_out;       // bool[1] or null
   uint8_t* progress;          // bool scalar: set when the turn popped
+  int* progress_out;          // i32[1] or null: set to 1 with progress
   int q_wide, j_wide, g_wide, rounds;
 };
-
-__device__ __forceinline__ int read_index(const void* p, int wide) {
-  return wide ? (int)*static_cast<const long long*>(p) : *static_cast<const int*>(p);
-}
 
 __global__ void __launch_bounds__(THREADS) canon_commit_kernel(Static s, Turn t) {
   // a turn the caller switched off (an optimistic window with no claim)
@@ -134,7 +132,7 @@ __global__ void __launch_bounds__(THREADS) canon_commit_kernel(Static s, Turn t)
   // the turn's scalars, read together by every thread
   const int pick = *t.pick;
   const bool pop = *t.pop != 0, has_grp = *t.has_grp != 0;
-  const int q = read_index(t.q, t.q_wide);
+  const int q = kat_read_index(t.q, t.q_wide);
   const bool has_node = pick < s.N;
   const int n_star = has_node ? pick : 0;
   const bool claimed = pop && has_grp && has_node;
@@ -152,7 +150,7 @@ __global__ void __launch_bounds__(THREADS) canon_commit_kernel(Static s, Turn t)
   // before the tail writes them, but the claimant's job and queue rows,
   // which a victim shares only if the caller's j is not of queue q (then
   // the tail reads them again)
-  const int j = read_index(t.j, t.j_wide), g = read_index(t.g, t.g_wide);
+  const int j = kat_read_index(t.j, t.j_wide), g = kat_read_index(t.g, t.g_wide);
   float job_r = 0.f, queue_r = 0.f, rel_r = 0.f, req_r = 0.f;
   int ready_j = 0, entries_q = 0, slot = 0, placed_g = 0, tasks_n = 0;
   bool burn = false;
@@ -346,7 +344,10 @@ __global__ void __launch_bounds__(THREADS) canon_commit_kernel(Static s, Turn t)
     s.node_num_tasks[n_star] = tasks_n + 1;
     s.group_placed[g] = placed_g + 1;
   }
-  if (pop) *t.progress = 1;
+  if (pop) {
+    *t.progress = 1;
+    if (t.progress_out != nullptr) *t.progress_out = 1;
+  }
 }
 
 size_t smem_bytes(int W, int R) {

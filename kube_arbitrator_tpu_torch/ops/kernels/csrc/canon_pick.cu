@@ -91,10 +91,6 @@ struct Turn {
   int q_wide, g_wide, parity;
 };
 
-__device__ __forceinline__ int read_index(const void* p, int wide) {
-  return wide ? (int)*static_cast<const long long*>(p) : *static_cast<const int*>(p);
-}
-
 // the claim's feasibility on node n (warp-uniform), or false at once
 // when a feasible node at or below n is known already (*stop set).  The
 // node's own reads (block bounds, screens) are issued before the
@@ -155,7 +151,7 @@ __global__ void __launch_bounds__(THREADS) canon_pick_kernel(Static s, Turn t) {
   if (blockIdx.x == 0 && threadIdx.x == 0) s.picks[t.parity ^ 1] = s.N;
   // the turn's scalars, read together
   const bool go = (*t.pop != 0) & (*t.has_grp != 0);
-  const int q = read_index(t.q, t.q_wide), g = read_index(t.g, t.g_wide);
+  const int q = kat_read_index(t.q, t.q_wide), g = kat_read_index(t.g, t.g_wide);
   const int gk = s.group_klass[g];
   const CanonElig e{s.cand, s.rank_nj, s.cum_nq, s.cj, s.cq, s.deserved_c, s.job_ready_cnt,
                     s.min_avail, s.queue_alloc, s.R, s.F, s.use_gang != 0, s.use_prop != 0};

@@ -10,6 +10,19 @@
 #define KAT_EPS 10.0f    // the reference's device-unit epsilon
 #define KAT_FLT_MIN 1.17549435e-38f  // the least normal f32
 
+// The optimistic reclaim window's control words, i32[KAT_CTL_LEN]
+// (window_gate.py's ctl layout): K15 writes them, K14 reads START and
+// TRIP, K8 sets PROGRESS when its turn pops.
+enum {
+  KAT_CTL_START = 0, KAT_CTL_TRIP, KAT_CTL_ROUNDS, KAT_CTL_GATED, KAT_CTL_CONFLICTS,
+  KAT_CTL_ROUND_DONE, KAT_CTL_WINDOWS, KAT_CTL_PROGRESS, KAT_CTL_LEN
+};
+
+// Entry r of an ordinal tensor read as i32 (wide 0) or i64 (wide 1).
+__device__ __forceinline__ int kat_read_index(const void* p, int wide, int r = 0) {
+  return wide ? (int)static_cast<const long long*>(p)[r] : static_cast<const int*>(p)[r];
+}
+
 // x with a subnormal flushed to a zero of its sign, as XLA computes on
 // the CPU and the TPU everywhere; NaN, +-inf and normal values pass.
 // The port's kernels keep subnormals elsewhere (no -ftz in build.py).

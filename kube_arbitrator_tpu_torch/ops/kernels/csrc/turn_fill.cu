@@ -82,10 +82,6 @@ struct Fill {
   bool use_rel;
 };
 
-__device__ __forceinline__ int read_index(const void* p, int wide) {
-  return wide ? (int)*static_cast<const long long*>(p) : *static_cast<const int*>(p);
-}
-
 // The node phase; at(i, run, ki, fill) for every position i with its
 // exclusive prefix run in the chosen row.  Called by all THREADS threads.
 // A lane's first KREG positions of both rows stay in registers between
@@ -186,7 +182,7 @@ __device__ __forceinline__ bool group_has_ports(const Static& s, const int* gpor
 __global__ void __launch_bounds__(THREADS) fill_by_group_kernel(
     Static s, const void* g_p, int g_wide, const float* __restrict__ req,
     const int* __restrict__ budget_p) {
-  const int g = read_index(g_p, g_wide);
+  const int g = kat_read_index(g_p, g_wide);
   const int budget = *budget_p;
   // the decode's scalars, read now: their latency hides behind the scan
   const int before = s.group_placed[g];
@@ -217,7 +213,7 @@ __global__ void __launch_bounds__(THREADS) fill_walk_kernel(
     Static s, const void* g_p, int g_wide, const float* __restrict__ req,
     const int* __restrict__ budget_p) {
   extern __shared__ int cum[];  // [N] inclusive prefix of the chosen row
-  const int g = read_index(g_p, g_wide);
+  const int g = kat_read_index(g_p, g_wide);
   const int budget = *budget_p, before = s.group_placed[g];
   const bool lead = blockIdx.x == 0;
   const int* gports = s.group_ports + (size_t)g * s.W;

@@ -255,6 +255,13 @@ class TurnPickPlan:
             self._launch(out, q, ok, None, None, job_has_pending, job_ready, job_share, grp_elig)
         return out["j"], out["has_job"], out["g"], out["has_grp"], out["jmask"]
 
+    def pop_rows(self, S: int):
+        """The plan-owned tensors :meth:`pop` writes at ``S`` rows: (j
+        i32[S], g i32[S], has_grp, pop, burn_now), for a plan that binds
+        them (K15's)."""
+        out = self._outputs(S, "pop", False)
+        return out["j"], out["g"], out["has_grp"], out["pop"], out["burn"]
+
     def pop(self, q: torch.Tensor, q_entry: torch.Tensor, queue_alloc: torch.Tensor,
             job_has_pending: torch.Tensor, job_ready: torch.Tensor, job_share: torch.Tensor,
             grp_elig: torch.Tensor):
@@ -274,4 +281,4 @@ class TurnPickPlan:
         else:
             self._launch(out, q, None, q_entry, queue_alloc, job_has_pending, job_ready,
                          job_share, grp_elig)
-        return out["j"], out["g"], out["has_grp"], out["pop"], out["burn"]
+        return self.pop_rows(q.shape[0])

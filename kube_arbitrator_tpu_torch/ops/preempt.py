@@ -80,9 +80,9 @@ from .kernels.seg_scan import SegScanPlan
 from .kernels.segment_sum import segment_order, segment_sum
 from .kernels.stable_compact import stable_compact
 from .kernels.stable_sort import sorted_lookup, stable_sort
-from .kernels.union_fit import union_fit
+from .kernels.union_fit import UnionFitPlan
 from .kernels.window_gate import (
-    CONFLICTS, GATED, ROUND_DONE, START, TRIP, new_gate, window_gate,
+    CONFLICTS, GATED, PROGRESS, ROUND_DONE, START, TRIP, WindowGatePlan,
 )
 from .ordering import Tiers
 from .podaffinity import PaFitPlan, PaShapePlan
@@ -788,7 +788,7 @@ def _pops(st, sess, state, tiers, shared, q, q_entry, pick=None):
         pick = _pick_pops(st, sess, tiers)
     j, g, has_grp, pop, burn_now = pick.pop(q, q_entry, state.queue_alloc, job_has_pending,
                                             job_ready, job_share, grp_elig)
-    return j, g, has_grp, st.group_resreq[g.to(torch.int64)], pop, burn_now
+    return j, g, has_grp, st.group_resreq.index_select(0, g), pop, burn_now
 
 
 def _reclaim_pop(st, sess, state, tiers, shared, q, q_entry, pick=None):
@@ -890,13 +890,17 @@ def _products_plan(st, sess, state, ctx, carry, use_gang, use_prop) -> RoundProd
                              use_prop)
 
 
-def _union_fit(st, state, ctx, prods, preds_on, q, g, has_grp, req, pop):
-    """First feasible node per row (K14): the union sums minus each row's
-    own-queue segment totals (the reference's ``_union_minus_own``), then
-    ``_fit_feasible``.  ``q``/``g`` i32[S], ``req`` f32[S, R]."""
-    _, pn, segcum = prods
-    return union_fit(st, ctx.skey, segcum, pn, q, g, has_grp, pop, req, state.node_ports,
-                     state.node_num_tasks, preds_on)
+def _fit_plan(st, state, ctx, products, preds_on, rows) -> UnionFitPlan:
+    """The first feasible node per row (K14: the union sums minus each
+    row's own-queue segment totals, the reference's ``_union_minus_own``,
+    then ``_fit_feasible``), bound once for an engine call to K13's
+    products: each ``plan(q, g, has_grp, pop, req, ctl=None)`` writes
+    ``plan.pick`` i32[rows] (overwritten by the next launch; the turn's
+    K8, or the window's K15, consumes it first).  ``node_ports`` and
+    ``node_num_tasks`` change in place only."""
+    _, pn, segcum = products.out
+    return UnionFitPlan(st, ctx.skey, segcum, pn, state.node_ports, state.node_num_tasks,
+                        preds_on, rows)
 
 
 def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
@@ -928,10 +932,10 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
     products = _products_plan(st, sess, state, ctx, carry, use_gang, use_prop)  # K13, bound once
     order = _order_plan(st, sess, tiers)  # K17, bound once
     commit = CanonCommitPlan(st, ctx, state, carry, use_gang, use_prop)  # K8, bound once
+    fit = _fit_plan(st, state, ctx, products, preds_on, 1)  # K14, bound once
     # K2: the round's panel pops stay live while the turns pop, so each
     # has a plan of its own
     panel_pops, live_pops = _pick_pops(st, sess, tiers), _pick_pops(st, sess, tiers)
-    prods = products.out
     dirty = torch.zeros(1, dtype=torch.bool, device=dev)        # the last turn claimed
     claimed_any = torch.zeros(1, dtype=torch.bool, device=dev)  # a turn of this round claimed
     gated_rounds = torch.zeros((), dtype=i32, device=dev)
@@ -960,9 +964,7 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
                 rows[3] = rows[3][0]
                 live = [torch.where(claimed_any, lv, pv) for lv, pv in zip(live, rows)]
             j, g, has_grp, req, pop, burn_now = live
-            # K14 reads i32 ordinals (the pops' g is i32 already); K8 either
-            pick = _union_fit(st, state, ctx, prods, preds_on, q.to(i32), g.to(i32), has_grp,
-                              req[None, :].contiguous(), pop)
+            pick = fit(q, g, has_grp, pop, req)
             commit(pick, q, j, g, has_grp, pop, burn_now, req, claimed_out=dirty)
             claimed_any |= dirty
         state.rounds += 1
@@ -978,25 +980,27 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
     equal to the canon walk.
 
     A speculation window is RP consecutive turns of the round's queue
-    order from position START.  From window-start state: every row's
-    pop (one K2 launch over RP rows), the products (K13) and every
-    row's first feasible node (K14 over RP rows; a row outside the
-    window does not pop).  The gate (K15) commits the burn / fail prefix
-    before the first speculative claim, counts the later speculative
-    claims as conflicts (discarded: the next window re-derives them from
-    post-claim state), advances START and ends the round; K8 commits the
-    accepted claim (nothing when the window has none).  A window that
-    starts a round re-derives the queue order and resets progress; a
-    continuation window keeps both, and runs whatever ``max_rounds``
-    says (the round is finished first).  A round finished in its first
-    window with no claim counts in ``rounds_gated``.  One host read per
-    window (START, the round end, progress and the counters)."""
+    order from position START (a view of the round's order, padded with
+    its last queue).  From window-start state: every row's pop (one K2
+    launch over RP rows), the products (K13) and every row's first
+    feasible node (K14 over RP rows; a row at or past the round's trip
+    does not pop, read from ``ctl`` on the device).  The gate (K15)
+    commits the burn / fail prefix before the first speculative claim,
+    counts the later speculative claims as conflicts (discarded: the next
+    window re-derives them from post-claim state), advances START and
+    ends the round; K8 commits the accepted claim (nothing when the window
+    has none).  A window that starts a round re-derives the queue order
+    and resets progress; a continuation window keeps both, and runs
+    whatever ``max_rounds`` says (the round is finished first).  A round
+    finished in its first window with no claim counts in
+    ``rounds_gated``.  K14, K15 and K8 are plans bound once per call.
+    One host read per window: ``ctl`` (START, the round end, progress and
+    the counters)."""
     use_gang, use_prop, preds_on = _reclaim_flags(tiers)
     ctx = _canon_ctx(st, sess)
     RP = _reclaim_panel(st)
     Q, N = st.num_queues, st.num_nodes
     dev = st.device
-    i32 = torch.int32
     state.progress = torch.ones((), dtype=torch.bool, device=dev)
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     carry = _canon_seed(st, state, ctx)
@@ -1004,11 +1008,13 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
     order = _order_plan(st, sess, tiers)  # K17, bound once
     commit = CanonCommitPlan(st, ctx, state, carry, use_gang, use_prop)  # K8, bound once
     pops = _pick_pops(st, sess, tiers)  # K2, bound once
-    prods = products.out
-    ctl, sel = new_gate(ctx.cres.shape[1], dev)
-    sel_i, sel_b, sel_req = sel
-    w_iota = torch.arange(RP, dtype=torch.int64, device=dev)
-    perm = torch.arange(Q, dtype=torch.int64, device=dev)
+    fit = _fit_plan(st, state, ctx, products, preds_on, RP)  # K14, bound once
+    jp, gp, hgp, popp, burnp = pops.pop_rows(RP)
+    gate = WindowGatePlan(fit.pick, N, jp, gp, hgp, popp, burnp, carry.q_entries,  # K15
+                          carry.job_consumed, ctx.cres.shape[1])
+    ctl, (sel_i, sel_b, sel_req) = gate.ctl, gate.sel
+    ctl_progress = ctl[PROGRESS:PROGRESS + 1]  # K15 and K8 each set it
+    order_pad = torch.empty(Q + RP, dtype=torch.int64, device=dev)  # the round's order, padded
     start, progress, rounds, windows = 0, True, 0, 0
     vals = [0] * ctl.shape[0]
     while start > 0 or (progress and rounds < max_rounds):
@@ -1016,23 +1022,22 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
             state.progress = torch.zeros((), dtype=torch.bool, device=dev)
             nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
             ctl[TRIP:TRIP + 1].copy_(nq.clamp(min=1).reshape(1))
-        pos = w_iota + start
-        q_panel = perm[pos.clamp(max=Q - 1)]
-        in_window = pos < ctl[TRIP]
-        jp, gp, hgp, reqp, popp, burnp = reclaim_select_turns(
+            order_pad[:Q].copy_(perm)
+            order_pad[Q:].copy_(perm[Q - 1:].expand(RP))
+        q_panel = order_pad[start:start + RP]  # perm[min(start + w, Q - 1)]
+        rows = reclaim_select_turns(
             st, sess, state, tiers, _reclaim_shared(st, sess, state, tiers, carry.job_consumed),
             q_panel, carry.q_entries, pops,
         )
+        reqp = rows[3]
         products()
-        qp32 = q_panel.to(i32)
-        pick = _union_fit(st, state, ctx, prods, preds_on, qp32, gp, hgp, reqp, popp & in_window)
-        window_gate(pick, N, qp32, jp, gp, hgp, reqp, popp, burnp, ctl, carry.q_entries,
-                    carry.job_consumed, state.progress, sel)
+        fit(q_panel, gp, hgp, popp, reqp, ctl=ctl)
+        gate(q_panel, reqp, state.progress)
         state.rounds = rounds
         commit(sel_i[3:4], sel_i[0:1], sel_i[1:2], sel_i[2:3], sel_b[0:1], sel_b[1:2],
-               sel_b[2:3], sel_req, active=sel_b[3:4])
-        vals = torch.cat([ctl, state.progress.reshape(1).to(i32)]).tolist()
-        start, progress = vals[START], bool(vals[-1])
+               sel_b[2:3], sel_req, active=sel_b[3:4], progress_out=ctl_progress)
+        vals = ctl.tolist()
+        start, progress = vals[START], bool(vals[PROGRESS])
         rounds += vals[ROUND_DONE]
         windows += 1
     state.rounds, state.windows = rounds, windows

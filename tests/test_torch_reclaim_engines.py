@@ -378,7 +378,8 @@ def test_union_fit_plain_matches_reference_first_fit():
     st = _synth(4000, 400, 8, 3, 0.5)
     pst, psess, pstate, ctx, carry = _canon_midway(st)
     sess, rctx, rstate, cand, rank_nj, cum_nq = _ref_ctx_state(st, pstate, carry)
-    prods = port_pre._products_plan(pst, psess, pstate, ctx, carry, True, False)()
+    products = port_pre._products_plan(pst, psess, pstate, ctx, carry, True, False)
+    prods = products()
     Vp = ctx.cres.shape[0]
     Q, N = pst.num_queues, pst.num_nodes
     shared = port_pre._reclaim_shared(pst, psess, pstate, TIERS, carry.job_consumed)
@@ -393,8 +394,8 @@ def test_union_fit_plain_matches_reference_first_fit():
     req = torch.cat([req, req, req + 1e6])
     pop[Q:2 * Q] = False
     prods[1][:40, 0] = 0.0
-    pick = port_pre._union_fit(pst, pstate, ctx, prods, True, q_rows.to(torch.int32),
-                               g.to(torch.int32), has_grp, req, pop)
+    pick = port_pre._fit_plan(pst, pstate, ctx, products, True, 3 * Q)(
+        q_rows.to(torch.int32), g.to(torch.int32), has_grp, pop, req)
     nd_keys = jnp.arange(N, dtype=jnp.int32) * (Q + 1)
     pn, segcum = jnp.asarray(prods[1].numpy()), jnp.asarray(prods[2].numpy())
 
