@@ -25,7 +25,11 @@ rows):
    the seg_cumsum form; one segment, no masked row, every row masked),
    K6-K8 on the inputs the evictive path gives them in the 50k-task x
    5k-node world (its preempt victim panel, its first preempt turn, its
-   first claiming reclaim turn; K8 through CanonCommitPlan in each canon
+   first claiming reclaim turn; K6 through ClaimNodesPlan — i64 and i32
+   g, preempt and preempt_intra, no victim, the statement gate dropping
+   the claim, its folded aggregates against K4's slot-order sums and the
+   scatter max / min, and, in the pod-affinity world, its two launches
+   around K12; K8 through CanonCommitPlan in each canon
    engine's form — i64 and i32 ordinals, claimed_out, active clear — a
    covering prefix over two jobs and two queues, a failing turn, a window
    longer than its block), K9-K10 on the binpack world's
@@ -58,10 +62,13 @@ rows):
    jstat with 24 slots in range, ordered_sum at 10,240 and 500 rows;
    each route with out= accumulation, i32, every slot dropped, T = 0 and
    one launch a call), K2, K5, K12 and K17: one device event and no
-   allocation a launch (K8, K14, K15 and K20 too),
-   K16 on its three callers' shapes (a commit list at T = 102,400 whose
-   count passes the cap, allocate's feasibility cells at [K, 10,240],
-   preempt's full-width victim panel at 51,200), K17 through
+   allocation a launch (K6, K8, K14, K15, K16 and K20 too),
+   K16, one launch a call, on its three callers' shapes (a commit list at
+   T = 102,400 whose count passes the cap, the commit's bind and evict
+   lists as one two-row launch, allocate's feasibility cells at [K,
+   10,240] and at K = 3, preempt's full-width victim panel at 51,200 and
+   a 102,400 -> 51,200 panel; an empty mask, a cap of one, L not a
+   multiple of the chunk), K17 through
    QueueOrderPlan (the keys' build and the order in one launch) on the
    q512_evict world's first reclaim round (Q = 512), the allocate world's
    round (Q = 8) and raw queue states of ties, -0.0, NaN, BIG, zero, tiny
@@ -159,9 +166,13 @@ rows):
    evictive cycles (50k x 5k, seed 42) under torch.profiler: no
    ``aten::sort``, ``aten::argsort``, ``aten::searchsorted`` or
    ``aten::cummax`` event; prints those counts and the device kernels of
-   each cycle.  Then one canon walk of the evictive world with
-   ``Tensor.to`` watched: its turns hand K8 their ordinals as they come
-   (no cast from ``_reclaim_canon``'s own frame).
+   each cycle.  Then one claim turn's tail (``_apply_claim``) of each of
+   those cycles under the profiler (host_profile.claim_turn_events): its
+   device events by name, no ``scatter_reduce`` (K6 folds the per-node
+   victim aggregates), K6 once (twice with pod affinity).  Then one canon
+   walk of the evictive world with ``Tensor.to`` watched: its turns hand
+   K8 their ordinals as they come (no cast from ``_reclaim_canon``'s own
+   frame).
 
 Each path's launch counts are taken over its first world (seed 42; the
 priority-mix path's over seed 45), with every count set to 0 just
@@ -1150,15 +1161,20 @@ def k5_case(dev, fx):
                       f"timed too)")
 
 
-def k6_inputs(fx):
-    """The first preempt turn of the preempt entry state: the first
-    queue in the round's order, its claimant and its verdict."""
+# a K6 turn's tensors, in the order of claim_nodes_plain's arguments
+K6_TURN = ("victims", "node_rank", "node_cum", "node_ports", "node_num_tasks", "g", "req",
+           "budget", "has_grp", "was_ready", "need")
+
+
+def k6_turn(st, sess, state, view, tiers, qi: int = 0):
+    """A preempt turn of ``state``: queue ``qi`` in the round's order (the
+    first by default), its claimant and its verdict, as ``_apply_claim``
+    receives them (g i64, as the batched round passes it)."""
     from kube_arbitrator_tpu_torch.ops import allocate, preempt
 
-    st, sess, state, view, tiers = fx.st, fx.sess, fx.state, fx.view, fx.tiers
     q_active = preempt._round_gate(st, sess, state, "preempt", view)
     _, perm = preempt._queue_perm(st, sess, state, tiers, q_active)
-    q = perm[:1]
+    q = perm[qi:qi + 1]
     shared = allocate._selection_shared(st, sess, state, tiers, None)
     j, g, has_grp, req, budget = allocate.select_turns(st, sess, state, tiers, 4096, "preempt",
                                                        shared, q, st.queue_valid[q] & q_active[q])
@@ -1169,36 +1185,165 @@ def k6_inputs(fx):
     scope = view.running(state.task_status) & (view.job != j) & (view.queue == q)
     victims = preempt._victim_verdict(st, state, sess, tiers, scope, j.expand(P),
                                       req.expand(P, req.shape[1]), view) & has_grp
-    node_rank, node_cum = view.layouts.by_node_queue.rank_and_cum(victims)
-    return (*preempt.claim_aggregates(st, view, victims), state.node_ports, state.node_num_tasks,
-            victims, view.node, view.resreq, node_rank, node_cum, g, req[0].contiguous(), budget,
-            has_grp, was_ready, need, 4096, True, True)
+    node_rank, node_cum = (x.clone() for x in view.layouts.by_node_queue.rank_and_cum(victims))
+    return dict(victims=victims, node_rank=node_rank, node_cum=node_cum,
+                node_ports=state.node_ports, node_num_tasks=state.node_num_tasks,
+                g=g.to(torch.int64), req=req[0].contiguous(), budget=budget, has_grp=has_grp,
+                was_ready=was_ready, need=need)
+
+
+def k6_bound(st, turn) -> tuple:
+    """(bound ms, by): the bytes that one turn's function needs, each read
+    once (the node arrays: valid, unschedulable, class, max and current
+    task counts, ports; the panel's victim flags; each victim's node,
+    resreq, rank and cumulative) and its outputs written once (p, cum,
+    placed, evict, freed); its operations (the per-node capacity and the
+    victims' sums and rule, ~12 R a node and 4 R a victim).  The panel's
+    slot order and the node segments' starts are not counted: a victim's
+    node gives its segment, and within a node the view's order is
+    ascending slot order."""
+    N, (Pn, R) = st.num_nodes, turn["node_cum"].shape
+    W = turn["node_ports"].shape[1]
+    V = int(turn["victims"].sum())
+    nbytes = N * (1 + 1 + 4 + 4 + 4 + 4 * W) + Pn + V * (4 + 4 * R + 4 + 4 * R) \
+        + N * (4 + 4 + 4 * R) + 8 + Pn
+    return bound_ms(nbytes, N * 12 * R + V * 4 * R)
 
 
 def k6_case(dev, fx):
+    """K6 through ``ClaimNodesPlan`` in every form, each launch equal to
+    the plain version on the CPU (p, cum, placed, evict, freed): the
+    evictive world's first preempt turn (i64 g, timed; i32 g), the
+    statement gate off (preempt_intra), a turn with no victim, the gate
+    dropping the claim (keep false), and, in the pod-affinity world, the
+    two launches around K12 with K11's fit; the folded aggregates against
+    ``claim_aggregates`` (K4's slot-order sums, the scatter max / min) on
+    the card; one device event (three with pod affinity: K6, K12, K6) and
+    no allocation a call."""
+    from kube_arbitrator_tpu_torch.ops import preempt
     from kube_arbitrator_tpu_torch.ops.kernels import claim_nodes as k6
+    from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
 
-    args = k6_inputs(fx)
-    got = k6.claim_nodes(fx.st, *args)
-    want = k6.claim_nodes_plain(fx.st_cpu, *to_cpu(args))
-    err = 0.0
-    for a, b in zip(got, want):
-        err = max(err, max_err(a, b))
-        expect(torch.equal(a.cpu(), b), "K6 differs from its plain version")
+    st, view, tiers = fx.st, fx.view, fx.tiers
+    turn = k6_turn(st, fx.sess, fx.state, view, tiers)
+    view_cpu = to_cpu(view)
+    cases, err = [], 0.0
+
+    def check(what, plan, turn_, mode):
+        nonlocal err
+        want = k6.claim_nodes_plain(fx.st_cpu, view_cpu.node, view_cpu.node_order,
+                                    view_cpu.resreq, *(to_cpu(turn_[k]) for k in K6_TURN), 4096,
+                                    mode == "preempt", True)
+        n0 = k6.ClaimNodesPlan.launches
+        got = plan(**turn_)
+        expect(k6.ClaimNodesPlan.launches == n0 + 1, f"K6 {what}: one launch a call")
+        expect(got[0] is plan.p and got[3] is plan.evict, f"K6 {what}: the plan's own outputs")
+        for name, a, b in zip(("p", "cum", "placed", "evict", "freed"), got, want):
+            err = max(err, max_err(a, b))
+            expect(torch.equal(a.cpu(), b), f"K6 {what}: {name} differs from its plain version")
+        cases.append(dict(case=what, placed=got[2].tolist(), evicts=int(got[3].sum()),
+                          victims=int(turn_["victims"].sum())))
+        return got
+
+    plan = preempt._claim_plan(st, tiers, view, 4096, "preempt")
+    got = check("preempt, the evictive world's first turn, i64 g", plan, turn, "preempt")
     expect(int(got[3].sum()) > 0 and int(got[2][0]) > 0, "K6 inputs evicted or placed nothing")
-    t = kernel_times(lambda: k6.claim_nodes(fx.st, *args))
-    plain_ms = cuda_ms(lambda: k6.claim_nodes_plain(fx.st, *args), reps=5)
-    N, R = args[1].shape
-    W = args[4].shape[1]
-    P = args[6].shape[0]
-    # node aggregates, ports, counts and static flags read once; the
-    # panel's victims, nodes, resreq, ranks and cumulatives read once;
-    # p, cum and evict written
-    nbytes = N * (4 + 12 * R + 4 * W + 4 + 4 + 4 + 2) + P * (1 + 4 + 4 * R + 4 + 4 * R) \
-        + N * 8 + P
-    b, by = bound_ms(nbytes, N * 12 * R + P * 3 * R)
+    check("preempt, i32 g", plan, dict(turn, g=turn["g"].to(torch.int32)), "preempt")
+    intra = preempt._claim_plan(st, tiers, view, 4096, "preempt_intra")
+    check("preempt_intra (no statement gate), the same victims", intra, turn, "preempt_intra")
+    none = dict(turn, victims=torch.zeros_like(turn["victims"]))
+    got = check("a turn with no victim", plan, none, "preempt")
+    expect(int(got[2][1]) == 0 and int(got[3].sum()) == 0, "K6: a turn with no victim claimed")
+    drop = dict(turn, was_ready=torch.zeros_like(turn["was_ready"]),
+                budget=torch.full_like(turn["budget"], 4096), need=torch.full_like(turn["need"], 4096))
+    got = check("keep false (a gang short of its need)", plan, drop, "preempt")
+    expect(int(got[2][0]) == 0 and int(got[2][1]) > 0 and int(got[3].sum()) == 0,
+           f"K6: the statement gate kept {got[2].tolist()}")
+    # the folded aggregates against the reference expression on the card
+    agg = k6.ClaimNodesPlan(st, view, 4096, True, True, aggregates=True)
+    agg(**turn)
+    want = k6.claim_aggregates(view.node, view.node_order, view.resreq, turn["victims"],
+                               st.num_nodes)
+    for name, a, b in zip(("node_victims", "totfree", "vmax", "vmin"), agg.aggs, want):
+        err = max(err, max_err(a, b))
+        expect(torch.equal(a, b), f"K6: the folded {name} differs from claim_aggregates on the card")
+    cases.append(dict(case="folded aggregates == claim_aggregates (K4 slot order, scatter max / "
+                           "min) on the card", nodes_with_victims=int((want[0] > 0).sum())))
+    t = kernel_times(lambda: plan(**turn))
+    per_call = device_events_per_call(lambda: plan(**turn))
+    expect(per_call == 1.0, f"K6's plan made {per_call} device events a launch, not 1")
+    allocs = allocations_per_call(lambda: plan(**turn))
+    expect(allocs == 0, f"K6's plan allocates {allocs} times a launch")
+    plain_ms = cuda_ms(lambda: k6.claim_nodes_plain(
+        st, view.node, view.node_order, view.resreq, *(turn[k] for k in K6_TURN), 4096, True,
+        True), reps=5)
+    b, by = k6_bound(st, turn)
+    N, R = st.num_nodes, view.resreq.shape[1]
+    P = view.idx.shape[0]
+    V = int(turn["victims"].sum())
     return dict(name="claim_nodes", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None, shape=f"N={N}, R={R}, panel P={P}")
+                bound_by=by, library_ms=None, events_per_call=per_call, variants=cases,
+                shape=f"N={N}, R={R}, panel P={P}, {V} victims (ClaimNodesPlan, the evictive "
+                      f"world's first preempt turn); library: none")
+
+
+def k6_pa_forms(dev, pfx) -> list:
+    """K6 with pod affinity through ``ClaimNodesPlan``: the pod-affinity
+    world's preempt turns in the round's order (its running tasks'
+    panel) up to the first that places, K11 launched first as
+    ``_apply_claim`` does, then the plan's two launches around K12's
+    shaping, each equal to the plain version (K11's fit and K12 on the
+    CPU); three device events (K6, K12, K6) and no allocation a call,
+    timed on the placing turn."""
+    from kube_arbitrator_tpu_torch.api.types import TaskStatus
+    from kube_arbitrator_tpu_torch.ops import preempt
+    from kube_arbitrator_tpu_torch.ops.kernels import claim_nodes as k6
+    from kube_arbitrator_tpu_torch.ops.kernels import pa_shape as k12
+
+    pst, psess, pstate, tiers = pfx.st, pfx.sess, pfx.state, pfx.tiers
+    running0 = (pstate.task_status == int(TaskStatus.RUNNING)) & pst.task_valid \
+        & (pstate.task_node >= 0)
+    pview = preempt._build_view(pst, pstate, running0, pst.num_tasks)
+    pplan = preempt._claim_plan(pst, tiers, pview, 4096, "preempt")
+    expect(pplan.pa is not None, "K6: the pod-affinity world bound no K11 / K12 plans")
+    fit_plan, _ = pplan.pa
+    forms, placing = [], None
+    for qi in range(pst.num_queues):  # the round's turns until one places
+        turn = k6_turn(pst, psess, pstate, pview, tiers, qi)
+        fit_plan(turn["g"], pstate.task_status, pstate.task_node)  # K11, as _apply_claim does
+        fit_cpu = to_cpu(fit_plan.fit)
+        want = k6.claim_nodes_plain(
+            pfx.st_cpu, *(to_cpu(x) for x in (pview.node, pview.node_order, pview.resreq)),
+            *(to_cpu(turn[k]) for k in K6_TURN), 4096, True, True,
+            (fit_cpu.ok, k12.PaShapePlan(pfx.st_cpu, fit_cpu)))
+        n0 = k6.ClaimNodesPlan.launches
+        got = pplan(**turn)
+        expect(k6.ClaimNodesPlan.launches == n0 + 2, "K6 with pod affinity: two launches a call")
+        err = 0.0
+        for name, a, b in zip(("p", "cum", "placed", "evict", "freed"), got, want):
+            err = max(err, max_err(a, b))
+            expect(torch.equal(a.cpu(), b), f"K6 with pod affinity, turn {qi}: {name} differs "
+                   f"from its plain version")
+        forms.append(dict(case=f"pod affinity: phase 1, K12, phase 2 (the pa world's turn {qi})",
+                          max_abs_err=err, placed=got[2].tolist(), evicts=int(got[3].sum()),
+                          victims=int(turn["victims"].sum())))
+        if int(got[2][1]) > 0:
+            placing = turn
+            break
+    expect(placing is not None, "K6 with pod affinity: no turn of the round placed")
+    pturn = placing
+    # three launches a call (K6, K12, K6) on the host's records, and no
+    # device event beyond them (the profile may lose one record of a run)
+    per_call = device_events_per_call(lambda: pplan(**pturn), launches=3)
+    host = launch_records_per_call(lambda: pplan(**pturn))
+    expect(host == 3.0 and 3.0 - 1 / 20 <= per_call <= 3.0,
+           f"K6 with pod affinity: {host} launches and {per_call} device events a call, not 3 "
+           f"(K6, K12, K6)")
+    allocs = allocations_per_call(lambda: pplan(**pturn))
+    expect(allocs == 0, f"K6's plan with pod affinity allocates {allocs} times a call")
+    forms[-1].update(events_per_call=per_call, launch_records_per_call=host,
+                     **kernel_times(lambda: pplan(**pturn)))
+    return forms
 
 
 def canon_inputs(fx):
@@ -1952,10 +2097,46 @@ def k11_case(dev, fx):
                 library_ms=lib_ms, shape=f"T={T}, N={N}, K={K}, D={st.num_domains}"), fits, seeds, caps
 
 
-def device_events_per_call(fn, calls: int = 20) -> float:
+def profiled_records(run) -> tuple:
+    """(device events, host launch records, spin seen) of ``run()`` in
+    one profile with host and device activity.  The device events are
+    profiled_device_events' (a spin kernel first, its event left out);
+    the host's records are the calls that start device work
+    (``cudaLaunch*`` / ``cuLaunch*`` / ``*Memset*`` / ``*Memcpy*``), at
+    the runtime's level or the driver's (or both), less the spin's own
+    launch; ``spin seen`` says whether the spin kernel's event is there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2000)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    runtime = driver = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            continue
+        runtime += e.name().startswith(("cudaLaunch", "cudaMemset", "cudaMemcpy"))
+        driver += e.name().startswith(("cuLaunch", "cuMemset", "cuMemcpy"))
+    spin = sum(SPIN in e.name for e in dev)
+    return len(dev) - spin, max(max(runtime, driver) - 1, 0), spin > 0
+
+
+def device_events_per_call(fn, calls: int = 20, launches: int = 1) -> float:
     """Every device event (kernels, memsets, copies) torch.profiler sees
-    per call of ``fn``: a plan's call must launch its one kernel and
-    nothing around it."""
+    per call of ``fn``: a plan's call must launch its ``launches``
+    kernels and nothing around them.
+
+    A profile can lose device events: the first launch's (hence the
+    spin, see profiled_device_events), and on an H100 once every event
+    of three profiles in a row.  A profile is whole when its spin's event
+    is there and its device events match the host's launch records.
+    Fewer events than ``calls * launches`` in a profile that is not
+    whole are profiled again, up to five times; if none is whole, the
+    host's launch records (the most a profile saw) count the device's
+    events.  More events than launches are never profiled away."""
     fn()
     torch.cuda.synchronize()
 
@@ -1963,14 +2144,30 @@ def device_events_per_call(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
 
-    # fewer events than calls is a lost record (see profiled_device_events),
-    # since each call launches at least once, so profile again; more than
-    # one a call is never retried away
-    for _ in range(3):
-        n = len(profiled_device_events(run))
-        if n >= calls:
-            break
-    return n / calls
+    most = 0
+    for _ in range(5):
+        n, host, spin = profiled_records(run)
+        if n >= calls * launches or (spin and n == host):
+            return n / calls
+        most = max(most, host)
+    print(f"device_events_per_call: no whole profile in 5 (the last: {n} device events, "
+          f"{host} host launch records, spin {'seen' if spin else 'lost'}); counting the "
+          f"host's launch records ({most})", file=sys.stderr, flush=True)
+    return most / calls
+
+
+def launch_records_per_call(fn, calls: int = 20) -> float:
+    """The host's records of kernel launches, memsets and copies per call
+    of ``fn`` (profiled_records): kept where the profile can lose a
+    device event, so they say how many device events a call makes."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    return profiled_records(run)[1] / calls
 
 
 def allocations_per_call(fn, calls: int = 20) -> float:
@@ -3061,9 +3258,15 @@ def k20_case(dev):
 
 
 def k16_case(dev, efx, tfx):
-    """B7 at T = 102,400 (the case timed), B4 on the allocate world's
-    feasibility cells at [K, 10,240], B11 on the evictive world's running
-    tasks at P = T = 51,200."""
+    """K16, one launch a call, in every form, each equal to
+    ``stable_compact_plain`` on the CPU: B7 at T = 102,400 with more set
+    than cap (timed); the commit's bind and evict lists as one two-row
+    launch (``stable_compact_pair``; ``commit_cycle``'s caps); B4 on the
+    allocate world's feasibility cells at [K, 10,240] (cap N // 4), and
+    at K = 3 with a request floor; B11, the evictive world's running tasks
+    (P = T = 51,200) and a T = 102,400 -> P = 51,200 panel; an empty mask,
+    a cap of one, L not a multiple of the chunk.  One device event and no
+    allocation a call (outputs given); the commit's four launches -> one."""
     from kube_arbitrator_tpu_torch.api.types import TaskStatus
     from kube_arbitrator_tpu_torch.ops import allocate
     from kube_arbitrator_tpu_torch.ops.cycle import decode_caps
@@ -3072,42 +3275,94 @@ def k16_case(dev, efx, tfx):
 
     rng = np.random.default_rng(16)
     T = 102_400
-    cap = decode_caps(T)[0]
+    bcap, ecap = decode_caps(T)
     mask = torch.from_numpy(rng.random(T) < 0.6).to(dev)  # more set than cap
     cells = allocate._prune_cells(tfx.st, tfx.state0, tiers, False)
     N = tfx.st.num_nodes
+    K3 = 3
+    cells3 = k16.FeasCells(
+        cells.class_fit[torch.arange(K3, device=dev) % cells.class_fit.shape[0]], cells.node_klass,
+        cells.node_valid,
+        cells.node_unsched, cells.preds_on,
+        cells.minreq[:1] * torch.tensor([[0.5], [1.0], [4.0]], device=dev), cells.basis)
     st_e = efx.st
     running0 = (efx.state.task_status == int(TaskStatus.RUNNING)) & st_e.task_valid \
         & (efx.state.task_node >= 0)
     Te = st_e.num_tasks
-    cases = (("B7", mask[None, :], cap, -1), ("B4", cells, N // 4, N),
-             ("B11", running0[None, :], Te, Te))
-    err, times = 0.0, {}
-    for name, m, cp, pad in cases:
-        gi, gc = k16.stable_compact(m, cp, pad)
+    qual = torch.from_numpy(rng.random(T) < 0.3).to(dev)  # a panel of 51,200 holds them
+    odd = torch.from_numpy(rng.random(T - 777) < 0.5).to(dev)
+    cases = (("B7: commit list, count past cap", mask[None, :], bcap, -1),
+             ("B4: allocate's cells [K, 10,240], cap N // 4", cells, N // 4, N),
+             (f"B4: cells at K = {K3} with a request floor", cells3, N // 4, N),
+             (f"B11: the evictive world's running tasks, P = T = {Te}", running0[None, :], Te, Te),
+             ("B11: T = 102,400 -> P = 51,200", qual[None, :], T // 2, T),
+             ("an empty mask", torch.zeros_like(mask)[None, :], 4096, -1),
+             ("a cap of one", mask[None, :], 1, -1),
+             (f"L = {T - 777}, not a multiple of the {k16.CHUNK}-chunk", odd[None, :], 5000, -7),
+             ("[3, L] mask rows", torch.stack([mask, qual, ~mask]), 40_000, -1))
+    variants, err = [], 0.0
+    for what, m, cp, pad in cases:
+        K = m.shape[0]
+        out = k16._outputs(((K, cp),), dev)[0]
+        n0 = k16.stable_compact.launches
+        gi, gc = k16.stable_compact(m, cp, pad, out=out)
+        expect(k16.stable_compact.launches == n0 + 1, f"K16 {what}: one launch a call")
         m_cpu = m.mask().cpu() if isinstance(m, k16.FeasCells) else m.cpu()
         pi, pc = k16.stable_compact_plain(m_cpu, cp, pad)
         err = max(err, max_err(gi, pi), max_err(gc, pc))
         expect(torch.equal(gi.cpu(), pi) and torch.equal(gc.cpu(), pc),
-               f"K16 {name} differs from its plain version")
-        times[name] = cuda_ms(lambda: k16.stable_compact(m, cp, pad))
-    expect(int(mask.sum()) > cap, "K16 B7 inputs: the count does not pass cap")
+               f"K16 {what} differs from its plain version")
+        fn = (lambda m=m, cp=cp, pad=pad, out=out: k16.stable_compact(m, cp, pad, out=out))
+        plan = k16.plan_for(torch.cuda.current_device(), K, m.shape[1])
+        variants.append(dict(case=what, K=K, L=m.shape[1], cap=cp, counts=gc.tolist()[:3],
+                             tiles=plan.tiles, span=plan.span, **kernel_times(fn)))
+    expect(int(mask.sum()) > bcap, "K16 B7 inputs: the count does not pass cap")
+    # the commit's two lists: one launch, each row against its own plain list
+    emask = torch.from_numpy(rng.random(T) < 0.02).to(dev)
+    pout = tuple(t for row in k16._outputs(((1, bcap), (1, ecap)), dev) for t in row)
+    n0 = k16.stable_compact.launches
+    (bi, bc), (ei, ec) = k16.stable_compact_pair(mask, bcap, -1, emask, ecap, -1, out=pout)
+    expect(k16.stable_compact.launches == n0 + 1, "K16: the commit's two lists are not one launch")
+    for what, (gi, gc), m, cp in (("bind", (bi, bc), mask, bcap), ("evict", (ei, ec), emask, ecap)):
+        pi, pc = k16.stable_compact_plain(m.cpu()[None, :], cp, -1)
+        err = max(err, max_err(gi, pi[0]), max_err(gc, pc[0]))
+        expect(torch.equal(gi.cpu(), pi[0]) and int(gc) == int(pc[0]),
+               f"K16 the commit's {what} list differs from its plain version")
+
+    def pair():
+        return k16.stable_compact_pair(mask, bcap, -1, emask, ecap, -1, out=pout)
+
+    variants.append(dict(case=f"the commit's bind (cap {bcap}) and evict (cap {ecap}) lists, one "
+                              f"launch", **kernel_times(pair),
+                         events_per_call=device_events_per_call(pair),
+                         allocations_per_call=allocations_per_call(pair)))
+    out = k16._outputs(((1, bcap),), dev)[0]
+
+    def one():
+        return k16.stable_compact(mask[None, :], bcap, -1, out=out)
+
+    t = kernel_times(one)
+    per_call = device_events_per_call(one)
+    expect(per_call == 1.0, f"K16 made {per_call} device events a call, not 1")
+    expect(variants[-1]["events_per_call"] == 1.0, "K16's two-row launch is not one device event")
+    allocs = allocations_per_call(one)
+    expect(allocs == 0 and variants[-1]["allocations_per_call"] == 0,
+           f"K16 allocates {allocs} times a call")
+    plain_ms = cuda_ms(lambda: k16.stable_compact_plain(mask[None, :], bcap, -1), reps=5)
 
     def nonzero_pad():
-        idx = torch.full((cap,), -1, dtype=torch.int64, device=dev)
-        nz = torch.nonzero(mask).reshape(-1)[:cap]
+        idx = torch.full((bcap,), -1, dtype=torch.int64, device=dev)
+        nz = torch.nonzero(mask).reshape(-1)[:bcap]
         idx[:nz.numel()] = nz
         return idx, mask.sum()
 
-    t = kernel_times(lambda: k16.stable_compact(mask[None, :], cap, -1))
-    plain_ms = cuda_ms(lambda: k16.stable_compact_plain(mask[None, :], cap, -1), reps=5)
     lib_ms = cuda_ms(nonzero_pad)
-    b, by = bound_ms(T + cap * 4 + 4, T * 2)
-    print(f"kernel stable_compact: B4 [{cells.shape[0]},{N}] cap {N // 4} {times['B4']:.4f} ms, "
-          f"B11 T={Te} {times['B11']:.4f} ms", flush=True)
+    b, by = bound_ms(T + bcap * 4 + 4, T * 2)
+    for v in variants:
+        print(f"kernel stable_compact form {json.dumps(v)}", flush=True)
     return dict(name="stable_compact", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms, b4_ms=times["B4"], b11_ms=times["B11"],
-                shape=f"B7 mask bool[{T}] -> i32[{cap}] (count past cap); library: "
+                bound_by=by, library_ms=lib_ms, events_per_call=per_call, variants=variants,
+                shape=f"B7 mask bool[{T}] -> i32[{bcap}] (count past cap), one launch; library: "
                       f"torch.nonzero + pad (a host sync)")
 
 
@@ -3413,6 +3668,8 @@ def main(kernels_only: bool = False) -> int:
         report(case(dev, fx) if case in (k4_case, k5_case, k6_case, k7_case, k8_case) else case(dev))
     for v in rows["segment_sum"]["variants"]:
         print(f"kernel segment_sum form {json.dumps(v)}", flush=True)
+    for v in rows["claim_nodes"]["variants"]:
+        print(f"kernel claim_nodes form {json.dumps(v)}", flush=True)
     tfx = turn_fixture(dev)
     report(k9_case(dev, tfx))
     for v in rows["turn_caps"]["variants"]:
@@ -3435,6 +3692,9 @@ def main(kernels_only: bool = False) -> int:
     del fx
     report(k18_case(dev))
     fx = pa_fixture(dev)
+    for v in k6_pa_forms(dev, fx):
+        rows["claim_nodes"]["variants"].append(v)
+        print(f"kernel claim_nodes form {json.dumps(v)}", flush=True)
     r, fits, seeds, caps = k11_case(dev, fx)
     report(r)
     report(k12_case(dev, fx, fits, seeds, caps))
@@ -3920,6 +4180,20 @@ def main(kernels_only: bool = False) -> int:
         print(f"profiled {name} cycle (50k x 5k, seed 42): {ops}, {n_kern} device kernels "
               f"({len(dev_ev)} device events), profiled cycle {g['cycle_ms']:.1f} ms", flush=True)
         expect(not any(ops.values()), f"the {name} cycle ran a library sort, search or scan: {ops}")
+    # one claim turn's tail (_apply_claim) of each cycle, by name: K6 folds
+    # the per-node victim aggregates, so no scatter_reduce is left in it
+    from kube_arbitrator_tpu_torch.host_profile import claim_turn_events
+
+    for name, pa in (("evictive", False), ("pa_evict", True)):
+        ce = claim_turn_events(dict(EVICT_FULL, actions=EVICT_ACTIONS, pod_affinity=pa), seed=42)
+        print(f"claim turn {ce['turn']} of {ce['turns']} ({name} 50k x 5k, seed 42): "
+              f"{ce['device_events']} device events ({ce['kernels']} kernels), "
+              f"{ce['scatter_reduce']} scatter_reduce, launches {ce['launches']}; by name "
+              f"{json.dumps(ce['by_name'])}", flush=True)
+        expect(ce["scatter_reduce"] == 0, f"a {name} claim turn ran scatter_reduce "
+               f"({ce['scatter_reduce']}): the aggregates are K6's")
+        expect(ce["launches"].get("claim_nodes") == (2 if pa else 1),
+               f"a {name} claim turn launched K6 {ce['launches'].get('claim_nodes')} times")
     walk = canon_walk_casts(dev)
     print(f"canon walk (evictive 50k x 5k, seed 42): {walk['casts']} casts from _reclaim_canon's "
           f"own frame over {walk['k8_launches']} K8 launches", flush=True)

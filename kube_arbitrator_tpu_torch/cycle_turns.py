@@ -2,7 +2,7 @@
 
     python -m kube_arbitrator_tpu_torch.cycle_turns --parent DIR [--order PCCPCP] \\
         [--tree X=DIR2 ...] [--worlds allocate,evictive,pa_evict,binpack,q512_evict,priority_mix] \\
-        [--out FILE]
+        [--cycles N] [--out FILE]
 
 DIR is a second checkout of the repository (for example the parent
 commit, unpacked with ``git archive``); each ``--tree X=DIR2`` names one
@@ -10,7 +10,8 @@ more, under the letter X (for example a tree with one part of a change
 reverted).  For each letter of ``--order`` (P: DIR, C: this tree, X:
 DIR2) and each world, one process runs the port's CLI
 (``python -m kube_arbitrator_tpu_torch ... --json``) from that tree and
-decides ``cycles`` fresh worlds (seeds seed, seed + 1, ...).  The first
+decides ``cycles`` fresh worlds (seeds seed, seed + 1, ...; ``--cycles``
+sets their number for every world).  The first
 cycle of a process pays for loading the kernels and warming the card, so
 only the later ("warm") cycles are compared.  Prints one JSON line per
 process and, last, per world and tree the median and range of the warm
@@ -52,9 +53,12 @@ WORLDS = {
 }
 
 
-def run_once(tree: Path, world: str, timeout: float) -> List[Dict]:
-    out = subprocess.run([sys.executable, "-m", "kube_arbitrator_tpu_torch", *WORLDS[world],
-                          "--json"], cwd=tree, capture_output=True, text=True, timeout=timeout)
+def run_once(tree: Path, world: str, timeout: float, cycles: int = 0) -> List[Dict]:
+    args = list(WORLDS[world])
+    if cycles:
+        args[args.index("--cycles") + 1] = str(cycles)
+    out = subprocess.run([sys.executable, "-m", "kube_arbitrator_tpu_torch", *args, "--json"],
+                         cwd=tree, capture_output=True, text=True, timeout=timeout)
     if out.returncode != 0:
         raise RuntimeError(f"{tree} {world}: exit {out.returncode}\n{out.stderr[-4000:]}")
     return [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
@@ -80,6 +84,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="X=DIR",
                     help="one more tree, under the letter X")
     ap.add_argument("--worlds", default="allocate,evictive,pa_evict")
+    ap.add_argument("--cycles", type=int, default=0,
+                    help="cycles a process decides (default: each world's own)")
     ap.add_argument("--timeout", type=float, default=600.0, help="seconds per process")
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
     a = ap.parse_args(argv)
@@ -95,7 +101,7 @@ def main(argv=None) -> int:
     rows: Dict[str, Dict[str, List[Dict]]] = {w: {t: [] for t in trees} for w in worlds}
     for turn, which in enumerate(a.order):
         for w in worlds:
-            got = run_once(trees[which], w, a.timeout)
+            got = run_once(trees[which], w, a.timeout, a.cycles)
             rows[w][which].extend(got)
             print(json.dumps(dict(turn=turn, tree=which, world=w,
                                   cycles=[(r["seed"], round(r["cycle_ms"], 1)) for r in got])),

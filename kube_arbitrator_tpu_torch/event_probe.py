@@ -7,11 +7,14 @@ chip_smoke.py counts a plan's device events a call under torch.profiler
 and requires exactly one.  This probe profiles ``--calls`` back-to-back
 calls ``--profiles`` times for three one-kernel calls (K20's plan at
 _reclaim_fast's [51,200, 3], its masked plan at [51,200, 4], and a
-16-float ``Tensor.add_``), in three forms: ``plain`` (the calls alone),
+16-float ``Tensor.add_``), in four forms: ``plain`` (the calls alone),
 ``spin_first`` (a ``torch.cuda._sleep`` kernel launched and waited for
-first, inside the profile, its own event left out: chip_smoke.py's
-form), and ``by_launch`` (host and device activity, each launch matched
-to its kernel by correlation id: which launches lost their record).
+first, inside the profile, its own event left out), ``by_launch`` (host
+and device activity, each launch matched to its kernel by correlation
+id: which launches lost their record), and ``records`` (chip_smoke.py's
+form: spin first with host and device activity, each profile counted
+as whole, short of device events with its spin seen, or with its spin
+lost, and with no device event at all).
 Prints one JSON line per call and form.  Needs the GPU.
 """
 from __future__ import annotations
@@ -70,6 +73,32 @@ def by_launch(fn, calls: int) -> List[int]:
     return [i for i, c in enumerate(sorted(launches)) if c not in kernels]
 
 
+def records(fn, calls: int) -> str:
+    """How one profile in chip_smoke.py's form came out: ``whole`` (the
+    spin's event there, as many device events as host launch records),
+    ``short`` (the spin's event there, the two counts differ),
+    ``spin_lost`` or ``none`` (no device event at all)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = _device_events(prof)
+    host = [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() != torch.autograd.DeviceType.CUDA]
+    host = max(sum(n.startswith(("cudaLaunch", "cudaMemset", "cudaMemcpy")) for n in host),
+               sum(n.startswith(("cuLaunch", "cuMemset", "cuMemcpy")) for n in host)) - 1
+    spin = sum(SPIN in e.name for e in dev)
+    if not dev:
+        return "none"
+    if not spin:
+        return "spin_lost"
+    return "whole" if len(dev) - spin == host else "short"
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     from .ops.kernels import ordered_scan as k20
 
@@ -93,6 +122,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     counts = {(n, f): collections.Counter() for n in fns for f in ("plain", "spin_first")}
     missing = {n: collections.Counter() for n in fns}
     lossy = collections.Counter()
+    outcomes = {n: collections.Counter() for n in fns}
     for _ in range(args.profiles):  # the forms interleaved, profile by profile
         for name, fn in fns.items():
             counts[(name, "plain")][plain(fn, args.calls)] += 1
@@ -100,6 +130,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             lost = by_launch(fn, args.calls)
             lossy[name] += bool(lost)
             missing[name].update(lost)
+            outcomes[name][records(fn, args.calls)] += 1
     for name in fns:
         for form in ("plain", "spin_first"):
             print(json.dumps(dict(call=name, form=form, profiles=args.profiles, calls=args.calls,
@@ -107,6 +138,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(json.dumps(dict(call=name, form="by_launch", profiles=args.profiles,
                               calls=args.calls, lossy_profiles=lossy[name],
                               missing_launch_index=dict(sorted(missing[name].items())))))
+        print(json.dumps(dict(call=name, form="records", profiles=args.profiles,
+                              calls=args.calls, outcomes=dict(sorted(outcomes[name].items())))))
     return 0
 
 

@@ -19,7 +19,10 @@ and ``seg_cumsum`` of ops/common.py, K5's callers; ``mm_cumsum`` of
 ops/common.py; ``_reclaim_canon`` and ``_reclaim_fast`` of
 ops/preempt.py, the reclaim walks that launch K7 / K8 and K20;
 ``_reclaim_canon_optimistic`` / ``_reclaim_canon_batched`` of
-ops/preempt.py, the opt-in engines that launch K13-K15 and K8) its
+ops/preempt.py, the opt-in engines that launch K13-K15 and K8;
+``_apply_claim`` of ops/preempt.py, a preempt claim turn's tail around
+K6, and ``claim_aggregates`` of ops/preempt.py, where an older tree
+made the per-node victim sums for K6, which K6 now folds in) its
 functions' calls and cumulative seconds and the callees of those
 functions by cumulative seconds: the host items that cost most.  With
 ``queue_perm`` among the wrappers, the row also gives the device kernels
@@ -27,7 +30,8 @@ one ``queue_perm`` call launches (torch.profiler over 20 calls at the
 world's queue count, between entry and return); with
 ``_reclaim_canon_optimistic``, the device events of one optimistic
 reclaim action from the world's open_session state by name, its windows
-and the events per window.  cProfile slows every
+and the events per window; with ``claim_nodes``, the device events of
+one preempt claim turn (:func:`claim_turn_events`).  cProfile slows every
 Python call, so compare items within one run, not with the cycle times
 of cycle_turns.py.  Needs the GPU, as the CLI does.
 """
@@ -75,7 +79,9 @@ OTHER = {"queue_perm": ("ops/allocate.py", "queue_perm"),
          "_reclaim_canon": ("ops/preempt.py", "_reclaim_canon"),
          "_reclaim_canon_optimistic": ("ops/preempt.py", "_reclaim_canon_optimistic"),
          "_reclaim_canon_batched": ("ops/preempt.py", "_reclaim_canon_batched"),
-         "_reclaim_fast": ("ops/preempt.py", "_reclaim_fast")}
+         "_reclaim_fast": ("ops/preempt.py", "_reclaim_fast"),
+         "_apply_claim": ("ops/preempt.py", "_apply_claim"),
+         "claim_aggregates": ("ops/preempt.py", "claim_aggregates")}
 decide_world(device="cuda", seed=seed - 1, **world)
 torch.cuda.synchronize()
 prof = cProfile.Profile()
@@ -130,6 +136,9 @@ if "_reclaim_canon_optimistic" in wrappers:
     out["optimistic_device_events"] = optimistic_events(
         "cuda", world["tasks"], world["nodes"], world.get("queues", 8), seed,
         world["running_fraction"])
+if "claim_nodes" in wrappers and "preempt" in world.get("actions", ()):
+    from kube_arbitrator_tpu_torch.host_profile import claim_turn_events
+    out["claim_turn_events"] = claim_turn_events(world, seed)
 print(json.dumps(out))
 '''
 
@@ -190,6 +199,58 @@ def optimistic_events(device, tasks: int, nodes: int, queues: int, seed: int,
         events_per_window=len(dev_ev) / max(r.windows, 1), casts=own["n"],
         launches={k: after[k] - before[k] for k in ("union_fit", "window_gate", "canon_commit")},
         by_name=dict(Counter(e.name[:90] for e in dev_ev).most_common(40)))
+
+
+def claim_turn_events(world: dict, seed: int, turn: int = 0) -> dict:
+    """One preempt claim turn's tail (ops/preempt.py's ``_apply_claim``:
+    K6, the claimant decode and the state scatters), the ``turn``-th of a
+    cycle of ``world`` (decide_world's arguments, with ``preempt`` among
+    its actions) on the card, under torch.profiler: its device events
+    (all, kernels alone, by name), the ``scatter_reduce`` ops it issued,
+    and the launches of each port kernel.  A spin kernel runs first
+    inside the profile (its record is left out), since the profile can
+    lose the record of its first launch."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_arbitrator_tpu_torch.cli import decide_world
+    from kube_arbitrator_tpu_torch.ops import kernels, preempt
+
+    orig = preempt._apply_claim
+    seen, got = [0], {}
+
+    def profiled(*a, **kw):
+        seen[0] += 1
+        if seen[0] - 1 != turn:
+            return orig(*a, **kw)
+        torch.cuda.synchronize()
+        before = kernels.counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(2000)
+            torch.cuda.synchronize()
+            orig(*a, **kw)
+            torch.cuda.synchronize()
+        after = kernels.counts()
+        dev_ev = [e for e in prof.events()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        got.update(
+            device_events=len(dev_ev),
+            kernels=sum(not e.name.startswith(("Memcpy", "Memset")) for e in dev_ev),
+            scatter_reduce=sum(e.count for e in prof.key_averages()
+                               if "scatter_reduce" in e.key),
+            launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
+            by_name=dict(Counter(e.name[:90] for e in dev_ev).most_common(40)))
+
+    preempt._apply_claim = profiled
+    try:
+        decide_world(device="cuda", seed=seed, **world)
+        torch.cuda.synchronize()
+    finally:
+        preempt._apply_claim = orig
+    return dict(turn=turn, turns=seen[0], **got)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -20,7 +20,7 @@ from ..cache.snapshot import SnapshotTensors
 from .allocate import AllocState, SessionCtx, allocate_action, backfill_action
 from .common import fair, ordered_sum, safe_share, segment_sum
 from .fairness import drf_equilibrium_levels_per_job, drf_shares, proportion_deserved
-from .kernels.stable_compact import stable_compact
+from .kernels.stable_compact import stable_compact, stable_compact_pair
 from .kernels.stable_sort import segment_order
 from .ordering import DEFAULT_ACTIONS, DEFAULT_TIERS, Tiers
 from .preempt import (
@@ -354,8 +354,10 @@ def commit_cycle(
     ready_of_task = job_ready_status[st.task_job.to(torch.int64)]
     bind_mask = newly_alloc & ready_of_task
     auto_b, auto_e = decode_caps(st.num_tasks)
-    bind_idx, bind_count = _compact_indices(bind_mask, auto_b if bind_cap is None else bind_cap)
-    evict_idx, evict_count = _compact_indices(evict_mask, auto_e if evict_cap is None else evict_cap)
+    # K16: both lists from one launch, into one buffer that leaves with the decisions
+    (bind_idx, bind_count), (evict_idx, evict_count) = stable_compact_pair(
+        bind_mask, auto_b if bind_cap is None else bind_cap, -1,
+        evict_mask, auto_e if evict_cap is None else evict_cap, -1)
     bind_node = torch.where(
         bind_idx >= 0, state.task_node[bind_idx.clamp(min=0).to(torch.int64)], -1
     ).to(torch.int32)

@@ -6,7 +6,7 @@ PyTorch version and with a launch counter:
 * K3 :func:`decode_deferred.decode_deferred` — ops/allocate._decode_deferred
 * K4 :func:`segment_sum.segment_sum`         — slot-order segment sums
 * K5 :func:`seg_scan.seg_scan`               — ops/preempt victim-layout scans (SegScanPlan)
-* K6 :func:`claim_nodes.claim_nodes`         — ops/preempt._apply_claim node half
+* K6 :class:`claim_nodes.ClaimNodesPlan`     — ops/preempt._apply_claim node half
 * K7 :func:`canon_pick.canon_pick`           — reclaim turn: per-node sums, first fit (CanonPickPlan)
 * K8 :func:`canon_commit.canon_commit`       — reclaim turn: window commit (CanonCommitPlan)
 * K9 :func:`turn_caps.turn_caps`             — immediate turn: capacity, packing order
@@ -38,7 +38,7 @@ KERNELS = {
     "decode_deferred": decode_deferred.decode_deferred,
     "segment_sum": segment_sum.segment_sum,
     "seg_scan": seg_scan.seg_scan,
-    "claim_nodes": claim_nodes.claim_nodes,
+    "claim_nodes": claim_nodes.ClaimNodesPlan,
     "canon_pick": canon_pick.canon_pick,
     "canon_commit": canon_commit.canon_commit,
     "turn_caps": turn_caps.turn_caps,

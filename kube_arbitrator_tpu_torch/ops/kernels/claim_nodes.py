@@ -1,23 +1,27 @@
 """K6 ``claim_nodes``: the node half of one preempt turn's claim.
 
 Replaces the middle of the reference's ops/preempt.py:_apply_claim
-(:439-803): per-node claim capacity over the turn's victims (uniform
-victim chunks or the mixed-size bound, the trailing under-covered claim,
-pod and host-port clamps), the int32 prefix fill ``p`` of the turn's
-budget in node order, preempt's statement gate ``keep`` and, per victim,
-the covering-prefix evict rule.  The per-node aggregates are inputs:
-``node_victims`` / ``totfree`` summed by K4 in slot order, ``vmax`` /
-``vmin`` by an order-free max / min.  The turn's scalars (``g``,
-``budget``, ``has_grp``, ``was_ready``, ``need``) stay on the device.
-With pod affinity (``pa``: K11's ok mask and the K12 shaping of the
-claim capacity, the reference's :513-516 and :604-606) the kernel runs in
-two launches with K12 between them: the capacity, then the scan, fill
-and evict rule over the shaped capacity.
-CUDA source: csrc/claim_nodes.cu.
+(:439-803): the per-node victim aggregates (the victim count and resreq
+sums in slot order, the order-free max / min: :func:`claim_aggregates`),
+the claim capacity over them (uniform victim chunks or the mixed-size
+bound, the trailing under-covered claim, pod and host-port clamps), the
+int32 prefix fill ``p`` of the turn's budget in node order, preempt's
+statement gate ``keep``, per victim the covering-prefix evict rule, and
+the evicted resreq ``freed`` per node in slot order.  The turn's scalars
+(``g``, ``budget``, ``has_grp``, ``was_ready``, ``need``) stay on the
+device.  With pod affinity (``pa``: K11's ok mask and the K12 shaping of
+the claim capacity, the reference's :513-516 and :604-606) a turn is two
+launches with K12 between them: the capacity, then the scan, fill, evict
+rule and freed over the shaped capacity.
+
+:class:`ClaimNodesPlan` binds a preempt round loop's launches once (the
+pack, the victim view, K11's and K12's plans, its own outputs); a launch
+passes only the turn's tensors.  CUDA source: csrc/claim_nodes.cu.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,33 +29,77 @@ from ...cache.snapshot import DEVICE_EPSILON
 from . import build
 from .admit_chunk import copies_fit, to_i32
 from .build import I, P
+from .canon_pick import WIDE
+from .segment_sum import segment_sum
 
 EPS = DEVICE_EPSILON
 BIG = 3.0e38  # rounds to the reference's float32 BIG
+MAX_R = 8  # csrc/claim_nodes.cu's MAX_R: resources a launch holds
 
-# C signature of csrc/claim_nodes.cu
-SIGNATURES = {
-    "kat_claim_nodes": (
-        P, P, P, P, P, P, P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P,
-        I, I, I, I, I, I, I, I, P, P, I, P, P, P, P, P, P, P, P,
-    ),
-}
+# C signatures of csrc/claim_nodes.cu: (static, call, stream); the grid of N nodes
+SIGNATURES = {"kat_claim_nodes": (P, P, P), "kat_claim_nodes_grid": (I, I)}
 
 
-def claim_nodes_plain(st, node_victims, totfree, vmax, vmin, node_ports, node_num_tasks,
-                      victims, vnode, vres, node_rank, node_cum,
-                      g, req, budget, has_grp, was_ready, need, s_max, preempt_mode, preds_on,
-                      pa=None):
-    """The plain version, the reference's arithmetic op for op."""
+class _Static(ctypes.Structure):
+    """csrc/claim_nodes.cu's Static: the fixed arguments of a plan."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "class_fit", "node_klass", "node_valid", "node_unsched", "node_max_tasks", "group_klass",
+        "group_ports", "perm", "seg_start", "vres", "pa_ok", "p", "cum", "placed", "evict",
+        "freed", "full_s", "chunk_s", "unif_s", "agg_nv", "agg_tot", "agg_max", "agg_min",
+        "words",
+    )] + [(n, ctypes.c_int) for n in (
+        "CN", "N", "R", "W", "T", "s_max", "preempt_mode", "preds_on", "grid")]
+
+
+class _Call(ctypes.Structure):
+    """csrc/claim_nodes.cu's Call: a launch's own arguments, set in place."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "g", "req", "budget", "has_grp", "was_ready", "need", "victims", "node_rank", "node_cum",
+        "node_ports", "node_num_tasks",
+    )] + [(n, ctypes.c_int) for n in ("g_wide", "phase")] + [("seq", ctypes.c_uint)]
+
+
+def claim_aggregates(vnode, node_order, vres, victims, N: int):
+    """(node_victims i32[N], totfree f32[N, R], vmax, vmin f32[N, R]): the
+    reference's per-node aggregates of the turn's victims — the count and
+    the resreq sums in slot order (K4 over the view's node order, the
+    reference's scatter-add order) and the order-free max / min (-BIG /
+    BIG where a node has no victim).  The card's K6 launch computes them
+    itself (in the same order); this is their plain version."""
+    R = vres.shape[1]
+    masked = torch.where(victims[:, None], vres, 0.0)
+    agg = segment_sum(torch.cat([victims.to(torch.float32)[:, None], masked], dim=1), vnode, N,
+                      order=node_order)
+    vsel = torch.where(victims, vnode, N).to(torch.int64)[:, None].expand(-1, R)
+    vmax = torch.full((N + 1, R), -BIG, dtype=torch.float32, device=vres.device)
+    vmax.scatter_reduce_(0, vsel, torch.where(victims[:, None], vres, -BIG), "amax")
+    vmin = torch.full((N + 1, R), BIG, dtype=torch.float32, device=vres.device)
+    vmin.scatter_reduce_(0, vsel, torch.where(victims[:, None], vres, BIG), "amin")
+    return (agg[:, 0].to(torch.int32), agg[:, 1:].contiguous(), vmax[:N].contiguous(),
+            vmin[:N].contiguous())
+
+
+def claim_nodes_plain(st, vnode, node_order, vres, victims, node_rank, node_cum, node_ports,
+                      node_num_tasks, g, req, budget, has_grp, was_ready, need, s_max,
+                      preempt_mode, preds_on, pa=None):
+    """The plain version, the reference's arithmetic op for op: -> (p
+    i32[N], cum i32[N], [placed_total, placed_pre] i32[2], evict bool[P],
+    freed f32[N, R])."""
+    N = st.num_nodes
+    aggs = claim_aggregates(vnode, node_order, vres, victims, N)
     cap, full, chunk_m, node_uniform = claim_caps_plain(
-        st, node_victims, totfree, vmax, vmin, node_ports, node_num_tasks, g, req, s_max,
-        preds_on, None if pa is None else pa[0],
+        st, *aggs, node_ports, node_num_tasks, g, req, s_max, preds_on,
+        None if pa is None else pa[0],
     )
     if pa is not None:
         cap = pa[1](cap)
-    return claim_fill_plain(st, cap, full, chunk_m, node_uniform, victims, vnode, vres,
-                            node_rank, node_cum, req, budget, has_grp, was_ready, need,
-                            preempt_mode)
+    p, cum, placed, evict = claim_fill_plain(st, cap, full, chunk_m, node_uniform, victims, vnode,
+                                             vres, node_rank, node_cum, req, budget, has_grp,
+                                             was_ready, need, preempt_mode)
+    freed = segment_sum(torch.where(evict[:, None], vres, 0.0), vnode, N, order=node_order)
+    return p, cum, placed, evict, freed
 
 
 def claim_caps_plain(st, node_victims, totfree, vmax, vmin, node_ports, node_num_tasks, g, req,
@@ -124,99 +172,160 @@ def claim_fill_plain(st, cap, full, chunk_m, node_uniform, victims, vnode, vres,
     return p.to(torch.int32), cum, placed, evict
 
 
-def claim_nodes(
-    st,
-    node_victims: torch.Tensor,    # i32[N]
-    totfree: torch.Tensor,         # f32[N, R]
-    vmax: torch.Tensor,            # f32[N, R] (-BIG where no victim)
-    vmin: torch.Tensor,            # f32[N, R] (BIG where no victim)
-    node_ports: torch.Tensor,      # i32[N, W]
-    node_num_tasks: torch.Tensor,  # i32[N]
-    victims: torch.Tensor,         # bool[P] this turn's victims
-    vnode: torch.Tensor,           # i32[P]
-    vres: torch.Tensor,            # f32[P, R] panel resreq (unmasked)
-    node_rank: torch.Tensor,       # i32[P] in-(node, queue) exclusive victim rank
-    node_cum: torch.Tensor,        # f32[P, R] in-(node, queue) inclusive victim cum
-    g: torch.Tensor,               # i64/i32[1] claimant group
-    req: torch.Tensor,             # f32[R]
-    budget: torch.Tensor,          # i32[1] phase-shaped budget
-    has_grp: torch.Tensor,         # bool[1]
-    was_ready: torch.Tensor,       # bool[1]
-    need: torch.Tensor,            # i32[1] tasks to gang readiness
-    s_max: int,
-    preempt_mode: bool,            # phase 1 (the statement gate) vs phase 2
-    preds_on: bool,
-    pa: Optional[Tuple[torch.Tensor, Callable]] = None,  # (ok bool[N], caps -> shaped caps)
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (p i32[N], cum i32[N], [placed_total, placed_pre] i32[2],
-    evict bool[P]).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (twice, around ``pa``'s shaping, with pod
-    affinity)."""
-    args = (st, node_victims, totfree, vmax, vmin, node_ports, node_num_tasks, victims,
-            vnode, vres, node_rank, node_cum, g, req, budget, has_grp, was_ready, need,
-            s_max, preempt_mode, preds_on, pa)
-    if totfree.device.type == "cpu":
-        return claim_nodes_plain(*args)
-    dev = totfree.device
-    if dev.type != "cuda":
-        raise ValueError(f"claim_nodes: tensors on {dev}")
-    N, R = totfree.shape
-    Pn = victims.shape[0]
-    W = node_ports.shape[1]
-    g32 = g.to(torch.int32).contiguous()
-    checks = [
-        (node_victims, torch.int32), (totfree, torch.float32), (vmax, torch.float32),
-        (vmin, torch.float32), (node_ports, torch.int32), (node_num_tasks, torch.int32),
-        (victims, torch.bool), (vnode, torch.int32), (vres, torch.float32),
-        (node_rank, torch.int32), (node_cum, torch.float32), (req, torch.float32),
-        (budget, torch.int32), (has_grp, torch.bool), (was_ready, torch.bool),
-        (need, torch.int32), (st.class_fit, torch.bool), (st.node_klass, torch.int32),
-        (st.node_valid, torch.bool), (st.node_unsched, torch.bool),
-        (st.node_max_tasks, torch.int32), (st.group_klass, torch.int32),
-        (st.group_ports, torch.int32),
-    ]
-    for i, (t, dt) in enumerate(checks):
-        build.require(t, dt, f"claim_nodes.arg{i}", dev)
-    if (vmax.shape != (N, R) or vmin.shape != (N, R) or vres.shape != (Pn, R)
-            or node_cum.shape != (Pn, R) or req.shape != (R,)):
-        raise ValueError("claim_nodes: node/panel shapes disagree")
-    full_s = torch.empty(N, dtype=torch.float32, device=dev)
-    chunk_s = torch.empty(N, dtype=torch.float32, device=dev)
-    unif_s = torch.empty(N, dtype=torch.bool, device=dev)
-    p = torch.empty(N, dtype=torch.int32, device=dev)
-    cum = torch.empty(N, dtype=torch.int32, device=dev)
-    placed = torch.empty(2, dtype=torch.int32, device=dev)
-    evict = torch.empty(Pn, dtype=torch.bool, device=dev)
-    fn = build.bind("claim_nodes", "kat_claim_nodes", SIGNATURES)
-    pa_ok = None
-    if pa is not None:
-        pa_ok = pa[0]
-        build.require(pa_ok, torch.bool, "claim_nodes.pa_ok", dev)
+class ClaimNodesPlan:
+    """K6's launches over one preempt round loop (one phase of a preempt
+    action: ``_rounds`` / ``_rounds_batched``).
 
-    def launch(phase, cap_in=None):
-        build.check(fn(
-            build.ptr(g32), build.ptr(req), build.ptr(budget), build.ptr(has_grp),
-            build.ptr(was_ready), build.ptr(need), build.ptr(node_victims), build.ptr(totfree),
-            build.ptr(vmax), build.ptr(vmin), build.ptr(st.class_fit), st.class_fit.shape[1],
-            build.ptr(st.node_klass), build.ptr(st.node_valid), build.ptr(st.node_unsched),
-            build.ptr(st.node_max_tasks), build.ptr(node_ports), build.ptr(node_num_tasks),
-            build.ptr(st.group_klass), build.ptr(st.group_ports), build.ptr(victims),
-            build.ptr(vnode), build.ptr(vres), build.ptr(node_rank), build.ptr(node_cum),
-            Pn, N, R, W, s_max, st.num_tasks, int(preempt_mode), int(preds_on),
-            build.ptr(pa_ok), build.ptr(cap_in), phase,
-            build.ptr(full_s), build.ptr(chunk_s), build.ptr(unif_s), build.ptr(p),
-            build.ptr(cum), build.ptr(placed), build.ptr(evict), build.stream(),
-        ), "claim_nodes")
-        claim_nodes.launches += 1
+    Built once where the loop starts: it checks the pack's and the victim
+    view's tensors once, binds them (with K11's plan-owned ok mask where
+    ``pa`` = (PaFitPlan, PaShapePlan) is given) in a struct the kernel
+    reads, keeps the stream current when it was built, and owns its
+    outputs ``p``, ``cum``, ``placed``, ``evict``, ``freed``, its
+    scratch and its count words
+    (zeroed once; each launch stamps its number).  A launch passes only
+    the turn's tensors, reads ``g`` as i32 or i64, casts, checks and
+    allocates nothing: one launch a turn, two under pod affinity with
+    K12 shaping ``p`` between them (the caller launches K11 first).  Its
+    outputs are OVERWRITTEN by the next launch: a turn consumes them
+    before the next turn.  CPU tensors take the plain version, into the
+    same owned outputs.
 
-    if pa is None:
-        launch(0)
-    else:
-        launch(1)
-        shaped = pa[1](p).contiguous()
-        build.require(shaped, torch.int32, "claim_nodes.shaped_caps", dev)
-        launch(2, shaped)
-    return p, cum, placed, evict
+    ``aggregates`` exists only for the tests that hold the kernel's folded
+    per-node victim aggregates against :func:`claim_aggregates`: the plan
+    then also owns ``aggs`` (count, sums, max, min) and the kernel writes
+    them.  No caller of the port sets it."""
 
+    launches = 0  # K6 launches, counted where a launch is issued
 
-claim_nodes.launches = 0
+    def __init__(self, st, view, s_max: int, preempt_mode: bool, preds_on: bool,
+                 pa: Optional[tuple] = None, aggregates: bool = False):
+        N, (Pn, R) = st.num_nodes, view.resreq.shape
+        dev = view.resreq.device
+        self.st, self.s_max, self.preempt_mode, self.preds_on = st, s_max, preempt_mode, preds_on
+        self.pa = pa
+        self.vnode, self.node_order, self.vres = view.node, view.node_order, view.resreq
+        i32, f32 = torch.int32, torch.float32
+        self.p = torch.zeros(N, dtype=i32, device=dev)
+        self.cum = torch.zeros(N, dtype=i32, device=dev)
+        self.placed = torch.zeros(2, dtype=i32, device=dev)
+        self.evict = torch.zeros(Pn, dtype=torch.bool, device=dev)  # slots of no node stay False
+        self.freed = torch.zeros((N, R), dtype=f32, device=dev)
+        self.aggs = None
+        if aggregates:
+            self.aggs = (torch.zeros(N, dtype=i32, device=dev),
+                         *(torch.zeros((N, R), dtype=f32, device=dev) for _ in range(3)))
+        self.dev, self.first = dev, True
+        if dev.type == "cpu":
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"claim_nodes: tensors on {dev}")
+        if not 1 <= R <= MAX_R:
+            raise ValueError(f"claim_nodes: {R} resources, the kernel holds 1 to {MAX_R}")
+        perm, seg_start = view.node_order
+        W = st.group_ports.shape[1]
+        checks = [
+            (st.class_fit, torch.bool, None), (st.node_klass, i32, (N,)),
+            (st.node_valid, torch.bool, (N,)), (st.node_unsched, torch.bool, (N,)),
+            (st.node_max_tasks, i32, (N,)), (st.group_klass, i32, None),
+            (st.group_ports, i32, None), (perm, i32, (Pn,)), (seg_start, i32, (N + 1,)),
+            (view.resreq, f32, (Pn, R)),
+        ]
+        if pa is not None:
+            checks.append((pa[0].fit.ok, torch.bool, (N,)))
+        for i, (t, dt, shape) in enumerate(checks):
+            build.require(t, dt, f"claim_nodes.arg{i}", dev)
+            if shape is not None and tuple(t.shape) != shape:
+                raise ValueError(f"claim_nodes.arg{i}: shape {tuple(t.shape)}, want {shape}")
+        self.full_s = torch.empty(N, dtype=f32, device=dev)
+        self.chunk_s = torch.empty(N, dtype=f32, device=dev)
+        self.unif_s = torch.empty(N, dtype=torch.bool, device=dev)
+        grid = build.bind("claim_nodes", "kat_claim_nodes_grid", SIGNATURES)(N, R)
+        if grid <= 0:
+            raise RuntimeError("claim_nodes: no launch grid for this card")
+        self.words = torch.zeros(grid, dtype=torch.int64, device=dev)
+        ptr = build.ptr
+        aggs = self.aggs or (None,) * 4
+        self.static = _Static(
+            ptr(st.class_fit), ptr(st.node_klass), ptr(st.node_valid), ptr(st.node_unsched),
+            ptr(st.node_max_tasks), ptr(st.group_klass), ptr(st.group_ports), ptr(perm),
+            ptr(seg_start), ptr(view.resreq), ptr(None if pa is None else pa[0].fit.ok),
+            ptr(self.p), ptr(self.cum), ptr(self.placed), ptr(self.evict), ptr(self.freed),
+            ptr(self.full_s), ptr(self.chunk_s), ptr(self.unif_s), *(ptr(a) for a in aggs),
+            ptr(self.words), st.class_fit.shape[1], N, R, W, st.num_tasks, s_max,
+            int(preempt_mode), int(preds_on), grid,
+        )
+        self.static_ptr = ctypes.addressof(self.static)
+        self.call = _Call()
+        self.call_ptr = ctypes.addressof(self.call)
+        self.fn = build.bind("claim_nodes", "kat_claim_nodes", SIGNATURES)
+        self.stream = build.stream()
+
+    @property
+    def outputs(self) -> Tuple[torch.Tensor, ...]:
+        return self.p, self.cum, self.placed, self.evict, self.freed
+
+    def __call__(self, victims, node_rank, node_cum, node_ports, node_num_tasks, g, req, budget,
+                 has_grp, was_ready, need) -> Tuple[torch.Tensor, ...]:
+        """One turn: ``victims`` bool[P], ``node_rank`` i32[P], ``node_cum``
+        f32[P, R], ``node_ports`` i32[N, W], ``node_num_tasks`` i32[N], ``g``
+        i32 / i64 [1], ``req`` f32[R], ``budget`` / ``need`` i32[1],
+        ``has_grp`` / ``was_ready`` bool[1] -> (p i32[N], cum i32[N],
+        [placed_total, placed_pre] i32[2], evict bool[P], freed f32[N, R]),
+        the plan's own tensors."""
+        if self.dev.type == "cpu":
+            pa = None if self.pa is None else (self.pa[0].fit.ok, self.pa[1])
+            got = claim_nodes_plain(
+                self.st, self.vnode, self.node_order, self.vres, victims, node_rank, node_cum,
+                node_ports, node_num_tasks, g, req, budget, has_grp, was_ready, need, self.s_max,
+                self.preempt_mode, self.preds_on, pa)
+            for out, x in zip(self.outputs, got):
+                out.copy_(x)
+            if self.aggs is not None:
+                for out, x in zip(self.aggs, claim_aggregates(self.vnode, self.node_order,
+                                                              self.vres, victims, len(self.p))):
+                    out.copy_(x)
+            return self.outputs
+        c = self.call
+        c.g_wide = WIDE.get(g.dtype, -1)
+        if c.g_wide < 0:
+            raise TypeError(f"claim_nodes: g dtype {g.dtype}, want i32 or i64")
+        if self.first:  # a turn's tensors keep their types all round loop
+            self._check_turn(victims, node_rank, node_cum, node_ports, node_num_tasks, g, req,
+                             budget, has_grp, was_ready, need)
+            self.first = False
+        c.g, c.req, c.budget = g.data_ptr(), req.data_ptr(), budget.data_ptr()
+        c.has_grp, c.was_ready, c.need = has_grp.data_ptr(), was_ready.data_ptr(), need.data_ptr()
+        c.victims, c.node_rank, c.node_cum = victims.data_ptr(), node_rank.data_ptr(), \
+            node_cum.data_ptr()
+        c.node_ports, c.node_num_tasks = node_ports.data_ptr(), node_num_tasks.data_ptr()
+        if self.pa is None:
+            self._launch(0)
+        else:
+            self._launch(1)
+            self.pa[1](self.p)  # K12 shapes the claim capacity in place
+            self._launch(2)
+        return self.outputs
+
+    def _launch(self, phase: int) -> None:
+        c = self.call
+        c.phase = phase
+        c.seq = c.seq % 0xFFFFFFFF + 1  # 1, 2, ..., never 0 (the zeroed words' number)
+        build.check(self.fn(self.static_ptr, self.call_ptr, self.stream), "claim_nodes")
+        ClaimNodesPlan.launches += 1
+
+    def _check_turn(self, victims, node_rank, node_cum, node_ports, node_num_tasks, g, req,
+                    budget, has_grp, was_ready, need) -> None:
+        N, (Pn, R) = len(self.p), self.vres.shape
+        W = self.st.group_ports.shape[1]
+        checks = [
+            (victims, torch.bool, (Pn,)), (node_rank, torch.int32, (Pn,)),
+            (node_cum, torch.float32, (Pn, R)), (node_ports, torch.int32, (N, W)),
+            (node_num_tasks, torch.int32, (N,)), (g, g.dtype, None), (req, torch.float32, (R,)),
+            (budget, torch.int32, None), (has_grp, torch.bool, None),
+            (was_ready, torch.bool, None), (need, torch.int32, None),
+        ]
+        for i, (t, dt, shape) in enumerate(checks):
+            build.require(t, dt, f"claim_nodes.turn{i}", self.dev)
+            if (shape is None and t.numel() < 1) or (shape is not None and tuple(t.shape) != shape):
+                raise ValueError(f"claim_nodes.turn{i}: shape {tuple(t.shape)}")
+

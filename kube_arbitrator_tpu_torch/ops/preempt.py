@@ -71,7 +71,7 @@ from .common import (
 from .fairness import drf_shares
 from .kernels.canon_commit import CanonCommitPlan, _scatter_set, canon_commit
 from .kernels.canon_pick import CanonPickPlan, canon_pick
-from .kernels.claim_nodes import claim_nodes
+from .kernels.claim_nodes import ClaimNodesPlan
 from .kernels.lex_argmin import TurnPickPlan
 from .kernels.ordered_scan import OrderedScanPlan
 from .kernels.queue_order import QueueOrderPlan
@@ -262,25 +262,6 @@ def _phase_budget(mode, budget, was_ready, need, has_grp, grp_rem_g, s_max):
     return budget.clamp(max=s_max).to(torch.int32)
 
 
-def claim_aggregates(st, view, victims):
-    """(node_victims i32[N], totfree f32[N, R], vmax, vmin f32[N, R]): the
-    per-node victim count and resreq sums in slot order (K4) and the
-    order-free max / min (-BIG / BIG where a node has no victim)."""
-    N, R = st.num_nodes, view.resreq.shape[1]
-    vres = torch.where(victims[:, None], view.resreq, 0.0)
-    agg = segment_sum(
-        torch.cat([victims.to(torch.float32)[:, None], vres], dim=1), view.node, N,
-        order=view.node_order,
-    )
-    vsel = torch.where(victims, view.node, N).to(torch.int64)[:, None].expand(-1, R)
-    vmax = torch.full((N + 1, R), -BIG, dtype=torch.float32, device=st.device)
-    vmax.scatter_reduce_(0, vsel, torch.where(victims[:, None], view.resreq, -BIG), "amax")
-    vmin = torch.full((N + 1, R), BIG, dtype=torch.float32, device=st.device)
-    vmin.scatter_reduce_(0, vsel, torch.where(victims[:, None], view.resreq, BIG), "amin")
-    return (agg[:, 0].to(torch.int32), agg[:, 1:].contiguous(), vmax[:N].contiguous(),
-            vmin[:N].contiguous())
-
-
 def _pa_plan(st, tiers) -> Optional[Tuple[PaFitPlan, PaShapePlan]]:
     """K11's and K12's plans for a run of claim turns (K12 shapes the
     claim capacity in place from K11's plan-owned fit), or None where pod
@@ -291,31 +272,30 @@ def _pa_plan(st, tiers) -> Optional[Tuple[PaFitPlan, PaShapePlan]]:
     return None
 
 
+def _claim_plan(st, tiers, view, s_max, mode) -> ClaimNodesPlan:
+    """K6's plan for one phase's run of claim turns over ``view``, bound
+    with K11's and K12's (:func:`_pa_plan`) where pod affinity is on."""
+    return ClaimNodesPlan(st, view, s_max, mode == "preempt",
+                          plugin_on(tiers, "predicates", "predicate_disabled"), _pa_plan(st, tiers))
+
+
 def _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, req, budget,
-                 was_ready, need, victims, node_rank, node_cum, pa_plan=None) -> None:
-    """The selection-independent tail of one queue turn, in place: per-node
-    aggregates (K4), claim capacity / prefix fill / evict rule (K6), the
+                 was_ready, need, victims, node_rank, node_cum, claim) -> None:
+    """The selection-independent tail of one queue turn, in place: K6 (the
+    per-node victim aggregates, claim capacity, prefix fill, evict rule and
+    freed resources; K11 and K12 around it under pod affinity), the
     claimant decode and the state scatters.  ``q``/``j``/``g`` are i64[1],
     ``has_grp``/``was_ready`` bool[1], ``budget``/``need`` i32[1], ``req``
-    f32[R]; ``victims`` is this queue's verdict mask.  ``pa_plan``: the
-    round loop's K11 and K12 plans (:func:`_pa_plan`); None builds them
-    for this turn where pod affinity is on."""
+    f32[R]; ``victims`` is this queue's verdict mask.  ``claim``: the
+    round loop's K6 plan (:func:`_claim_plan`)."""
     J, Q, N = st.num_jobs, st.num_queues, st.num_nodes
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
-    pa = None
-    if pa_plan is None:
-        pa_plan = _pa_plan(st, tiers)
-    if pa_plan is not None:
-        fit_plan, shape_plan = pa_plan
-        pa = (fit_plan(g, state.task_status, state.task_node).ok, shape_plan)
-    p, cum, placed, evict = claim_nodes(
-        st, *claim_aggregates(st, view, victims), state.node_ports, state.node_num_tasks,
-        victims, view.node, view.resreq, node_rank, node_cum, g, req, budget, has_grp,
-        was_ready, need, s_max, mode == "preempt", preds_on, pa,
-    )
+    if claim.pa is not None:
+        claim.pa[0](g, state.task_status, state.task_node)  # K11: the fit K6 reads
+    p, cum, placed, evict, freed = claim(victims, node_rank, node_cum, state.node_ports,
+                                         state.node_num_tasks, g, req, budget, has_grp,
+                                         was_ready, need)
     placed_total, placed_pre = placed[0:1], placed[1:2]
-    freed = segment_sum(torch.where(evict[:, None], view.resreq, 0.0), view.node, N,
-                        order=view.node_order)
 
     # ---- claimant decode (the identity when nothing is placed)
     placed_before = state.group_placed[g]
@@ -360,10 +340,10 @@ def _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, re
     state.progress = state.progress | (placed_total > 0)[0] | short[0]
 
 
-def _claim_turn(q, st, sess, state, tiers, s_max, mode, view, pa_plan=None, pick=None) -> None:
+def _claim_turn(q, st, sess, state, tiers, s_max, mode, view, claim, pick=None) -> None:
     """One queue turn of a preempt phase, sequentially: selection (K2,
     through the phase's ``pick`` plan), the verdict over this queue's
-    scope, then the shared claim tail (``pa_plan`` as there)."""
+    scope, then the shared claim tail (``claim`` as there)."""
     P = view.idx.shape[0]
     q_ok = st.queue_valid[q]  # preempt has no overused gate
     shared = _selection_shared(st, sess, state, tiers, None)
@@ -383,7 +363,7 @@ def _claim_turn(q, st, sess, state, tiers, s_max, mode, view, pa_plan=None, pick
     ) & has_grp
     node_rank, node_cum = view.layouts.by_node_queue.rank_and_cum(victims)
     _apply_claim(st, sess, state, tiers, s_max, mode, view, q, j, g, has_grp, req[0], budget,
-                 was_ready, need, victims, node_rank, node_cum, pa_plan)
+                 was_ready, need, victims, node_rank, node_cum, claim)
 
 
 # ---------------------------------------------------------------- preempt rounds
@@ -433,7 +413,7 @@ def _rounds(st, sess, state, tiers, s_max, max_rounds, mode, view) -> AllocState
     """The sequential turn loop: each active queue's full turn in the
     round's queue order.  The rounds counter accumulates over phases."""
     _start_rounds(state)
-    pa_plan = _pa_plan(st, tiers)
+    claim = _claim_plan(st, tiers, view, s_max, mode)  # K6 (K11, K12), bound once
     order = _order_plan(st, sess, tiers)
     pick = TurnPickPlan(st, tiers)  # K2, bound once
     while True:
@@ -444,7 +424,7 @@ def _rounds(st, sess, state, tiers, s_max, max_rounds, mode, view) -> AllocState
             return state
         state.progress = torch.zeros_like(state.progress)
         for qi in range(trip):
-            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, pa_plan, pick)
+            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, claim, pick)
         state.rounds += 1
 
 
@@ -476,7 +456,7 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
     ncum_c = torch.zeros((P, R), dtype=torch.float32, device=dev)
     gated_rounds = torch.zeros((), dtype=i64, device=dev)
     qp_s = view.queue.clamp(max=Q - 1).to(i64)
-    pa_plan = _pa_plan(st, tiers)
+    claim = _claim_plan(st, tiers, view, s_max, mode)  # K6 (K11, K12), bound once
     order = _order_plan(st, sess, tiers)
     # K2, bound once: the panel's selection is consumed into the round's
     # carried rows before an overflow turn selects one row
@@ -546,10 +526,10 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
             _apply_claim(
                 st, sess, state, tiers, s_max, mode, view, q, j_sel[q], g_sel[q], has_grp[q],
                 req_all[q][0], budget_all[q], was_ready[q], need[q],
-                victims_all & (view.queue == q), node_rank, node_cum, pa_plan,
+                victims_all & (view.queue == q), node_rank, node_cum, claim,
             )
         for qi in range(QA, trip):  # overflow turns: the full sequential turn
-            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, pa_plan, pick)
+            _claim_turn(perm[qi:qi + 1], st, sess, state, tiers, s_max, mode, view, claim, pick)
         state.rounds += 1
         gated_rounds = gated_rounds + gated.to(i64)
         have, placed_prev = True, placed_entry

@@ -374,9 +374,11 @@ def test_claim_turns_match_reference(mode):
     fields = ("task_status", "task_node", "evicted_for", "job_alloc", "queue_alloc",
               "job_ready_cnt", "group_placed", "group_unfit", "node_releasing",
               "node_num_tasks", "node_ports", "evict_claimant", "evict_phase")
+    claim = port_pre._claim_plan(pst, PORT_TIERS, pview, 4096, mode)  # K6, as a round loop binds it
     for q in list(range(3)) * 2:
         state = turn(st, sess, state, jnp.int32(q))
-        port_pre._claim_turn(torch.tensor([q]), pst, psess, pstate, PORT_TIERS, 4096, mode, pview)
+        port_pre._claim_turn(torch.tensor([q]), pst, psess, pstate, PORT_TIERS, 4096, mode, pview,
+                             claim)
         for f in fields:
             assert np.array_equal(np.asarray(getattr(state, f)), getattr(pstate, f).numpy()), (q, f)
     if mode == "preempt":
