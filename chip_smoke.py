@@ -750,6 +750,14 @@ def k2_case(dev):
 
 
 def k3_case(dev):
+    """K3's plan as allocate_action binds it (the state's status / node
+    written in place, the gate read on the card) at the north star's
+    shape, G 1,024, N 10,240, T 102,400: the gate's four settings,
+    backfill's missing gn_p, the scalar route (N % 4 != 0) and a small N
+    against the plain version gated on the host; then both timed forms,
+    both matrices (any_p set) and gn_a alone (any_p clear: the north
+    star's allocate action), each one device event and no allocation a
+    launch."""
     from kube_arbitrator_tpu_torch.ops.kernels import decode_deferred as k3
 
     rng = np.random.default_rng(3)
@@ -770,24 +778,65 @@ def k3_case(dev):
         torch.from_numpy((np.arange(T) % per).astype(np.int32)).to(dev),
         torch.from_numpy(rng.random(T) < 0.98).to(dev),
         torch.from_numpy(rng.integers(0, 5, G).astype(np.int32)).to(dev),
-        torch.zeros(T, dtype=torch.int32, device=dev),
-        torch.full((T,), -1, dtype=torch.int32, device=dev),
     ]
-    err = 0.0
-    for gn_p in (gn[1], None):
-        s, n = k3.decode_deferred(gn[0], gn_p, *args)
-        rs, rn = k3.decode_deferred_plain(gn[0].cpu(), None if gn_p is None else gn_p.cpu(),
-                                          *[a.cpu() for a in args])
+    status0 = torch.zeros(T, dtype=torch.int32, device=dev)
+    node0 = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    flag = {b: torch.tensor(b, device=dev) for b in (False, True)}
+    err, checks = 0.0, []
+
+    def held(gn_a, gn_p, any_a, any_p, what):
+        nonlocal err
+        s, n = status0.clone(), node0.clone()
+        n0 = k3.DecodePlan.launches
+        plan = k3.DecodePlan(gn_a, gn_p, *args, s, n)
+        plan(flag[any_a], flag[any_p])
+        expect(k3.DecodePlan.launches == n0 + 1, f"K3 ({what}): not one launch")
+        rs, rn = status0.cpu(), node0.cpu()
+        if any_a or any_p:
+            rs, rn = k3.decode_deferred_plain(
+                gn_a.cpu(), gn_p.cpu() if any_p and gn_p is not None else None,
+                *[a.cpu() for a in args], rs, rn)
         err = max(err, max_err(s, rs), max_err(n, rn))
-        expect(torch.equal(s.cpu(), rs) and torch.equal(n.cpu(), rn), "K3 differs from its plain version")
-    t = kernel_times(lambda: k3.decode_deferred(gn[0], gn[1], *args))
-    plain_ms = cuda_ms(lambda: k3.decode_deferred_plain(gn[0], gn[1], *args), reps=5)
-    # the two count matrices read once, the task arrays read once, status
-    # and node written once
-    b, by = bound_ms(2 * G * N * 4 + T * (4 * 4 + 1) + G * 4 + T * 8, 2 * G * N)
-    return dict(name="decode_deferred", max_abs_err=err, **t, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None,
-                shape=f"gn i32[{G},{N}] x2, tasks [{T}]")
+        expect(torch.equal(s.cpu(), rs) and torch.equal(n.cpu(), rn),
+               f"K3 differs from its plain version ({what})")
+        checks.append(dict(form=what, allocated=int((rs == k3.ALLOCATED).sum()),
+                           pipelined=int((rs == k3.PIPELINED).sum())))
+        return plan, checks[-1]["allocated"] + checks[-1]["pipelined"]
+
+    for any_a in (True, False):
+        for any_p in (True, False):
+            held(gn[0], gn[1], any_a, any_p, f"any_a {any_a}, any_p {any_p}")
+    held(gn[0], None, True, True, "backfill: no gn_p, any_p set")
+    held(gn[0][:, :N - 3].contiguous(), gn[1][:, :N - 3].contiguous(), True, True,
+         "scalar route, N = 10,237")
+    held(gn[0][:, :20].contiguous(), gn[1][:, :20].contiguous(), True, True, "N = 20 < CHUNK")
+    expect(checks[0]["pipelined"] > 0 and checks[1]["allocated"] > 0, f"K3: no placements {checks}")
+    both, hits_both = held(gn[0], gn[1], True, True, "timed: both matrices")
+    alone, hits_alone = held(gn[0], gn[1], True, False, "timed: gn_a alone")
+    forms = []
+    for what, plan, any_p, mats, hits in (("both matrices", both, True, 2, hits_both),
+                                          ("gn_a alone (any_p clear)", alone, False, 1, hits_alone)):
+        fn = lambda plan=plan, any_p=any_p: plan(flag[True], flag[any_p])  # noqa: E731
+        t = kernel_times(fn)
+        events = device_events_per_call(fn)
+        allocs = allocations_per_call(fn)
+        expect(events == 1.0, f"K3 ({what}): {events} device events a launch, not 1")
+        expect(allocs == 0, f"K3 ({what}): {allocs} allocations a launch")
+        # the count matrices read once; each task's group, rank and valid
+        # flag read once and each row's entry count; status and node
+        # written for the tasks that land (the rest keep theirs, unread)
+        b, by = bound_ms(mats * G * N * 4 + T * (4 + 4 + 1) + G * 4 + hits * 8, mats * G * N)
+        forms.append(dict(form=what, **t, bound_ms=b, bound_by=by, events_per_call=events,
+                          allocations_per_call=allocs))
+    plain_ms = cuda_ms(lambda: k3.decode_deferred_plain(gn[0], gn[1], *args, status0, node0),
+                       reps=5)
+    main_form = forms[0]
+    return dict(name="decode_deferred", max_abs_err=err,
+                **{k: main_form[k] for k in ("ms", "device_us", "kernels_per_call", "device_by",
+                                             "host_us", "bound_ms", "bound_by")},
+                plain_ms=plain_ms, library_ms=None, events_per_call=main_form["events_per_call"],
+                checks=checks, variants=forms[1:],
+                shape=f"DecodePlan: gn i32[{G},{N}] x2, tasks [{T}], both matrices (any_p set)")
 
 
 def k1_inputs(dev, seed: int, N: int = 10_240):
@@ -2909,85 +2958,153 @@ def k17_case(dev, fx, alloc_round):
 
 
 def delta_plan(prev, new):
-    """The rows a DeviceResident scatters for the epoch ``prev`` ->
-    ``new`` (fields changed in at most half their rows): (names, indices,
-    rows)."""
+    """The changes a DeviceResident scatters for the epoch ``prev`` ->
+    ``new`` (fields changed in at most half their rows): (name, host
+    array, row indices) per field, as RowScatterPlan takes them."""
     from kube_arbitrator_tpu_torch.cache.arena import changed_fields, changed_rows
 
-    names, idxs, rows = [], [], []
+    changes = []
     for name in changed_fields(prev, new):
         if name == "rv_window":
             continue
         r = changed_rows(new[name], prev[name])
         if isinstance(r, str) or 2 * len(r) > max(new[name].shape[0], 1):
             continue
-        names.append(name)
-        idxs.append(r.astype(np.int32))
-        rows.append(new[name][r])
-    return names, idxs, rows
+        changes.append((name, np.asarray(new[name]), r))
+    return changes
+
+
+def link_rate(dev) -> float:
+    """Host-to-device bytes/s of one 64 MB copy from pinned memory (CUDA
+    events, mean of 5 after a warm-up)."""
+    src = torch.empty(64 << 20, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), reps=5)
+    return src.numel() / (ms * 1e-3)
 
 
 def k18_case(dev):
-    """K18 on every field dtype and rank with duplicate rows and on an
-    empty epoch, and at the serving path's shapes: the rows phase 7's
-    first delta epoch scatters into the 50k x 5k evictive pack (4% of
-    the running tasks completed, 1% of the nodes cordoned) — the case
-    timed."""
+    """K18's plan as a DeviceResident owns it: every field dtype and rank
+    with duplicate rows, an empty epoch, a field re-placed whole between
+    two deltas (its descriptor refreshed), the staging grown and then
+    reused with no allocation; then the serving path's shapes, the
+    changes phase 7's first delta epoch scatters into the 50k x 5k
+    evictive pack (4% of the running tasks completed, 1% of the nodes
+    cordoned), timed from the host arrays: one pinned gather, one copy
+    and one launch (two device events) a call."""
     from kube_arbitrator_tpu_torch.ops.kernels import row_scatter as k18
 
     rng = np.random.default_rng(18)
-    bufs, idxs, rows = [], [], []
-    for dtype, shape in ((np.bool_, (97,)), (np.int32, (97,)), (np.float32, (97,)),
-                         (np.bool_, (97, 3)), (np.bool_, (97, 8)), (np.int32, (97, 2)),
-                         (np.float32, (97, 4))):
-        bufs.append((rng.random(shape) * 100).astype(dtype))
+    plan = k18.RowScatterPlan(dev)
+    card, host, changes = [], [], []
+    for f, (dtype, shape) in enumerate(((np.bool_, (97,)), (np.int32, (97,)), (np.float32, (97,)),
+                                        (np.bool_, (97, 3)), (np.bool_, (97, 8)),
+                                        (np.int32, (97, 2)), (np.float32, (97, 4)))):
+        base = (rng.random(shape) * 100).astype(dtype)
         i = np.sort(rng.choice(97, 20, replace=False)).astype(np.int32)
         i = np.concatenate([i, i[-3:]])
-        r = (rng.random((len(i),) + shape[1:]) * 100).astype(dtype)
-        r[-3:] = r[-6:-3]
-        idxs.append(i)
-        rows.append(r)
-    card = [torch.from_numpy(b.copy()).to(dev) for b in bufs]
-    host = [torch.from_numpy(b.copy()) for b in bufs]
-    n0 = k18.row_scatter.launches
-    k18.row_scatter(card, idxs, rows)
-    k18.row_scatter_plain(host, idxs, rows)
-    expect(k18.row_scatter.launches == n0 + 1, "K18: one launch for seven fields")
-    expect(all(torch.equal(a.cpu(), b) for a, b in zip(card, host)),
-           "K18 differs from its plain version (field dtypes, ranks, duplicate rows)")
-    k18.row_scatter(card, [np.zeros(0, np.int32)] * len(card), [r[:0] for r in rows])
-    expect(k18.row_scatter.launches == n0 + 1 and all(torch.equal(a.cpu(), b) for a, b in zip(card, host)),
-           "K18: an empty epoch launched or wrote")
+        new = base.copy()
+        new[i] = (rng.random((len(i),) + shape[1:]) * 100).astype(dtype)
+        card.append(torch.from_numpy(base).to(dev))
+        host.append(torch.from_numpy(base.copy()))
+        plan.place(f"f{f}", card[-1])
+        changes.append((f"f{f}", new, i))
+    err = 0.0
+
+    def held(what):
+        nonlocal err
+        torch.cuda.synchronize()
+        err = max([err] + [max_err(a, b) for a, b in zip(card, host)])
+        expect(all(torch.equal(a.cpu(), b) for a, b in zip(card, host)),
+               f"K18 differs from its plain version ({what})")
+
+    n0 = k18.RowScatterPlan.launches
+    plan(changes)
+    k18.row_scatter_plain(host, [c[2] for c in changes], [c[1][c[2]] for c in changes])
+    expect(k18.RowScatterPlan.launches == n0 + 1, "K18: one launch for seven fields")
+    held("field dtypes, ranks, duplicate rows")
+    plan([(name, h, i[:0]) for name, h, i in changes])
+    expect(k18.RowScatterPlan.launches == n0 + 1, "K18: an empty epoch launched")
+    held("an empty epoch")
+    # f6 placed whole between two deltas: the next delta lands in the new buffer
+    old6 = card[6]
+    old6_before = old6.clone()
+    card[6] = torch.from_numpy(changes[6][1].copy()).to(dev)
+    host[6] = torch.from_numpy(changes[6][1].copy())
+    plan.place("f6", card[6])
+    new6 = changes[6][1].copy()
+    new6[[5, 50]] = -7.0
+    changes[6] = ("f6", new6, np.array([5, 50]))
+    plan(changes)
+    k18.row_scatter_plain(host, [c[2] for c in changes], [c[1][c[2]] for c in changes])
+    held("a field re-placed whole between two deltas")
+    expect(torch.equal(old6, old6_before), "K18 wrote a field's old buffer after it was re-placed")
+    # staging growth: a bigger epoch grows it once; the same epoch again allocates nothing
+    cap0 = plan.cap
+    big = np.arange(97)
+    changes = [(name, h, big) for name, h, _ in changes]
+    plan(changes)
+    grown = (plan.cap, plan.pinned.data_ptr(), plan.staging.data_ptr())
+    k18.row_scatter_plain(host, [c[2] for c in changes], [c[1][c[2]] for c in changes])
+    held("a grown staging")
+    allocs = allocations_per_call(lambda: plan(changes))
+    expect(grown[0] > cap0 and allocs == 0 and grown == (plan.cap, plan.pinned.data_ptr(),
+                                                          plan.staging.data_ptr()),
+           f"K18's staging: {cap0} -> {grown} bytes, {allocs} device allocations a call after")
 
     prev, new, _ = serve_epoch_pair()
-    names, idxs, rows = delta_plan(prev, new)
-    base = [torch.from_numpy(np.array(prev[n])).to(dev) for n in names]
-    card = [b.clone() for b in base]
-    plain = [b.clone() for b in base]
-    k18.row_scatter(card, idxs, rows)
-    k18.row_scatter_plain(plain, idxs, rows)
-    want = [torch.from_numpy(np.array(new[n])) for n in names]
+    changes = delta_plan(prev, new)
+    plan = k18.RowScatterPlan(dev)
+    card = [torch.from_numpy(np.array(prev[name])).to(dev) for name, _, _ in changes]
+    for (name, _, _), c in zip(changes, card):
+        plan.place(name, c)
+    plain = [c.clone() for c in card]
+    plan(changes)
+    k18.row_scatter_plain(plain, [c[2] for c in changes], [c[1][c[2]] for c in changes])
+    torch.cuda.synchronize()
+    want = [torch.from_numpy(np.array(h)) for _, h, _ in changes]
+    err = max([err] + [max_err(a, w) for a, w in zip(card, want)])
     expect(all(torch.equal(a.cpu(), w) and torch.equal(p.cpu(), w)
                for a, p, w in zip(card, plain, want)), "K18 at the serving epoch differs")
-    t = kernel_times(lambda: k18.row_scatter(card, idxs, rows))
-    plain_ms = cuda_ms(lambda: k18.row_scatter_plain(plain, idxs, rows))
+    fn = lambda: plan(changes)  # noqa: E731
+    t = kernel_times(fn)
+    events = device_events_per_call(fn, launches=2)
+    allocs = allocations_per_call(fn)
+    expect(events == 2.0, f"K18: {events} device events a call, not 2 (the copy, the kernel)")
+    expect(allocs == 0, f"K18: {allocs} device allocations a call")
+    # the same fields with one row each: the call's fixed host cost, apart
+    # from the gather of the epoch's rows
+    one = [(name, h, i[:1]) for name, h, i in changes]
+    t_one = kernel_times(lambda: plan(one))
+    idxs = [c[2] for c in changes]
+    plain_ms = cuda_ms(lambda: k18.row_scatter_plain(plain, idxs, [h[i] for _, h, i in changes]))
+
     def library():
         # the same function from the same host rows: each field's rows and
         # indices uploaded, then one index_copy_ per field
-        for c, i, r in zip(card, idxs, rows):
+        for c, (_, h, i) in zip(card, changes):
             c.index_copy_(0, torch.as_tensor(i.astype(np.int64), device=dev),
-                          torch.as_tensor(np.ascontiguousarray(r), device=dev))
+                          torch.as_tensor(h[i], device=dev))
 
     lib_ms = cuda_ms(library)
     nrows = sum(len(i) for i in idxs)
-    rbytes = sum(r.nbytes for r in rows)
-    ibytes = sum(i.nbytes for i in idxs)
+    rbytes = sum(len(i) * h[:1].nbytes for _, h, i in changes)
+    ibytes = 4 * nrows
+    link = link_rate(dev)
     b, by = bound_ms(2 * rbytes + ibytes, 0)
-    return dict(name="row_scatter", max_abs_err=0.0, **t, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms,
-                shape=f"{len(names)} fields, {nrows} rows, {rbytes + ibytes} bytes (the 50k x 5k "
-                      f"evictive pack's first delta epoch: {', '.join(names)}); library: per field "
-                      f"the rows and indices uploaded, then one index_copy_")
+    b_link = (rbytes + ibytes) / link * 1e3
+    names = ", ".join(c[0] for c in changes)
+    return dict(name="row_scatter", max_abs_err=err, **t, plain_ms=plain_ms,
+                bound_ms=max(b, b_link), bound_by=by, library_ms=lib_ms, events_per_call=events,
+                allocations_per_call=allocs, link_bytes_per_s=link, device_bound_ms=b,
+                link_bound_ms=b_link,
+                variants=[dict(form=f"one row a field ({len(one)} rows)", **t_one)],
+                shape=f"RowScatterPlan: {len(changes)} fields, {nrows} rows, {rbytes + ibytes} "
+                      f"bytes (the 50k x 5k evictive pack's first delta epoch: {names}) from the "
+                      f"host arrays; bound: the rows and indices over the host link "
+                      f"({link / 1e9:.1f} GB/s, one 64 MB pinned copy) or the device's bytes, "
+                      f"the larger; library: per field the rows and indices uploaded, then one "
+                      f"index_copy_")
 
 
 def k19_grid(dev) -> dict:
@@ -3257,6 +3374,16 @@ def k20_case(dev):
                       f"{k20.TILE} rows); library: torch.cumsum (another add order)")
 
 
+def nonzero_pad_row(row, cap: int):
+    """K16's function through the library for one mask row: the set
+    positions (``torch.nonzero``, a host sync), the first ``cap`` of them
+    padded with -1, and the count."""
+    idx = torch.full((cap,), -1, dtype=torch.int64, device=row.device)
+    nz = torch.nonzero(row).reshape(-1)[:cap]
+    idx[:nz.numel()] = nz
+    return idx, row.sum()
+
+
 def k16_case(dev, efx, tfx):
     """K16, one launch a call, in every form, each equal to
     ``stable_compact_plain`` on the CPU: B7 at T = 102,400 with more set
@@ -3314,8 +3441,21 @@ def k16_case(dev, efx, tfx):
                f"K16 {what} differs from its plain version")
         fn = (lambda m=m, cp=cp, pad=pad, out=out: k16.stable_compact(m, cp, pad, out=out))
         plan = k16.plan_for(torch.cuda.current_device(), K, m.shape[1])
+        # each form's own bound: its inputs read once (the mask, or the
+        # cells' inputs), the lists and counts written once; and the
+        # library's nonzero + pad of the same mask rows
+        if isinstance(m, k16.FeasCells):
+            nbytes = sum(t.numel() * t.element_size() for t in (
+                m.class_fit, m.node_klass, m.node_valid, m.node_unsched, m.minreq, m.basis)
+                if t is not None)
+        else:
+            nbytes = m.numel()
+        b, by = bound_ms(nbytes + K * cp * 4 + K * 4, K * m.shape[1] * 2)
+        rows_dense = m.mask() if isinstance(m, k16.FeasCells) else m
+        lib = cuda_ms(lambda r=rows_dense, cp=cp: [nonzero_pad_row(x, cp) for x in r])
         variants.append(dict(case=what, K=K, L=m.shape[1], cap=cp, counts=gc.tolist()[:3],
-                             tiles=plan.tiles, span=plan.span, **kernel_times(fn)))
+                             tiles=plan.tiles, span=plan.span, **kernel_times(fn), bound_ms=b,
+                             bound_by=by, library_ms=lib))
     expect(int(mask.sum()) > bcap, "K16 B7 inputs: the count does not pass cap")
     # the commit's two lists: one launch, each row against its own plain list
     emask = torch.from_numpy(rng.random(T) < 0.02).to(dev)
@@ -3350,13 +3490,7 @@ def k16_case(dev, efx, tfx):
            f"K16 allocates {allocs} times a call")
     plain_ms = cuda_ms(lambda: k16.stable_compact_plain(mask[None, :], bcap, -1), reps=5)
 
-    def nonzero_pad():
-        idx = torch.full((bcap,), -1, dtype=torch.int64, device=dev)
-        nz = torch.nonzero(mask).reshape(-1)[:bcap]
-        idx[:nz.numel()] = nz
-        return idx, mask.sum()
-
-    lib_ms = cuda_ms(nonzero_pad)
+    lib_ms = cuda_ms(lambda: nonzero_pad_row(mask, bcap))
     b, by = bound_ms(T + bcap * 4 + 4, T * 2)
     for v in variants:
         print(f"kernel stable_compact form {json.dumps(v)}", flush=True)
@@ -3691,6 +3825,8 @@ def main(kernels_only: bool = False) -> int:
         print(f"kernel queue_order form {json.dumps(v)}", flush=True)
     del fx
     report(k18_case(dev))
+    for v in rows["row_scatter"]["variants"]:
+        print(f"kernel row_scatter form {json.dumps(v)}", flush=True)
     fx = pa_fixture(dev)
     for v in k6_pa_forms(dev, fx):
         rows["claim_nodes"]["variants"].append(v)
@@ -3774,11 +3910,25 @@ def main(kernels_only: bool = False) -> int:
     counts = peak = None
     by_variant = {}  # world -> launches by variant of K1 and K19
     from kube_arbitrator_tpu_torch.ops import allocate as allocate_mod
+    from kube_arbitrator_tpu_torch.ops.kernels.decode_deferred import DecodePlan
     select_turns, selections = allocate_mod.select_turns, [0]
+    decode_call, decodes, gates = DecodePlan.__call__, [0], []
 
     def counting_select(*a, **kw):  # one call per turn selection
         selections[0] += 1
         return select_turns(*a, **kw)
+
+    def strict_decode(self, *a):  # a host read inside the decode raises
+        decodes[0] += 1
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = decode_call(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        # G, N, gn_p bound, and the flags as this launch read them (read after the cycle)
+        gates.append((*self.args[0].shape, self.args[1] is not None, *[f.clone() for f in a]))
+        return out
 
     for i, w in enumerate(WORLDS):
         torch.cuda.synchronize()
@@ -3786,10 +3936,12 @@ def main(kernels_only: bool = False) -> int:
             kernels.reset_counts()
             torch.cuda.reset_peak_memory_stats()
             allocate_mod.select_turns = counting_select
+            DecodePlan.__call__ = strict_decode
         try:
             g = decide_world(device=dev, **FULL, **w)
         finally:
             allocate_mod.select_turns = select_turns
+            DecodePlan.__call__ = decode_call
         if i == 0:
             counts = kernels.counts()
             by_variant["allocate"] = kernels.variant_counts()
@@ -3814,6 +3966,12 @@ def main(kernels_only: bool = False) -> int:
           f"{selections[0]} turn selections", flush=True)
     expect(counts["lex_argmin"] == selections[0],
            f"K2: {counts['lex_argmin']} launches over {selections[0]} selections, not one each")
+    print(f"K3 on the allocate path (world seed 42): {counts['decode_deferred']} launches over "
+          f"{decodes[0]} batched actions, each decode with no host read (sync debug mode "
+          f"'error' around the plan's call); (G, N, gn_p bound, any_a, any_p) of each: "
+          f"{[(G, N, p, bool(fa), bool(fp)) for G, N, p, fa, fp in gates]}", flush=True)
+    expect(counts["decode_deferred"] == decodes[0] > 0,
+           f"K3: {counts['decode_deferred']} launches over {decodes[0]} actions, not one each")
     print(f"launches by variant on the allocate path (world seed 42): {by_variant['allocate']}",
           flush=True)
     expect(by_variant["allocate"]["stable_sort"]["count"] > 0,
@@ -4060,10 +4218,14 @@ def main(kernels_only: bool = False) -> int:
     serve_counts = dict.fromkeys(kernels.counts(), 0)
     decider = TorchDecider(dev)
     full_bytes = None
+    staging = []  # K18's staging (bytes, pinned and device pointers) after each epoch
     for e, host, meta in serve_epochs(EVICT_FULL, 42, SERVE_EPOCHS):
         torch.cuda.synchronize()
         kernels.reset_counts()
         dec, decide_ms = decider.decide(host, conf, meta)
+        plan = decider.resident.plan
+        staging.append((plan.cap, plan.pinned.data_ptr() if plan.cap else 0,
+                        plan.staging.data_ptr() if plan.cap else 0))
         c = kernels.counts()
         for k, v in c.items():
             serve_counts[k] += v
@@ -4099,6 +4261,12 @@ def main(kernels_only: bool = False) -> int:
               f"a fresh upload's, a repeated key reuses", flush=True)
     for k in SLICE2_KERNELS + ("queue_order", "row_scatter"):
         expect(serve_counts[k] > 0, f"kernel {k} was not launched on the serving path")
+    grew = [e + 1 for e in range(1, len(staging)) if staging[e] != staging[e - 1]]
+    print(f"K18's staging after each epoch (bytes): {[c[0] for c in staging]}; reallocated at "
+          f"epochs {grew}", flush=True)
+    expect(all(staging[e][0] > staging[e - 1][0] for e in range(1, len(staging))
+               if staging[e] != staging[e - 1]),
+           f"K18's staging was reallocated without growing: {staging}")
     print(f"launches on the serving path (50k x 5k, seed 42, {SERVE_EPOCHS} epochs): {serve_counts}",
           flush=True)
     gpu_d, cpu_d = TorchDecider(dev), TorchDecider("cpu")

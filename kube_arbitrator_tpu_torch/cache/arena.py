@@ -13,7 +13,9 @@ pack field on the device across epochs:
 * **delta** — an unchanged field keeps its buffer; a field whose diff is
   ``"full"`` (its shape or dtype moved) or whose changed rows are more
   than half its rows is placed whole; the other changed fields' rows are
-  written in place, all of them in one K18 launch on the card.
+  written in place, all of them in one K18 launch on the card, from the
+  resident's own :class:`RowScatterPlan` (its staging buffers reused
+  epoch after epoch, each field's buffer bound when it is placed whole).
 
 Two deliberate departures from the reference: on the CPU the rows are
 scattered too (through K18's plain version), where the reference
@@ -29,7 +31,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.kernels.row_scatter import row_scatter
+from ..ops.kernels.row_scatter import RowScatterPlan
 from .snapshot import SCHEMA, SnapshotTensors
 
 
@@ -93,6 +95,7 @@ class DeviceResident:
         self.key: Optional[str] = None
         self.arrays: Optional[Dict[str, torch.Tensor]] = None
         self.statics: Dict[str, object] = {}
+        self.plan: Optional[RowScatterPlan] = None  # K18's, for self.device
         # the most recent update: "none" / "full" / "delta" / "reuse", and
         # the bytes it sent (whole fields, or changed rows plus their i32
         # indices)
@@ -123,8 +126,10 @@ class DeviceResident:
             or self.key != base_key
         )
         arrays: Dict[str, torch.Tensor] = {} if full else dict(self.arrays)
+        if self.plan is None or self.device != device:
+            self.plan = RowScatterPlan(device)
         uploaded = 0
-        dsts, idxs, vals = [], [], []
+        changes = []
         for name in ARRAY_FIELDS:
             arr = np.asarray(host[name])
             rows = None if full else changed.get(name)
@@ -133,13 +138,11 @@ class DeviceResident:
             if full or isinstance(rows, str) or 2 * len(rows) > max(arr.shape[0], 1):
                 arrays[name] = torch.from_numpy(np.array(arr)).to(device)
                 uploaded += arr.nbytes
+                if arr.ndim in (1, 2):
+                    self.plan.place(name, arrays[name])
             else:
-                idx = rows.astype(np.int32)
-                dsts.append(arrays[name])
-                idxs.append(idx)
-                vals.append(arr[rows])
-                uploaded += vals[-1].nbytes + idx.nbytes
-        row_scatter(dsts, idxs, vals)
+                changes.append((name, arr, rows))
+        uploaded += self.plan(changes)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.device, self.key, self.arrays, self.statics = device, key, arrays, dict(statics)

@@ -1,7 +1,8 @@
 """Time the port's cycle on two or more trees in turns, on one card.
 
     python -m kube_arbitrator_tpu_torch.cycle_turns --parent DIR [--order PCCPCP] \\
-        [--tree X=DIR2 ...] [--worlds allocate,evictive,pa_evict,binpack,q512_evict,priority_mix] \\
+        [--tree X=DIR2 ...] \\
+        [--worlds allocate,evictive,pa_evict,binpack,q512_evict,priority_mix,serving] \\
         [--cycles N] [--out FILE]
 
 DIR is a second checkout of the repository (for example the parent
@@ -13,7 +14,9 @@ DIR2) and each world, one process runs the port's CLI
 decides ``cycles`` fresh worlds (seeds seed, seed + 1, ...; ``--cycles``
 sets their number for every world).  The first
 cycle of a process pays for loading the kernels and warming the card, so
-only the later ("warm") cycles are compared.  Prints one JSON line per
+only the later ("warm") cycles are compared; in the ``serving`` world a
+cycle is a world served five epochs, and its delta epochs' upload times
+are summarised too.  Prints one JSON line per
 process and, last, per world and tree the median and range of the warm
 cycles' wall time and of each stage.  Needs the GPU, as the CLI does.
 """
@@ -45,6 +48,11 @@ WORLDS = {
                    "--running-fraction", "0.5",
                    "--actions", "reclaim_optimistic,allocate,backfill,preempt", "--cycles", "3",
                    "--seed", "42"],
+    # chip_smoke.py phase 7's serving path: the evictive world served 5
+    # epochs through the TorchDecider (world 0 warms, world 1 is timed)
+    "serving": ["--tasks", "50000", "--nodes", "5000", "--running-fraction", "0.5",
+                "--actions", "reclaim,allocate,backfill,preempt", "--epochs", "5",
+                "--cycles", "2", "--seed", "42"],
     # chip_smoke.py phase 8's priority-mix world (MIX_FULL; seeds 44-46)
     "priority_mix": ["--tasks", "50000", "--nodes", "5000", "--queues", "64",
                      "--running-fraction", "0.5", "--fit-fraction", "1.0", "--priority-mix",
@@ -67,13 +75,17 @@ def run_once(tree: Path, world: str, timeout: float, cycles: int = 0) -> List[Di
 def summary(rows: List[Dict]) -> Dict:
     warm = [r for r in rows if r["cycle"] > 0]
     cyc = [r["cycle_ms"] for r in warm]
-    stages = sorted({k for r in warm for k in r["stages_ms"]})
-    return dict(
+    stages = sorted({k for r in warm for k in r.get("stages_ms", {})})
+    out = dict(
         runs=len(warm), cycle_ms_median=statistics.median(cyc), cycle_ms_min=min(cyc),
         cycle_ms_max=max(cyc), cycle_ms=cyc,
         stages_ms_median={k: statistics.median(r["stages_ms"].get(k, 0.0) for r in warm)
                           for k in stages},
     )
+    delta = [r["upload_ms"] for r in warm if r.get("mode") == "delta"]
+    if delta:  # a served world: its delta epochs' uploads
+        out.update(upload_ms_median=statistics.median(delta), upload_ms=delta)
+    return out
 
 
 def main(argv=None) -> int:

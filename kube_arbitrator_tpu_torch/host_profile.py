@@ -1,7 +1,7 @@
 """Where a kernel wrapper's host time goes: one cycle under cProfile.
 
     python -m kube_arbitrator_tpu_torch.host_profile [--tree DIR]
-        [--worlds pa_evict,binpack,q512_evict,allocate,evictive,priority_mix]
+        [--worlds pa_evict,binpack,q512_evict,allocate,evictive,priority_mix,resident]
         [--wrappers turn_caps,pa_fit,segment_sum,queue_perm,...] [--out FILE]
 
 For each world, a child process run from DIR (a checkout of the
@@ -22,7 +22,10 @@ ops/preempt.py, the reclaim walks that launch K7 / K8 and K20;
 ops/preempt.py, the opt-in engines that launch K13-K15 and K8;
 ``_apply_claim`` of ops/preempt.py, a preempt claim turn's tail around
 K6, and ``claim_aggregates`` of ops/preempt.py, where an older tree
-made the per-node victim sums for K6, which K6 now folds in) its
+made the per-node victim sums for K6, which K6 now folds in;
+``allocate_action`` of ops/allocate.py, whose callees include K3's
+bind and launch, or an older tree's ``_decode_deferred``; ``update`` of
+cache/arena.py, the serving path's upload around K18) its
 functions' calls and cumulative seconds and the callees of those
 functions by cumulative seconds: the host items that cost most.  With
 ``queue_perm`` among the wrappers, the row also gives the device kernels
@@ -33,7 +36,11 @@ reclaim action from the world's open_session state by name, its windows
 and the events per window; with ``claim_nodes``, the device events of
 one preempt claim turn (:func:`claim_turn_events`).  cProfile slows every
 Python call, so compare items within one run, not with the cycle times
-of cycle_turns.py.  Needs the GPU, as the CLI does.
+of cycle_turns.py.  The ``resident`` world is no cycle: its profiled
+run is ``DeviceResident.update`` applied 200 times to the serving
+path's first delta epoch of the 50k x 5k evictive pack (chip_smoke.py's
+``k18_case`` epoch, each call a new key on the last), after 5 such
+calls to warm.  Needs the GPU, as the CLI does.
 """
 from __future__ import annotations
 
@@ -60,6 +67,8 @@ WORLDS = {
     "priority_mix": dict(tasks=50_000, nodes=5_000, queues=64, running_fraction=0.5,
                          fit_fraction=1.0, priority_mix=True,
                          actions=("reclaim", "allocate", "backfill", "preempt")),
+    # the serving path's upload: DeviceResident.update, not a cycle
+    "resident": dict(tasks=50_000, nodes=5_000, epochs=200),
 }
 
 CHILD = r'''
@@ -81,13 +90,37 @@ OTHER = {"queue_perm": ("ops/allocate.py", "queue_perm"),
          "_reclaim_canon_batched": ("ops/preempt.py", "_reclaim_canon_batched"),
          "_reclaim_fast": ("ops/preempt.py", "_reclaim_fast"),
          "_apply_claim": ("ops/preempt.py", "_apply_claim"),
-         "claim_aggregates": ("ops/preempt.py", "claim_aggregates")}
-decide_world(device="cuda", seed=seed - 1, **world)
+         "claim_aggregates": ("ops/preempt.py", "claim_aggregates"),
+         "allocate_action": ("ops/allocate.py", "allocate_action"),
+         "update": ("cache/arena.py", "update")}
+if "epochs" in world:
+    # the first delta epoch of the evictive pack, as chip_smoke.py's k18_case
+    from kube_arbitrator_tpu_torch.cache import arena
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays, epoch_stream
+    arrays, _ = build_synthetic_arrays(world["tasks"], world["nodes"], 8, 100, 42,
+                                       running_fraction=0.5, fit_fraction=1.2)
+    g = epoch_stream(arrays, 2, 0.04, 0.01, 42)
+    _, prev, _ = next(g)
+    _, new, _ = next(g)
+    changed = {n: arena.changed_rows(np.asarray(new[n]), np.asarray(prev[n]))
+               for n in arena.changed_fields(prev, new) if n != "rv_window"}
+    statics, dev = {"rv_window": int(new.get("rv_window", 0))}, torch.device("cuda")
+    res, keys = arena.DeviceResident(), ["e0"]
+    res.update(prev, statics, "e0", None, {}, dev)
+    def run(calls):
+        for _ in range(calls):
+            keys.append(f"e{len(keys)}")
+            res.update(new, statics, keys[-1], keys[-2], changed, dev)
+    warm, timed = (lambda: run(5)), (lambda: run(world["epochs"]))
+else:
+    warm = lambda: decide_world(device="cuda", seed=seed - 1, **world)
+    timed = lambda: decide_world(device="cuda", seed=seed, **world)
+warm()
 torch.cuda.synchronize()
 prof = cProfile.Profile()
 t0 = time.perf_counter()
 prof.enable()
-decide_world(device="cuda", seed=seed, **world)
+timed()
 torch.cuda.synchronize()
 prof.disable()
 wall = time.perf_counter() - t0

@@ -10,9 +10,9 @@ in queue order.  Two paths, chosen as the reference chooses them
   are computed together (one K2 launch, the job and group picks, plus
   plain torch for the budgets), K1 runs the chunk's node admission slot by slot, and
   placements accumulate as per-(group, node) counts that K3 decodes into
-  task placements once per action.  With pruning, K16 evaluates the
-  feasibility cells and compacts each class's nodes into the panel
-  once per action.  Host reads: ``trip`` and ``progress`` once per
+  task placements once per action (gated on the device).  With pruning,
+  K16 evaluates the feasibility cells and compacts each class's nodes
+  into the panel once per action.  Host reads: ``trip`` and ``progress`` once per
   round each, and the panel's widest class once per action.
 * immediate (binpack / spread node order, pod affinity, larger packs,
   or ``turn_batch=False``, the reference's parity path): one turn per
@@ -38,7 +38,7 @@ from ..cache.snapshot import SnapshotTensors, pa_enabled
 from .common import BIG, EPS, ceil_div_pos, fair, plugin_on, safe_share, to_i32
 from .fairness import drf_shares, overused
 from .kernels.admit_chunk import AdmitPlan
-from .kernels.decode_deferred import decode_deferred
+from .kernels.decode_deferred import DecodePlan
 from .kernels.lex_argmin import TurnPickPlan
 from .kernels.queue_order import QueueOrderPlan, queue_order
 from .kernels.stable_compact import FeasCells, stable_compact
@@ -507,15 +507,6 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
         state.rounds += 1
 
 
-def _decode_deferred(st, state, entry_placed, gn_a, gn_p):
-    """Counts -> task placements through K3 (allocated before pipelined)."""
-    status, node = decode_deferred(
-        gn_a, gn_p, st.task_group, st.task_group_rank, st.task_valid,
-        entry_placed, state.task_status, state.task_node,
-    )
-    state.task_status, state.task_node = status, node
-
-
 def allocate_action(
     st: SnapshotTensors,
     sess: SessionCtx,
@@ -578,18 +569,20 @@ def allocate_action(
     gn_p = None if best_effort_pass else torch.zeros((G, N), dtype=torch.int32, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     gn = (gn_a, gn_p, no, no)
-    # K1's, K17's and K2's launches over this action: checked and bound once
+    # K1's, K17's, K2's and K3's launches over this action: checked and bound once
     admit = AdmitPlan(st, state.node_idle, state.node_releasing, state.node_ports,
                       state.node_num_tasks, gn_a, gn_p, prune_idx, s_max, best_effort_pass,
                       plugin_on(tiers, "predicates", "predicate_disabled"), TURN_CHUNK)
     order = QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
     pick = TurnPickPlan(st, tiers)
+    # counts -> placements, allocated before pipelined, into the state's
+    # own (cloned) status / node; gated on the device by any_a / any_p
+    decode = DecodePlan(gn_a, gn_p, st.task_group, st.task_group_rank, st.task_valid,
+                        entry_placed, state.task_status, state.task_node)
     while state.rounds < max_rounds and bool(state.progress):
         state.progress = torch.zeros((), dtype=torch.bool, device=dev)
         gn = _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order, pick)
-    gn_a, gn_p, any_a, any_p = gn
-    if bool(any_a | any_p):
-        _decode_deferred(st, state, entry_placed, gn_a, gn_p if bool(any_p) else None)
+    decode(gn[2], gn[3])
     return state
 
 

@@ -3,7 +3,7 @@ PyTorch version and with a launch counter:
 
 * K1 :func:`admit_chunk.admit_chunk`         — ops/allocate.py slot body
 * K2 :class:`lex_argmin.TurnPickPlan`        — a turn selection's job and group picks
-* K3 :func:`decode_deferred.decode_deferred` — ops/allocate._decode_deferred
+* K3 :class:`decode_deferred.DecodePlan`     — deferred decode: counts -> placements
 * K4 :func:`segment_sum.segment_sum`         — slot-order segment sums
 * K5 :func:`seg_scan.seg_scan`               — ops/preempt victim-layout scans (SegScanPlan)
 * K6 :class:`claim_nodes.ClaimNodesPlan`     — ops/preempt._apply_claim node half
@@ -18,7 +18,7 @@ PyTorch version and with a launch counter:
 * K15 :func:`window_gate.window_gate`        — optimistic reclaim: the window's commit gate (WindowGatePlan)
 * K16 :func:`stable_compact.stable_compact`  — commit lists, allocate's panel, preempt's panel
 * K17 :func:`queue_order.queue_order`        — a round's queue order, keys built (QueueOrderPlan)
-* K18 :func:`row_scatter.row_scatter`        — an epoch's changed rows into the resident pack
+* K18 :class:`row_scatter.RowScatterPlan`   — an epoch's changed rows into the resident pack
 * K19 :func:`stable_sort.stable_sort`        — victim lexsorts, K4's segment order, the claim join, searches
 * K20 :func:`ordered_scan.ordered_scan`      — ops/common.mm_cumsum in XLA:CPU's order (OrderedScanPlan)
 
@@ -35,7 +35,7 @@ from . import (
 KERNELS = {
     "admit_chunk": admit_chunk.admit_chunk,
     "lex_argmin": lex_argmin.TurnPickPlan,
-    "decode_deferred": decode_deferred.decode_deferred,
+    "decode_deferred": decode_deferred.DecodePlan,
     "segment_sum": segment_sum.segment_sum,
     "seg_scan": seg_scan.seg_scan,
     "claim_nodes": claim_nodes.ClaimNodesPlan,
@@ -50,7 +50,7 @@ KERNELS = {
     "window_gate": window_gate.window_gate,
     "stable_compact": stable_compact.stable_compact,
     "queue_order": queue_order.queue_order,
-    "row_scatter": row_scatter.row_scatter,
+    "row_scatter": row_scatter.RowScatterPlan,
     "stable_sort": stable_sort.stable_sort,
     "ordered_scan": ordered_scan.ordered_scan,
 }

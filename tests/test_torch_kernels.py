@@ -225,11 +225,12 @@ def test_decode_matches_reference(with_pipelined):
         st, state, jnp.asarray(entry), jnp.asarray(gn[0]), jnp.asarray(gn_p),
         jnp.asarray(with_pipelined),
     )
-    status, node = k3.decode_deferred(
+    status, node = t(np.asarray(state.task_status)), t(np.asarray(state.task_node))
+    plan = k3.DecodePlan(
         t(gn[0]), t(gn_p) if with_pipelined else None, t(np.asarray(st.task_group)),
-        t(np.asarray(st.task_group_rank)), t(np.asarray(st.task_valid)), t(entry),
-        t(np.asarray(state.task_status)), t(np.asarray(state.task_node)),
+        t(np.asarray(st.task_group_rank)), t(np.asarray(st.task_valid)), t(entry), status, node,
     )
+    plan(torch.tensor(True), torch.tensor(with_pipelined))  # in place
     assert np.array_equal(status.numpy(), np.asarray(want.task_status))
     assert np.array_equal(node.numpy(), np.asarray(want.task_node))
     assert (status.numpy() == 1).sum() > 100

@@ -90,42 +90,54 @@ def test_row_scatter_fields(dtype, shape):
     idx = np.array([1, 4, 8], np.int32)
     rows = (rng.random((3,) + shape[1:]) * 100).astype(dtype)
     buf = torch.from_numpy(base.copy())
-    before = k18.row_scatter.launches
-    k18.row_scatter([buf], [idx], [rows])
     want = base.copy()
     want[idx] = rows
+    plan = k18.RowScatterPlan("cpu")
+    plan.place("f", buf)
+    before = k18.RowScatterPlan.launches
+    assert plan([("f", want, idx)]) == rows.nbytes + idx.nbytes
     assert np.array_equal(buf.numpy(), want)
-    assert k18.row_scatter.launches == before
+    assert k18.RowScatterPlan.launches == before
 
 
 def test_row_scatter_duplicate_rows_like_reference_padding():
     """The reference pads a scatter by repeating its last (index, row)
-    pair (tests/test_arena.py:344); the same padded input lands the same
-    result through K18's plain version."""
+    pair (tests/test_arena.py:344); the same padded indices land the
+    same result through K18's plan on the CPU."""
     buf = np.arange(40, dtype=np.float32).reshape(10, 4)
     rows = np.array([2, 7], dtype=np.int32)
     vals = np.full((2, 4), -1.0, dtype=np.float32)
     idx_p, vals_p = _pad_rows(rows, vals)
     assert len(idx_p) > len(rows)
-    got = torch.from_numpy(buf.copy())
-    k18.row_scatter([got], [idx_p], [vals_p])
     expect = buf.copy()
     expect[rows] = vals
+    assert np.array_equal(expect[idx_p], vals_p)  # the plan gathers the padded rows
+    got = torch.from_numpy(buf.copy())
+    plan = k18.RowScatterPlan("cpu")
+    plan.place("f", got)
+    plan([("f", expect, idx_p)])
     assert np.array_equal(got.numpy(), expect)
     assert np.array_equal(got.numpy(), np.asarray(_scatter_copy(buf.copy(), idx_p, vals_p)))
 
 
 def test_row_scatter_empty_epoch_and_refusals():
     buf = torch.zeros(4, dtype=torch.int32)
-    k18.row_scatter([], [], [])
-    k18.row_scatter([buf], [np.zeros(0, np.int32)], [np.zeros(0, np.int32)])
+    plan = k18.RowScatterPlan("cpu")
+    plan.place("f", buf)
+    assert plan([]) == 0
+    assert plan([("f", np.ones(4, np.int32), np.zeros(0, np.int32))]) == 0
     assert torch.equal(buf, torch.zeros(4, dtype=torch.int32))
     with pytest.raises(TypeError):
-        k18.row_scatter([buf], [np.array([0])], [np.array([1.0], np.float32)])
+        plan([("f", np.ones(4, np.float32), np.array([0]))])
     with pytest.raises(IndexError):
-        k18.row_scatter([buf], [np.array([4])], [np.array([1], np.int32)])
+        plan([("f", np.ones(4, np.int32), np.array([4]))])
+    with pytest.raises(IndexError):
+        plan([("f", np.ones(4, np.int32), np.array([-1]))])
     with pytest.raises(ValueError):
-        k18.row_scatter([buf], [np.array([0, 1])], [np.array([1], np.int32)])
+        plan([("f", np.ones(3, np.int32), np.array([0, 1]))])
+    with pytest.raises(TypeError):
+        plan.place("g", torch.zeros(4, dtype=torch.float64))
+    assert torch.equal(buf, torch.zeros(4, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------- DeviceResident
@@ -542,21 +554,25 @@ def cuda_device():
 @pytest.mark.cuda
 def test_row_scatter_matches_plain_on_card(cuda_device):
     rng = np.random.default_rng(18)
-    bufs, idxs, rows = [], [], []
+    bufs, idxs, hosts = [], [], []
     for dtype, shape in ((np.bool_, (50,)), (np.int32, (50, 2)), (np.float32, (50, 4)),
                          (np.bool_, (50, 3))):
         bufs.append((rng.random(shape) * 50).astype(dtype))
         i = np.array([0, 7, 7, 49], np.int32)
-        r = (rng.random((4,) + shape[1:]) * 50).astype(dtype)
-        r[2] = r[1]
+        h = bufs[-1].copy()
+        h[i] = (rng.random((4,) + shape[1:]) * 50).astype(dtype)
         idxs.append(i)
-        rows.append(r)
+        hosts.append(h)
     dev = [torch.from_numpy(b.copy()).to(cuda_device) for b in bufs]
     cpu = [torch.from_numpy(b.copy()) for b in bufs]
-    before = k18.row_scatter.launches
-    k18.row_scatter(dev, idxs, rows)
-    k18.row_scatter_plain(cpu, idxs, rows)
-    assert k18.row_scatter.launches == before + 1
+    plan = k18.RowScatterPlan(cuda_device)
+    for f, d in enumerate(dev):
+        plan.place(f"f{f}", d)
+    before = k18.RowScatterPlan.launches
+    plan([(f"f{f}", h, i) for f, (h, i) in enumerate(zip(hosts, idxs))])
+    k18.row_scatter_plain(cpu, idxs, [h[i] for h, i in zip(hosts, idxs)])
+    assert k18.RowScatterPlan.launches == before + 1
+    torch.cuda.synchronize()
     for g, c in zip(dev, cpu):
         assert torch.equal(g.cpu(), c)
 
