@@ -173,10 +173,35 @@ rows):
    walk of the evictive world with ``Tensor.to`` watched: its turns hand
    K8 their ordinals as they come (no cast from ``_reclaim_canon``'s own
    frame).
+10. the scheduler loop at full width through the port's own modules —
+   ``cache/sim.generate_cluster`` -> ``framework.Scheduler(sim,
+   decider=TorchDecider(), arena=True)`` (snapshot or arena epoch,
+   K1-K20 on the card, decode, columnar actuation, PodGroup status
+   write-back) on two worlds: (a) the north star, 10k nodes x 1k jobs x
+   100 tasks (T 102,400, N 10,240 padded), default conf, 3 cycles with a
+   seeded 4% of the running tasks completing between cycles; (b)
+   evictive, 5k nodes x 500 jobs x 100 tasks, half running, under
+   reclaim, allocate, backfill, preempt for 3 cycles, a job of priority
+   1000 arriving in every queue before the third (``priority_burst``).
+   Between cycles bound pods start RUNNING and evicted pods come back
+   pending (``kubelet_step``).  Each cycle: ``arena.verify()`` passes,
+   cycle 1 uploads in full and each later cycle a delta, K18 launched
+   once exactly when the two host packs have a field with some but at
+   most half its rows changed (those are the fields the resident wrote;
+   world (a)'s cycle 2 places task_status whole and its cycle 3 writes
+   it in place, world (b)'s cycle 2 writes task_status and task_node in
+   place), the resident pack equals the arena's host pack bit for bit,
+   no node of the SimCluster is over-committed and every bound gang
+   holds min_available; cycle 1's counts and digest equal the JAX
+   package's Scheduler's (SCHED_A_42, SCHED_B_42); world (b) evicts, and
+   its third cycle evicts through preempt's claims (K6).  Prints each
+   cycle's CycleStats phases (snapshot, upload, kernel, decode, close,
+   actuate ms), upload mode and bytes.
 
 Each path's launch counts are taken over its first world (seed 42; the
-priority-mix path's over seed 45), with every count set to 0 just
-before it; K1's, K9's and K19's are also taken by variant (phases 3-5 require
+priority-mix path's over seed 45; the scheduler loop's over every cycle
+of each world, the counts set to 0 before each cycle), with every count
+set to 0 just before it; K1's, K9's and K19's are also taken by variant (phases 3-5 require
 K19's counting segment order on the allocate path and its tiled sort on
 the evictive paths).  The kernels line counts K19's launches over the
 evictive and the pod-affinity evictive cycles, and K20's over the
@@ -295,6 +320,35 @@ SERVE_CORDON = 0.01
 # card vs CPU for the serving stream at a size the CPU decides quickly
 SERVE_CPU_CHECK = dict(tasks=20_000, nodes=2_000, queues=8, tasks_per_job=100,
                        running_fraction=0.5, fit_fraction=1.2)
+# phase 10: the scheduler loop through the port's own modules.  World (a),
+# the north star: cache/sim.generate_cluster at 10k nodes x 1k jobs x 100
+# tasks (T 102,400 and N 10,240 once padded) under the default conf for
+# SCHED_A_CYCLES cycles, with SCHED_CHURN of the running tasks completing
+# between cycles; world (b), evictive: 5k nodes x 500 jobs x 100 tasks,
+# half of them running, under EVICT_ACTIONS for SCHED_B_CYCLES cycles.
+# Between cycles (kubelet_step) bound pods start RUNNING and evicted pods
+# come back pending; after world (b)'s cycle SCHED_B_BURST_AFTER a
+# high-priority job arrives in every queue (priority_burst), more than the
+# cluster holds free, so the next cycle's preempt claims nodes through K6.
+SCHED_A = dict(num_nodes=10_000, num_jobs=1_000, tasks_per_job=100, num_queues=8, seed=42)
+SCHED_B = dict(num_nodes=5_000, num_jobs=500, tasks_per_job=100, num_queues=8, seed=42,
+               running_fraction=0.5)
+SCHED_A_CYCLES = 3
+SCHED_B_CYCLES = 3
+SCHED_B_BURST_AFTER = 2
+SCHED_CHURN = 0.04
+# Phase 10's delta epochs whose K18 work is known from the recipe:
+# (world, cycle) -> (fields whose rows K18 must write in place, fields
+# that must be placed whole).  World (a)'s cycle 2 starts nearly every
+# task (more than half of task_status's rows change), its cycle 3 only
+# the 4% churn; world (b)'s cycle 2 restarts the 24,851 pods bound in
+# cycle 1 and 723 evicted ones, just under half of T = 51,200.
+SCHED_K18 = {("a", 2): ((), ("task_status",)), ("a", 3): (("task_status",), ()),
+             ("b", 2): (("task_status", "task_node"), ())}
+# Cycle 1 of each world as the JAX package's Scheduler decides it, from
+# tests/test_torch_scheduler.py's slow test (its digest is decision_digest's)
+SCHED_A_42 = dict(binds=99_989, evicts=0, evicts_by_phase=[0, 0, 0, 0], digest="dc30e64370254104")
+SCHED_B_42 = dict(binds=24_851, evicts=723, evicts_by_phase=[0, 0, 0, 723], digest="4f54be0880803e8d")
 # phase 2's world of the reference's sequential-vs-batched soak shape at
 # q = 64 (few tasks per job, more jobs than queues, oversubscribed)
 SOAK_Q64 = dict(tasks=4_000, nodes=400, queues=64, tasks_per_job=20, seed=1,
@@ -3763,6 +3817,242 @@ def engines_once(dev, w, count_syncs):
     return row
 
 
+def kubelet_step(sim, status, cycle: int, churn: float, seed: int = 42) -> dict:
+    """Between two scheduler cycles on ``sim`` (either package's
+    SimCluster; ``status`` its TaskStatus): pods evicted last cycle
+    (RELEASING) terminate and come back PENDING under the name
+    ``<uid>.r`` (the Job controller), bound pods start RUNNING, and then
+    a seeded ``churn`` of the RUNNING tasks complete (SUCCEEDED, off
+    their node).  Every change reaches the arena through the sim's
+    delta sink.  Returns the counts of each."""
+    def publish(uid, node):
+        if sim.delta_sink is not None:
+            sim.delta_sink.task_dirty(uid, node)
+
+    tasks = sorted((t for j in sim.cluster.jobs.values() for t in j.tasks.values()),
+                   key=lambda t: t.uid)
+    dying = [t for t in tasks if t.status == status.RELEASING]
+    for t in dying:
+        if t.node_name:
+            sim.cluster.nodes[t.node_name].remove_task(t)
+        job = sim.cluster.jobs[t.job_uid]
+        del job.tasks[t.uid]
+        sim.add_task(job, t.resreq[0], t.resreq[1], t.resreq[2], name=f"{t.uid}.r",
+                     priority=t.priority, volumes=t.resreq[3])
+    bound = [t for t in tasks if t.status == status.BOUND]
+    for t in bound:
+        node = sim.cluster.nodes[t.node_name]
+        node.remove_task(t)
+        t.status = status.RUNNING
+        node.add_task(t)
+        publish(t.uid, t.node_name)
+    running = [t for t in tasks if t.status == status.RUNNING]
+    done = []
+    if churn > 0 and running:
+        rng = np.random.default_rng([seed, cycle])
+        k = max(1, int(len(running) * churn))
+        done = [running[i] for i in sorted(rng.choice(len(running), k, replace=False))]
+    for t in done:
+        sim.cluster.nodes[t.node_name].remove_task(t)
+        t.status = status.SUCCEEDED
+        publish(t.uid, t.node_name)
+    return dict(completed=len(done), recreated=len(dying), started=len(bound))
+
+
+def priority_burst(sim, num_queues: int, num_nodes: int, priority: int = 1000) -> int:
+    """One job at ``priority`` in each queue ``queue-000`` ... of ``sim``
+    (either package's SimCluster), with ``num_nodes // 36`` pending tasks
+    of 16 cores and 32 GiB each: with generate_cluster's worlds, about
+    10% more than the cluster has free, so preempt has to claim nodes
+    for them.  Returns the tasks added."""
+    per_queue = max(1, num_nodes // 36)
+    for q in range(num_queues):
+        job = sim.add_job(f"urgent-{q:03d}", queue=f"queue-{q:03d}", priority=priority,
+                          creation_ts=1e6 + q)
+        for _ in range(per_queue):
+            sim.add_task(job, 16_000, 32 * 1024**3, 0, priority=priority)
+    return per_queue * num_queues
+
+
+def between_cycles(sim, status, world: dict, cycle: int, churn: float,
+                   burst_after=None) -> dict:
+    """What happens on ``sim`` after scheduler cycle ``cycle`` of
+    ``world``: kubelet_step, and after cycle ``burst_after`` the
+    priority_burst too.  Returns kubelet_step's counts (and the burst's)."""
+    row = kubelet_step(sim, status, cycle, churn)
+    if cycle == burst_after:
+        row["burst"] = priority_burst(sim, world["num_queues"], world["num_nodes"])
+    return row
+
+
+def in_place_fields(prev: dict, cur: dict) -> tuple:
+    """The array fields a delta upload from host pack ``prev`` to ``cur``
+    writes row by row: the same shape and dtype, and some but at most
+    half of their rows changed (the others are placed whole or kept)."""
+    out = []
+    for name, a in cur.items():
+        b = prev[name]
+        if a.shape != b.shape or a.dtype != b.dtype or a.ndim == 0:
+            continue
+        d = a != b
+        n = int(d.any(axis=tuple(range(1, d.ndim))).sum())
+        if 0 < n and 2 * n <= max(a.shape[0], 1):
+            out.append(name)
+    return tuple(sorted(out))
+
+
+def sched_invariants(sim, result, status) -> dict:
+    """After a cycle's actuation on ``sim``: no node is over-committed (idle
+    at least -epsilon and used at most allocatable + epsilon on every
+    axis, at most max_tasks pods), and every job bound this cycle holds at
+    least min_available tasks placed (bound or running on a node, or
+    pipelined by the cycle).  Returns what it checked."""
+    from kube_arbitrator_tpu_torch.api import resource as res
+
+    for n in sim.cluster.nodes.values():
+        expect(bool(np.all(n.idle > -res.EPSILON)), f"node {n.name} over-committed: idle {n.idle}")
+        expect(bool(np.all(n.used < n.allocatable + res.EPSILON)),
+               f"node {n.name} over-committed: used {n.used} of {n.allocatable}")
+        expect(len(n.tasks) <= n.max_tasks, f"node {n.name} holds {len(n.tasks)} pods")
+    index = result.snapshot.index
+    pipelined = np.asarray(result.decisions.task_status)[:len(index.tasks)] == int(status.PIPELINED)
+    piped = {}
+    for o in np.nonzero(pipelined)[0].tolist():
+        piped[index.tasks[o].job_uid] = piped.get(index.tasks[o].job_uid, 0) + 1
+    bound_jobs = {index.tasks[r].job_uid for r in result.binds.rows.tolist()}
+    on_node = (status.BOUND, status.RUNNING)
+    for uid in bound_jobs:
+        job = sim.cluster.jobs[uid]
+        placed = sum(1 for t in job.tasks.values() if t.node_name and t.status in on_node)
+        expect(placed + piped.get(uid, 0) >= job.min_available,
+               f"gang {uid}: {placed} placed + {piped.get(uid, 0)} pipelined of "
+               f"min_available {job.min_available}")
+    return dict(nodes=len(sim.cluster.nodes), bound_jobs=len(bound_jobs))
+
+
+def cycle_record(result) -> dict:
+    """A scheduler cycle's binds, evicts (by phase) and decision digest."""
+    dec = result.decisions
+    evict = np.asarray(dec.evict_mask)
+    return dict(binds=len(result.binds), evicts=len(result.evicts),
+                evicts_by_phase=np.bincount(np.asarray(dec.evict_phase)[evict],
+                                            minlength=4).tolist(),
+                digest=decision_digest(np.asarray(dec.bind_mask), evict))
+
+
+SCHED_A_KERNELS = ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum", "stable_compact",
+                   "queue_order", "stable_sort", "row_scatter")
+# world (b) evicts through reclaim's canon walk (K7, K8) every cycle, and
+# through preempt's claims (K6) after the burst
+SCHED_B_KERNELS = SCHED_A_KERNELS + ("seg_scan", "claim_nodes", "canon_pick", "canon_commit")
+
+
+def scheduler_world(dev, smi, name, world, actions, cycles, churn, want, need,
+                    burst_after=None) -> dict:
+    """Phase 10 on one world: ``generate_cluster(**world)`` served by the
+    port's ``Scheduler(sim, decider=TorchDecider(dev), arena=True)`` for
+    ``cycles`` cycles under ``actions`` (default tiers), between_cycles
+    between them.  Every cycle: the arena's verify() passes (at the
+    commit hook, after decode and before actuation: the cluster the
+    cycle decided on), cycle 1 uploads in full and each later cycle a
+    delta, K18 launched once in a delta epoch exactly when some field
+    has rows to write in place (in_place_fields of the two host packs,
+    which must be the fields the resident wrote, and SCHED_K18's named
+    ones), the resident pack equals the arena's host pack bit for bit,
+    and sched_invariants hold after actuation; cycle 1's record equals
+    ``want`` (the JAX package's); the cycle after the burst evicts in
+    preempt's phase 1 and launches K6.  Returns the kernels' launches
+    over the cycles (every count set to 0 just before each cycle)."""
+    from kube_arbitrator_tpu_torch.api.types import TaskStatus
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import Scheduler, SchedulerConfig, TorchDecider
+    from kube_arbitrator_tpu_torch.framework.decider import host_fields
+    from kube_arbitrator_tpu_torch.ops import kernels
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS
+
+    set_sticky_buckets(True)
+    t0 = time.perf_counter()
+    sim = generate_cluster(**world)
+    n_tasks = sum(len(j.tasks) for j in sim.cluster.jobs.values())
+    print(f"scheduler world ({name}): generate_cluster({world}) {n_tasks} tasks in "
+          f"{time.perf_counter() - t0:.2f} s; {smi[0] if smi else 'nvidia-smi: no output'}",
+          flush=True)
+    verified = []
+
+    def on_phase(phase: str) -> None:
+        if phase == "commit":
+            v0 = time.perf_counter()
+            sched.arena.verify()
+            verified.append((time.perf_counter() - v0) * 1e3)
+
+    sched = Scheduler(sim, config=SchedulerConfig(actions=tuple(actions), tiers=DEFAULT_TIERS),
+                      decider=TorchDecider(dev), arena=True, phase_hook=on_phase)
+    counts = dict.fromkeys(kernels.counts(), 0)
+    evicts, prev = 0, None
+    for c in range(1, cycles + 1):
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        result = sched.run_once()
+        torch.cuda.synchronize()
+        launched = kernels.counts()
+        for k, v in launched.items():
+            counts[k] += v
+        st = sched.history[-1]
+        mode, nbytes = sched.decider.last_mode, sched.decider.last_upload_bytes
+        expect(len(verified) == c, f"world ({name}) cycle {c}: the arena was not verified")
+        expect(mode == ("full" if c == 1 else "delta"),
+               f"world ({name}) cycle {c} uploaded {mode}")
+        scattered = sched.decider.resident.last_scattered
+        cur = host_fields(result.snapshot.tensors)
+        if c > 1:
+            # K18 writes the rows of every field with some but at most
+            # half its rows changed, all in one launch
+            rows = in_place_fields(prev, cur)
+            expect(launched["row_scatter"] == (1 if rows else 0),
+                   f"world ({name}) cycle {c}: K18 launched {launched['row_scatter']} times for "
+                   f"the rows of {rows}")
+            expect(tuple(sorted(scattered)) == rows,
+                   f"world ({name}) cycle {c}: the resident wrote the rows of {scattered}, "
+                   f"the host packs change those of {rows}")
+            must, whole = SCHED_K18.get((name, c), ((), ()))
+            expect(set(must) <= set(rows) and not set(whole) & set(rows),
+                   f"world ({name}) cycle {c}: K18 wrote the rows of {rows}; the recipe "
+                   f"writes those of {must} in place and places {whole} whole")
+        prev = cur
+        diff = sched.decider.resident.first_difference(cur)
+        expect(diff is None, f"world ({name}) cycle {c}: the resident {diff} differs from the "
+               "arena's host pack")
+        checked = sched_invariants(sim, result, TaskStatus)
+        rec = cycle_record(result)
+        evicts += rec["evicts"]
+        if c == 1:
+            expect(rec == want, f"world ({name}) cycle 1 differs from the JAX package's "
+                   f"Scheduler: {rec} vs {want}")
+        if burst_after is not None and c == burst_after + 1:
+            expect(rec["evicts_by_phase"][1] > 0 and launched["claim_nodes"] > 0,
+                   f"world ({name}) cycle {c}: preempt claimed nothing after the burst "
+                   f"({rec['evicts_by_phase']}, K6 launched {launched['claim_nodes']} times)")
+        row = dict(world=name, cycle=c, upload=mode, upload_bytes=nbytes,
+                   rebuild=sched.arena.last_rebuild_reason, pending_before=st.pending_before,
+                   **rec,
+                   ms={k: round(getattr(st, f"{k}_ms"), 3) for k in (
+                       "snapshot", "upload", "kernel", "decode", "close", "actuate", "transport",
+                       "cycle")},
+                   verify_ms_in_actuate=round(verified[-1], 3),
+                   k18_launches=launched["row_scatter"], k18_fields=list(scattered), **checked)
+        if c < cycles:
+            row["kubelet"] = between_cycles(sim, TaskStatus, world, c, churn, burst_after)
+        print(f"scheduler cycle {json.dumps(row)}; verified, resident == host pack, invariants "
+              "hold" + ("; equal to the JAX package's" if c == 1 else ""), flush=True)
+    print(f"launches on the scheduler path, world ({name}), {cycles} cycles: {counts}", flush=True)
+    if "preempt" in actions:
+        expect(evicts > 0, f"world ({name}) evicted nothing")
+    for k in need:
+        expect(counts[k] > 0, f"kernel {k} was not launched on the scheduler path ({name})")
+    return counts
+
+
 def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4370,6 +4660,15 @@ def main(kernels_only: bool = False) -> int:
     print(f"phase 9 (profiled, no library sort, search or cummax) {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # ---- phase 10: the scheduler loop at full width through the port's own
+    # modules: generate_cluster -> Scheduler(arena=True) -> TorchDecider
+    t0 = time.perf_counter()
+    sched_a = scheduler_world(dev, smi, "a", SCHED_A, ("allocate", "backfill"), SCHED_A_CYCLES,
+                              SCHED_CHURN, SCHED_A_42, SCHED_A_KERNELS)
+    sched_b = scheduler_world(dev, smi, "b", SCHED_B, EVICT_ACTIONS, SCHED_B_CYCLES, 0.0,
+                              SCHED_B_42, SCHED_B_KERNELS, SCHED_B_BURST_AFTER)
+    print(f"phase 10 (scheduler loop, full width) {time.perf_counter() - t0:.1f} s", flush=True)
+
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
                         "kube_arbitrator_tpu/ops/allocate.py:793"),
@@ -4413,7 +4712,8 @@ def main(kernels_only: bool = False) -> int:
                          "kube_arbitrator_tpu/ops/common.py:102"),
     }
     paths = dict(allocate=counts, evictive=evict_counts, pa_evict=pa_counts, binpack=order_counts,
-                 q512_evict=opt_counts, serving_5_epochs=serve_counts, priority_mix=mix_counts)
+                 q512_evict=opt_counts, serving_5_epochs=serve_counts, priority_mix=mix_counts,
+                 scheduler_a=sched_a, scheduler_b=sched_b)
     kline = []
     for k, r in rows.items():
         if k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):

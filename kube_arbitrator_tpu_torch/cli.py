@@ -1,4 +1,9 @@
-"""Command line: decide synthetic worlds with the port.
+"""Command line: run the port's scheduler over a simulated cluster, or
+decide synthetic worlds with the port.
+
+    python -m kube_arbitrator_tpu_torch --sim-nodes 100 --sim-jobs 20 \
+        --sim-tasks-per-job 50 --sim-queues 4 --sim-seed 0 \
+        [--scheduler-conf conf.yaml] [--cycles 5] [--device cpu] [--json]
 
     python -m kube_arbitrator_tpu_torch --tasks 100000 --nodes 10000 \\
         --queues 8 --tasks-per-job 100 --cycles 3 --seed 42 [--device cpu] [--json]
@@ -11,7 +16,17 @@
     python -m kube_arbitrator_tpu_torch --tasks 50000 --nodes 5000 \\
         --running-fraction 0.5 --actions reclaim,allocate,backfill,preempt --epochs 5
 
-Each cycle decides a fresh world (seed, seed+1, ...) with the default
+With ``--sim-nodes`` (the reference's simulation mode, its cli.py:276),
+``cache/sim.generate_cluster`` builds the cluster and the port's own
+``framework.Scheduler`` runs cycles over it with an arena
+(``SnapshotArena``): snapshot, ``TorchDecider`` (the card unless
+``--device cpu``), decode, actuation and status write-back, up to
+``--cycles`` cycles (0 or absent: until a cycle binds and evicts
+nothing).  ``--scheduler-conf`` names a YAML conf (PyYAML is imported
+only then).  Each cycle prints its phase times, binds, evicts and upload
+mode; the last line sums the cycles, binds and evicts.
+
+Otherwise each cycle decides a fresh world (seed, seed+1, ...) with the default
 tiers (``--node-order`` sets their nodeorder plugin's policy) and the
 ``--actions`` list (default allocate, backfill), decodes its binds into
 (task uid, node name) pairs, and prints the bind and evict counts, the
@@ -37,6 +52,7 @@ upload mode, bytes, upload ms and cycle ms.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -45,10 +61,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .cache.decode import decode_binds
+from .cache.sim import generate_cluster
 from .cache.synth import build_synthetic_arrays, epoch_stream
 from .cache.snapshot import from_numpy
 from .device import resolve_device
-from .framework import SchedulerConfig, TorchDecider
+from .framework import Scheduler, SchedulerConfig, TorchDecider
+from .framework.conf import load_conf_file
 from .ops.cycle import schedule_cycle
 from .ops.ordering import DEFAULT_ACTIONS, NODE_ORDER_POLICIES, with_node_order
 
@@ -136,13 +154,46 @@ def serve_world(
     return out
 
 
+def serve_sim(
+    nodes: int,
+    jobs: int,
+    tasks_per_job: int,
+    queues: int,
+    seed: int,
+    cycles: int = 0,
+    config: Optional[SchedulerConfig] = None,
+    device=None,
+) -> Tuple[Scheduler, List[Dict]]:
+    """``generate_cluster`` -> the port's ``Scheduler(arena=True)`` on
+    ``device`` -> ``run(max_cycles=cycles)``.  Returns the scheduler and
+    one row per completed cycle: its CycleStats, upload mode and bytes
+    included."""
+    sim = generate_cluster(num_nodes=nodes, num_jobs=jobs, tasks_per_job=tasks_per_job,
+                           num_queues=queues, seed=seed)
+    sched = Scheduler(sim, config=config, decider=TorchDecider(device), arena=True)
+    sched.run(max_cycles=cycles)
+    rows = [dict(cycle=i + 1, **dataclasses.asdict(st)) for i, st in enumerate(sched.history)]
+    return sched, rows
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m kube_arbitrator_tpu_torch", description=__doc__.split("\n\n")[0])
     ap.add_argument("--tasks", type=int, default=100_000)
     ap.add_argument("--nodes", type=int, default=10_000)
     ap.add_argument("--queues", type=int, default=8)
     ap.add_argument("--tasks-per-job", type=int, default=100)
-    ap.add_argument("--cycles", type=int, default=3)
+    ap.add_argument("--cycles", type=int, default=None,
+                    help="worlds to decide (default 3); with --sim-nodes, scheduler cycles "
+                         "(default 0: until a cycle binds and evicts nothing)")
+    ap.add_argument("--sim-nodes", type=int, default=None,
+                    help="run the port's Scheduler over a generated cluster of this many nodes")
+    ap.add_argument("--sim-jobs", type=int, default=None, help="with --sim-nodes (default 20)")
+    ap.add_argument("--sim-tasks-per-job", type=int, default=None,
+                    help="with --sim-nodes (default 50)")
+    ap.add_argument("--sim-queues", type=int, default=None, help="with --sim-nodes (default 4)")
+    ap.add_argument("--sim-seed", type=int, default=None, help="with --sim-nodes (default 0)")
+    ap.add_argument("--scheduler-conf", default=None,
+                    help="with --sim-nodes: the YAML action / tier configuration file")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--running-fraction", type=float, default=0.0,
                     help="fraction of jobs pre-placed RUNNING (the evictive actions' victims)")
@@ -163,9 +214,37 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the GPU)")
     ap.add_argument("--json", action="store_true", help="one JSON object per cycle")
     a = ap.parse_args(argv)
+    sim_flags = (a.sim_jobs, a.sim_tasks_per_job, a.sim_queues, a.sim_seed, a.scheduler_conf)
+    if a.sim_nodes is None and any(f is not None for f in sim_flags):
+        ap.error("--sim-jobs, --sim-tasks-per-job, --sim-queues, --sim-seed and "
+                 "--scheduler-conf need --sim-nodes")
     actions = tuple(x.strip() for x in a.actions.split(",") if x.strip())
     dev = resolve_device(a.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if a.sim_nodes is not None:
+        config = load_conf_file(a.scheduler_conf) if a.scheduler_conf else None
+        sched, rows = serve_sim(
+            a.sim_nodes, 20 if a.sim_jobs is None else a.sim_jobs,
+            50 if a.sim_tasks_per_job is None else a.sim_tasks_per_job,
+            4 if a.sim_queues is None else a.sim_queues, a.sim_seed or 0,
+            cycles=a.cycles or 0, config=config, device=dev,
+        )
+        for row in rows:
+            if a.json:
+                print(json.dumps(dict(row, device=name)), flush=True)
+            else:
+                print(f"cycle {row['cycle']} on {name}: {row['binds']} binds, {row['evicts']} "
+                      f"evicts, {row['pending_before']} pending; snapshot "
+                      f"{row['snapshot_ms']:.1f} ms, upload {row['upload_mode']} "
+                      f"{row['upload_bytes']} bytes in {row['upload_ms']:.1f} ms, kernel "
+                      f"{row['kernel_ms']:.1f} ms, decode {row['decode_ms']:.1f} ms, close "
+                      f"{row['close_ms']:.1f} ms, actuate {row['actuate_ms']:.1f} ms, cycle "
+                      f"{row['cycle_ms']:.1f} ms", flush=True)
+        print(json.dumps(dict(cycles=len(rows), binds=sum(r["binds"] for r in rows),
+                              evicts=sum(r["evicts"] for r in rows))), flush=True)
+        return 0
+    if a.cycles is None:
+        a.cycles = 3
     if a.epochs < 1:
         ap.error("--epochs must be at least 1")
     if a.epochs > 1 and a.pod_affinity:

@@ -1,6 +1,33 @@
-"""The scheduler-facing serving path: the port's configuration and the
-decider a scheduler's session calls each cycle."""
-from .conf import SchedulerConfig, from_config
+"""Framework: the scheduler loop, its session, the conf and registries,
+and the decider a session calls each cycle (``TorchDecider``)."""
+from ..options import ServerOptions, options, reset_options, set_options
+from .conf import DEFAULT_CONF, SchedulerConfig, dump_conf, from_config, load_conf, load_conf_file
 from .decider import TorchDecider
+from .registry import get_action, plugin_capabilities, register_action, register_plugin
+from .scheduler import CycleStats, Scheduler, classify_cycle_error
+from .session import CycleResult, PodGroupCondition, PodGroupStatus, Session
 
-__all__ = ["SchedulerConfig", "TorchDecider", "from_config"]
+__all__ = [
+    "DEFAULT_CONF",
+    "SchedulerConfig",
+    "dump_conf",
+    "from_config",
+    "load_conf",
+    "load_conf_file",
+    "get_action",
+    "register_action",
+    "register_plugin",
+    "plugin_capabilities",
+    "Scheduler",
+    "CycleStats",
+    "classify_cycle_error",
+    "Session",
+    "CycleResult",
+    "PodGroupCondition",
+    "PodGroupStatus",
+    "ServerOptions",
+    "TorchDecider",
+    "options",
+    "set_options",
+    "reset_options",
+]

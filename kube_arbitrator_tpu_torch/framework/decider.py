@@ -2,9 +2,9 @@
 kube_arbitrator_tpu/framework/decider.py's ``LocalDecider`` interface).
 
 :class:`TorchDecider` declares ``wants_device_pack = False``, so a
-reference ``Session`` hands it the arena's host pack and its
-:class:`~..cache.arena.PackMeta` (epoch key, base key, changed fields),
-as it does a remote decider.  The decider keeps the pack resident on its
+``Session`` (the port's, or the reference's) hands it the arena's host
+pack and its :class:`~..cache.arena.PackMeta` (epoch key, base key,
+changed fields), as it does a remote decider.  The decider keeps the pack resident on its
 device across epochs: when the epoch's base is the resident's key it
 diffs only the changed fields against a host shadow of the last pack and
 writes the changed rows in place (K18); otherwise it uploads every field.

@@ -190,11 +190,14 @@ def test_device_resident_full_triggers_and_field_rules():
     want = (2 * (4 + 4) + new["node_unsched"].nbytes + new["group_valid"].nbytes)
     assert r.last_upload_bytes == want
     assert r.first_difference(new) is None
-    # a base that is not the resident's key, or moved statics: full
+    # a base that is not the resident's key: full
     r.update(new, statics, "c", "zzz", {}, cpu)
     assert r.last_mode == "full"
-    r.update(new, {"rv_window": statics["rv_window"] + 32}, "d", "c", {}, cpu)
-    assert r.last_mode == "full"
+    # moved statics alone: a delta of no rows that takes the new statics
+    moved = {"rv_window": statics["rv_window"] + 32}
+    st = r.update(new, moved, "d", "c", {}, cpu)
+    assert (r.last_mode, r.last_upload_bytes, st.rv_window) == ("delta", 0, moved["rv_window"])
+    assert r.statics == moved and r.first_difference(new) is None
     assert changed_fields(arrays, new) == ("group_valid", "node_unsched", "task_priority")
 
 
