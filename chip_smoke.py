@@ -197,10 +197,37 @@ rows):
    its third cycle evicts through preempt's claims (K6).  Prints each
    cycle's CycleStats phases (snapshot, upload, kernel, decode, close,
    actuate ms), upload mode and bytes.
+11. the live plane at full width — phase 10's worlds written to a
+   ``cache/fakeapi.FakeApiServer`` as apiserver objects
+   (``cluster_objects``: nodes, queues, one PodGroup a job, pods with
+   requests, priority, schedulerName and the group annotation, running
+   ones bound) and scheduled by the same ``framework.Scheduler`` over a
+   ``cache/live.LiveCache`` (list, then watch), a ``SnapshotArena`` and a
+   ``framework/leader.LeaderElector`` on a lock file, a cycle a
+   ``run(max_cycles=1)``, for 3 cycles: (a) the north star with 4% of
+   the running pods completing between cycles (written to the
+   apiserver); (b) the evictive world, its evicted pods recreated
+   pending and, before the third cycle, ``live_burst``'s priority-1000
+   PodGroups.  Each cycle: the watch drain (timed), every bind a POST
+   the apiserver shows (nodeName, Running), every evict a DELETE, one
+   PodGroup status PUT a job status, no over-commit counted from the
+   apiserver's objects, cycle 1 a full upload and each later one a
+   delta after a drain, K18 as in phase 10, resident == host pack;
+   cycle 1 equals the JAX package's Scheduler over its LiveCache
+   (LIVE_A_42, LIVE_B_42).  (c) the commit fence at 64 x 16 x 8: a
+   standby takes the lease (the lock file on a fake clock, and the
+   apiserver ConfigMap lock through ``usurp_lease``) at the leader's
+   commit hook; the leader's cycle raises LeaderLost with no apiserver
+   write, then the standby binds.  (d) ``serve_api`` on 127.0.0.1 at 1k
+   nodes x 100 jobs x 20 tasks: one cycle through
+   ``LiveCache(HttpApiClient(url))`` binds as the in-process run does,
+   and the server shuts down.  Prints each cycle's CycleStats phases,
+   sync ms, events drained, bind POSTs, evict DELETEs, status PUTs.
 
 Each path's launch counts are taken over its first world (seed 42; the
-priority-mix path's over seed 45; the scheduler loop's over every cycle
-of each world, the counts set to 0 before each cycle), with every count
+priority-mix path's over seed 45; the scheduler loop's and the live
+plane's over every cycle of each world, the counts set to 0 before each
+cycle), with every count
 set to 0 just before it; K1's, K9's and K19's are also taken by variant (phases 3-5 require
 K19's counting segment order on the allocate path and its tiled sort on
 the evictive paths).  The kernels line counts K19's launches over the
@@ -220,6 +247,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -791,15 +819,26 @@ def k2_case(dev):
 
     plain_ms = cuda_ms(plain)
     K = len(job_order_key_spec(DEFAULT_TIERS))
-    # the job columns (queue, valid, pending, ready, share, three static
-    # rows) and group columns (job, elig, two keys) read once, the job
-    # mask and the picks written; a compare and a min a key and entry
-    nbytes = J * (4 + 1 + 1 + 1 + 4 + 3 * 4) + G * (4 + 1 + 2 * 4) + Q * (J + 2 * 9)
-    b, by = bound_ms(nbytes, Q * (K * J + 2 * G) * 2)
+
+    def k2_bound(J, G, pop=False):
+        # the job columns (queue, valid, pending, ready, share, three
+        # static rows) and group columns (job, elig, two keys) read once,
+        # the job mask (select) and the picks written; a compare and a min
+        # a key and entry.  The pop form reads each row's queue entry and
+        # the queues' allocated and deserved rows instead of the mask.
+        nbytes = J * (4 + 1 + 1 + 1 + 4 + 3 * 4) + G * (4 + 1 + 2 * 4) + Q * 2 * 9
+        nbytes += Q * (4 + 2 * R * 4) if pop else Q * J
+        return bound_ms(nbytes, Q * (K * J + 2 * G) * 2)
+
+    b, by = k2_bound(J, G)
+    pb, pby = k2_bound(J, G, pop=True)
+    wJ, wG = wst.job_queue.shape[0], wst.group_job.shape[0]
+    wb, wby = k2_bound(wJ, wG)
     return dict(name="lex_argmin", max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=None, events_per_call=per_call, checks=checks,
-                variants=[dict(form="pop (reclaim rows)", **pop_t),
-                          dict(form="unstaged, J = G = 20,480 (select, job mask)", **wide_t)],
+                variants=[dict(form="pop (reclaim rows)", **pop_t, bound_ms=pb, bound_by=pby),
+                          dict(form=f"unstaged, J = G = {wJ:,} (select, job mask)", **wide_t,
+                               bound_ms=wb, bound_by=wby)],
                 shape=f"TurnPickPlan: K={K} job keys, J={J}, G={G}, S={Q} rows (select, job mask)")
 
 
@@ -1306,11 +1345,17 @@ def k6_bound(st, turn) -> tuple:
     node gives its segment, and within a node the view's order is
     ascending slot order."""
     N, (Pn, R) = st.num_nodes, turn["node_cum"].shape
+    return bound_ms(*k6_work(st, turn))
+
+
+def k6_work(st, turn) -> tuple:
+    """(bytes, operations) of k6_bound."""
+    N, (Pn, R) = st.num_nodes, turn["node_cum"].shape
     W = turn["node_ports"].shape[1]
     V = int(turn["victims"].sum())
     nbytes = N * (1 + 1 + 4 + 4 + 4 + 4 * W) + Pn + V * (4 + 4 * R + 4 + 4 * R) \
         + N * (4 + 4 + 4 * R) + 8 + Pn
-    return bound_ms(nbytes, N * 12 * R + V * 4 * R)
+    return nbytes, N * 12 * R + V * 4 * R
 
 
 def k6_case(dev, fx):
@@ -1444,8 +1489,17 @@ def k6_pa_forms(dev, pfx) -> list:
            f"(K6, K12, K6)")
     allocs = allocations_per_call(lambda: pplan(**pturn))
     expect(allocs == 0, f"K6's plan with pod affinity allocates {allocs} times a call")
+    # the bound: K6's function on the turn (k6_work) and K12's shaping of
+    # the claim row between its two launches (the row read and written
+    # once, the node order and, per active seed / cap fold, the key's
+    # node domains read once; three operations a node and fold)
+    fit = fit_plan.fit
+    N = pst.num_nodes
+    folds = int(fit.seed_flags.sum()) + int(fit.cap_flags.sum())
+    nbytes, nops = k6_work(pst, pturn)
+    b, by = bound_ms(nbytes + N * 8 + N * 4 + folds * N * 4, nops + folds * N * 3)
     forms[-1].update(events_per_call=per_call, launch_records_per_call=host,
-                     **kernel_times(lambda: pplan(**pturn)))
+                     **kernel_times(lambda: pplan(**pturn)), bound_ms=b, bound_by=by, folds=folds)
     return forms
 
 
@@ -2698,10 +2752,12 @@ def k14_case(dev, fx):
     ctl[k15.START] = 0
     # no claim: requests above every node's victims
     big = torch.full_like(reqp, 3.0e38)
+    want_big = k14_plain(fx, fx.st_cpu, pn, segcum, q, gp, hgp, popp & fx.in_window, big)
+    nb = k14_bound(fx, segcum, pn, gp, popp & fx.in_window & hgp, want_big.to(dev))
     expect(check("no claim (every live row walks every tile)",
-                 launch(plan, q, gp, hgp, popp, big, ctl=ctl),
-                 k14_plain(fx, fx.st_cpu, pn, segcum, q, gp, hgp, popp & fx.in_window, big),
-                 **kernel_times(lambda: plan(q, gp, hgp, popp, big, ctl=ctl))) == 0,
+                 launch(plan, q, gp, hgp, popp, big, ctl=ctl), want_big,
+                 **kernel_times(lambda: plan(q, gp, hgp, popp, big, ctl=ctl)),
+                 bound_ms=nb["bound_ms"], bound_by=nb["bound_by"]) == 0,
            "K14: a request above every node's victims claimed")
     # a claim only at the last row: a claiming row's queue, group and
     # request moved there, every other row not popping
@@ -2729,9 +2785,10 @@ def k14_case(dev, fx):
     # the batched engine's one-row form: the turn's q i64[1], req f32[R]
     one = preempt._fit_plan(st, s, ctx, fx.products, preds_on, 1)
     row = (q[c:c + 1], gp[c:c + 1], hgp[c:c + 1], popp[c:c + 1], reqp[c])
-    check("batched engine's one-row form", launch(one, *row),
-          k14_plain(fx, fx.st_cpu, pn, segcum, *row[:4], reqp[c:c + 1]),
-          **kernel_times(lambda: one(*row)))
+    want_one = k14_plain(fx, fx.st_cpu, pn, segcum, *row[:4], reqp[c:c + 1])
+    ob = k14_bound(fx, segcum, pn, row[1], row[3] & row[2], want_one.to(dev))
+    check("batched engine's one-row form", launch(one, *row), want_one,
+          **kernel_times(lambda: one(*row)), bound_ms=ob["bound_ms"], bound_by=ob["bound_by"])
     # N not a multiple of the tile: every queue's pop on two more packs
     from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS as tiers
     for what, w, seed in K14_TILE_EDGE_WORLDS:
@@ -3526,9 +3583,13 @@ def k16_case(dev, efx, tfx):
     def pair():
         return k16.stable_compact_pair(mask, bcap, -1, emask, ecap, -1, out=pout)
 
+    # both masks read once, both lists and counts written once; the
+    # library: nonzero + pad of each mask (two host syncs)
+    pb, pby = bound_ms(2 * T + (bcap + ecap) * 4 + 2 * 4, 2 * T * 2)
+    plib = cuda_ms(lambda: (nonzero_pad_row(mask, bcap), nonzero_pad_row(emask, ecap)))
     variants.append(dict(case=f"the commit's bind (cap {bcap}) and evict (cap {ecap}) lists, one "
-                              f"launch", **kernel_times(pair),
-                         events_per_call=device_events_per_call(pair),
+                              f"launch", **kernel_times(pair), bound_ms=pb, bound_by=pby,
+                         library_ms=plib, events_per_call=device_events_per_call(pair),
                          allocations_per_call=allocations_per_call(pair)))
     out = k16._outputs(((1, bcap),), dev)[0]
 
@@ -3940,6 +4001,83 @@ def cycle_record(result) -> dict:
                 digest=decision_digest(np.asarray(dec.bind_mask), evict))
 
 
+def verify_at_commit(sched, verified: list):
+    """A phase_hook for ``sched`` that runs its arena's verify() at the
+    commit point (after decode, before actuation: the cluster the cycle
+    decided on) and appends the ms it took to ``verified``."""
+    def hook(phase: str) -> None:
+        if phase == "commit":
+            v0 = time.perf_counter()
+            sched.arena.verify()
+            verified.append((time.perf_counter() - v0) * 1e3)
+    return hook
+
+
+def check_cycle(sched, result, name: str, c: int, launched: dict, prev, verified: list, want,
+                burst_after, on_card: bool = True) -> tuple:
+    """The checks that phases 10 and 11 make of cycle ``c`` of world
+    ``name`` after ``sched`` ran it: the arena was verified at the commit
+    point (verify_at_commit), cycle 1 uploaded in full and each later
+    cycle a delta; on the card, K18 launched once in a delta epoch exactly
+    when some field has rows to write in place (in_place_fields of the
+    host packs ``prev`` and this cycle's), those are the fields the
+    resident wrote and include SCHED_K18's named ones; the resident pack
+    equals the arena's host pack bit for bit; cycle 1's record equals
+    ``want`` (None: not checked); the cycle after the burst evicts in
+    preempt's phase 1 and, on the card, launches K6.  Returns this
+    cycle's host pack, its record and the row printed for it."""
+    from kube_arbitrator_tpu_torch.framework.decider import host_fields
+
+    mode, st = sched.decider.last_mode, sched.history[-1]
+    expect(len(verified) == c, f"world ({name}) cycle {c}: the arena was not verified")
+    expect(mode == ("full" if c == 1 else "delta"), f"world ({name}) cycle {c} uploaded {mode}")
+    scattered = sched.decider.resident.last_scattered
+    cur = host_fields(result.snapshot.tensors)
+    if c > 1 and on_card:
+        # K18 writes the rows of every field with some but at most half
+        # its rows changed, all in one launch
+        rows = in_place_fields(prev, cur)
+        expect(launched["row_scatter"] == (1 if rows else 0),
+               f"world ({name}) cycle {c}: K18 launched {launched['row_scatter']} times for "
+               f"the rows of {rows}")
+        expect(tuple(sorted(scattered)) == rows,
+               f"world ({name}) cycle {c}: the resident wrote the rows of {scattered}, "
+               f"the host packs change those of {rows}")
+        must, whole = SCHED_K18.get((name, c), ((), ()))
+        expect(set(must) <= set(rows) and not set(whole) & set(rows),
+               f"world ({name}) cycle {c}: K18 wrote the rows of {rows}; the recipe "
+               f"writes those of {must} in place and places {whole} whole")
+    diff = sched.decider.resident.first_difference(cur)
+    expect(diff is None, f"world ({name}) cycle {c}: the resident {diff} differs from the "
+           "arena's host pack")
+    rec = cycle_record(result)
+    if c == 1 and want is not None:
+        expect(rec == want, f"world ({name}) cycle 1 differs from the JAX package's "
+               f"Scheduler: {rec} vs {want}")
+    if burst_after is not None and c == burst_after + 1:
+        expect(rec["evicts_by_phase"][1] > 0 and (launched["claim_nodes"] > 0 or not on_card),
+               f"world ({name}) cycle {c}: preempt claimed nothing after the burst "
+               f"({rec['evicts_by_phase']}, K6 launched {launched['claim_nodes']} times)")
+    row = dict(world=name, cycle=c, upload=mode, upload_bytes=sched.decider.last_upload_bytes,
+               rebuild=sched.arena.last_rebuild_reason, pending_before=st.pending_before, **rec,
+               ms={k: round(getattr(st, f"{k}_ms"), 3) for k in (
+                   "snapshot", "upload", "kernel", "decode", "close", "actuate", "transport",
+                   "cycle")},
+               verify_ms_in_actuate=round(verified[-1], 3),
+               k18_launches=launched["row_scatter"], k18_fields=list(scattered))
+    return cur, rec, row
+
+
+def add_launches(counts: dict, launched: dict) -> None:
+    for k, v in launched.items():
+        counts[k] += v
+
+
+def expect_launched(counts: dict, need, where: str) -> None:
+    for k in need:
+        expect(counts[k] > 0, f"kernel {k} was not launched on the {where}")
+
+
 SCHED_A_KERNELS = ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum", "stable_compact",
                    "queue_order", "stable_sort", "row_scatter")
 # world (b) evicts through reclaim's canon walk (K7, K8) every cycle, and
@@ -3948,26 +4086,18 @@ SCHED_B_KERNELS = SCHED_A_KERNELS + ("seg_scan", "claim_nodes", "canon_pick", "c
 
 
 def scheduler_world(dev, smi, name, world, actions, cycles, churn, want, need,
-                    burst_after=None) -> dict:
+                    burst_after=None) -> tuple:
     """Phase 10 on one world: ``generate_cluster(**world)`` served by the
     port's ``Scheduler(sim, decider=TorchDecider(dev), arena=True)`` for
     ``cycles`` cycles under ``actions`` (default tiers), between_cycles
-    between them.  Every cycle: the arena's verify() passes (at the
-    commit hook, after decode and before actuation: the cluster the
-    cycle decided on), cycle 1 uploads in full and each later cycle a
-    delta, K18 launched once in a delta epoch exactly when some field
-    has rows to write in place (in_place_fields of the two host packs,
-    which must be the fields the resident wrote, and SCHED_K18's named
-    ones), the resident pack equals the arena's host pack bit for bit,
-    and sched_invariants hold after actuation; cycle 1's record equals
-    ``want`` (the JAX package's); the cycle after the burst evicts in
-    preempt's phase 1 and launches K6.  Returns the kernels' launches
-    over the cycles (every count set to 0 just before each cycle)."""
+    between them.  Every cycle passes check_cycle (``want``: the JAX
+    package's cycle 1) and sched_invariants after actuation.  Returns the
+    kernels' launches over the cycles (every count set to 0 just before
+    each cycle) and each cycle's record."""
     from kube_arbitrator_tpu_torch.api.types import TaskStatus
     from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
     from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
     from kube_arbitrator_tpu_torch.framework import Scheduler, SchedulerConfig, TorchDecider
-    from kube_arbitrator_tpu_torch.framework.decider import host_fields
     from kube_arbitrator_tpu_torch.ops import kernels
     from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS
 
@@ -3978,69 +4108,24 @@ def scheduler_world(dev, smi, name, world, actions, cycles, churn, want, need,
     print(f"scheduler world ({name}): generate_cluster({world}) {n_tasks} tasks in "
           f"{time.perf_counter() - t0:.2f} s; {smi[0] if smi else 'nvidia-smi: no output'}",
           flush=True)
-    verified = []
-
-    def on_phase(phase: str) -> None:
-        if phase == "commit":
-            v0 = time.perf_counter()
-            sched.arena.verify()
-            verified.append((time.perf_counter() - v0) * 1e3)
-
     sched = Scheduler(sim, config=SchedulerConfig(actions=tuple(actions), tiers=DEFAULT_TIERS),
-                      decider=TorchDecider(dev), arena=True, phase_hook=on_phase)
+                      decider=TorchDecider(dev), arena=True)
+    verified: list = []
+    sched.phase_hook = verify_at_commit(sched, verified)
     counts = dict.fromkeys(kernels.counts(), 0)
-    evicts, prev = 0, None
+    evicts, prev, recs = 0, None, []
     for c in range(1, cycles + 1):
         torch.cuda.synchronize()
         kernels.reset_counts()
         result = sched.run_once()
         torch.cuda.synchronize()
         launched = kernels.counts()
-        for k, v in launched.items():
-            counts[k] += v
-        st = sched.history[-1]
-        mode, nbytes = sched.decider.last_mode, sched.decider.last_upload_bytes
-        expect(len(verified) == c, f"world ({name}) cycle {c}: the arena was not verified")
-        expect(mode == ("full" if c == 1 else "delta"),
-               f"world ({name}) cycle {c} uploaded {mode}")
-        scattered = sched.decider.resident.last_scattered
-        cur = host_fields(result.snapshot.tensors)
-        if c > 1:
-            # K18 writes the rows of every field with some but at most
-            # half its rows changed, all in one launch
-            rows = in_place_fields(prev, cur)
-            expect(launched["row_scatter"] == (1 if rows else 0),
-                   f"world ({name}) cycle {c}: K18 launched {launched['row_scatter']} times for "
-                   f"the rows of {rows}")
-            expect(tuple(sorted(scattered)) == rows,
-                   f"world ({name}) cycle {c}: the resident wrote the rows of {scattered}, "
-                   f"the host packs change those of {rows}")
-            must, whole = SCHED_K18.get((name, c), ((), ()))
-            expect(set(must) <= set(rows) and not set(whole) & set(rows),
-                   f"world ({name}) cycle {c}: K18 wrote the rows of {rows}; the recipe "
-                   f"writes those of {must} in place and places {whole} whole")
-        prev = cur
-        diff = sched.decider.resident.first_difference(cur)
-        expect(diff is None, f"world ({name}) cycle {c}: the resident {diff} differs from the "
-               "arena's host pack")
-        checked = sched_invariants(sim, result, TaskStatus)
-        rec = cycle_record(result)
+        add_launches(counts, launched)
+        prev, rec, row = check_cycle(sched, result, name, c, launched, prev, verified, want,
+                                     burst_after)
+        row.update(sched_invariants(sim, result, TaskStatus))
         evicts += rec["evicts"]
-        if c == 1:
-            expect(rec == want, f"world ({name}) cycle 1 differs from the JAX package's "
-                   f"Scheduler: {rec} vs {want}")
-        if burst_after is not None and c == burst_after + 1:
-            expect(rec["evicts_by_phase"][1] > 0 and launched["claim_nodes"] > 0,
-                   f"world ({name}) cycle {c}: preempt claimed nothing after the burst "
-                   f"({rec['evicts_by_phase']}, K6 launched {launched['claim_nodes']} times)")
-        row = dict(world=name, cycle=c, upload=mode, upload_bytes=nbytes,
-                   rebuild=sched.arena.last_rebuild_reason, pending_before=st.pending_before,
-                   **rec,
-                   ms={k: round(getattr(st, f"{k}_ms"), 3) for k in (
-                       "snapshot", "upload", "kernel", "decode", "close", "actuate", "transport",
-                       "cycle")},
-                   verify_ms_in_actuate=round(verified[-1], 3),
-                   k18_launches=launched["row_scatter"], k18_fields=list(scattered), **checked)
+        recs.append(rec)
         if c < cycles:
             row["kubelet"] = between_cycles(sim, TaskStatus, world, c, churn, burst_after)
         print(f"scheduler cycle {json.dumps(row)}; verified, resident == host pack, invariants "
@@ -4048,9 +4133,445 @@ def scheduler_world(dev, smi, name, world, actions, cycles, churn, want, need,
     print(f"launches on the scheduler path, world ({name}), {cycles} cycles: {counts}", flush=True)
     if "preempt" in actions:
         expect(evicts > 0, f"world ({name}) evicted nothing")
-    for k in need:
-        expect(counts[k] > 0, f"kernel {k} was not launched on the scheduler path ({name})")
-    return counts
+    expect_launched(counts, need, f"scheduler path ({name})")
+    return counts, recs
+
+
+
+# ---------------------------------------------------------------- phase 11
+# The live plane: the port's Scheduler over cache/live.LiveCache fed by
+# an apiserver (cache/fakeapi.FakeApiServer in the process, or the REST
+# shim), leader election from framework/leader.py.
+
+
+def recording_scheduler(*args, **kw):
+    """The port's ``framework.Scheduler(*args, **kw)`` whose ``run_once``
+    keeps its last CycleResult in ``last``, so a cycle driven through
+    ``run`` (the lease acquired and renewed, errors classified) can be
+    checked."""
+    from kube_arbitrator_tpu_torch.framework import Scheduler
+
+    class Recording(Scheduler):
+        last = None
+
+        def run_once(self):
+            self.last = super().run_once()
+            return self.last
+
+    return Recording(*args, **kw)
+
+
+def pod_object(name: str, group: str, cpu_milli: float, memory: float, gpu_milli: float,
+               priority: int, scheduler: str, node: str = "", phase: str = "Pending") -> dict:
+    """A pod of PodGroup ``group`` (namespace default, uid = name) with one
+    container requesting ``cpu_milli`` millicores, ``memory`` bytes and
+    ``gpu_milli`` / 1000 GPUs."""
+    req = {"cpu": f"{int(cpu_milli)}m", "memory": int(memory)}
+    if gpu_milli:
+        req["nvidia.com/gpu"] = int(gpu_milli) // 1000
+    return {
+        "metadata": {"name": name, "namespace": "default", "uid": name,
+                     "annotations": {"scheduling.k8s.io/group-name": group}, "labels": {}},
+        "spec": {"schedulerName": scheduler, "nodeName": node, "priority": int(priority),
+                 "containers": [{"name": "c", "resources": {"requests": req}}]},
+        "status": {"phase": phase},
+    }
+
+
+def cluster_objects(sim, scheduler: str) -> list:
+    """A ``generate_cluster`` world (either package's SimCluster) as
+    apiserver objects, (resource, object) in creation order: nodes with
+    their allocatable (cpu, memory, GPUs, attachable volumes, pods),
+    queues with their weight, one PodGroup a job (minMember, spec.queue,
+    creationTimestamp) and its pods (requests, priority, schedulerName
+    ``scheduler``, the group annotation; a running task's pod carries
+    spec.nodeName and phase Running)."""
+    out = []
+    for n in sim.cluster.nodes.values():
+        cpu, mem, gpu, attach = n.allocatable.tolist()
+        alloc = {"cpu": f"{int(cpu)}m", "memory": int(mem), "pods": int(n.max_tasks),
+                 "attachable-volumes-csi": int(attach)}
+        if gpu:
+            alloc["nvidia.com/gpu"] = int(gpu) // 1000
+        out.append(("nodes", {"metadata": {"name": n.name, "labels": dict(n.labels)},
+                              "spec": {}, "status": {"allocatable": alloc}}))
+    for q in sim.cluster.queues.values():
+        out.append(("queues", {"metadata": {"name": q.name}, "spec": {"weight": int(q.weight)}}))
+    for j in sim.cluster.jobs.values():
+        out.append(("podgroups", {
+            "metadata": {"name": j.name, "namespace": j.namespace,
+                         "creationTimestamp": float(j.creation_ts)},
+            "spec": {"minMember": int(j.min_available), "queue": j.queue_uid}, "status": {}}))
+    for j in sim.cluster.jobs.values():
+        for t in j.tasks.values():
+            running = bool(t.node_name) and int(t.status) == int(type(t.status).RUNNING)
+            cpu, mem, gpu = t.resreq[:3].tolist()
+            out.append(("pods", pod_object(t.uid, j.name, cpu, mem, gpu, t.priority, scheduler,
+                                           node=t.node_name if running else "",
+                                           phase="Running" if running else "Pending")))
+    return out
+
+
+def load_objects(api, objects) -> None:
+    for resource, obj in objects:
+        api.create(resource, obj)
+
+
+def api_rv(api) -> int:
+    """The apiserver's current resource version (a LIST's)."""
+    return int(api.list("configmaps")[1])
+
+
+def events_since(api, rv: int, resource: str, etype: str) -> list:
+    return [obj for r, res, et, obj in api.event_log if r > rv and res == resource and et == etype]
+
+
+def live_kubelet_step(api, since_rv: int, cycle: int, churn: float, seed: int = 42) -> dict:
+    """Between two live cycles, written to the apiserver: every pod
+    DELETEd since ``since_rv`` (an eviction) comes back as a new pending
+    pod ``<name>.r`` (its Job controller), and a seeded ``churn`` of the
+    Running pods complete (phase Succeeded).  Bound pods are Running
+    already (the fake apiserver's kubelet).  Returns the counts."""
+    from kube_arbitrator_tpu_torch.options import options
+
+    ours = options().scheduler_name
+    deleted = events_since(api, since_rv, "pods", "DELETED")
+    for old in deleted:
+        md, spec = old["metadata"], old["spec"]
+        req = spec["containers"][0]["resources"]["requests"]
+        pod = pod_object(md["name"] + ".r", md["annotations"]["scheduling.k8s.io/group-name"],
+                         0, 0, 0, spec.get("priority", 0), spec["schedulerName"])
+        pod["spec"]["containers"][0]["resources"]["requests"] = dict(req)
+        api.create("pods", pod)
+    running = sorted((p for p in api.list("pods")[0]
+                      if p["status"].get("phase") == "Running"
+                      and p["spec"].get("schedulerName") == ours),
+                     key=lambda p: p["metadata"]["uid"])
+    done = []
+    if churn > 0 and running:
+        rng = np.random.default_rng([seed, cycle])
+        k = max(1, int(len(running) * churn))
+        done = [running[i] for i in sorted(rng.choice(len(running), k, replace=False))]
+    for pod in done:
+        pod["status"]["phase"] = "Succeeded"
+        api.update("pods", pod)
+    return dict(completed=len(done), recreated=len(deleted))
+
+
+def live_burst(api, num_queues: int, num_nodes: int, scheduler: str, priority: int = 1000) -> int:
+    """priority_burst in apiserver form: one PodGroup in each queue
+    (creationTimestamp 1e6 + q) with ``num_nodes // 36`` pending pods of
+    16 cores and 32 GiB at ``priority``.  Returns the pods created."""
+    per_queue = max(1, num_nodes // 36)
+    for q in range(num_queues):
+        name = f"urgent-{q:03d}"
+        api.create("podgroups", {
+            "metadata": {"name": name, "namespace": "default", "creationTimestamp": 1e6 + q},
+            "spec": {"minMember": 0, "queue": f"queue-{q:03d}"}, "status": {}})
+        for i in range(per_queue):
+            api.create("pods", pod_object(f"{name}-{i:05d}", name, 16_000, 32 * 1024**3, 0,
+                                          priority, scheduler))
+    return per_queue * num_queues
+
+
+def api_invariants(api, pods: list) -> dict:
+    """From the apiserver's own objects: on every node the pods placed
+    there and not terminated request at most its allocatable (cpu,
+    memory, GPUs; within epsilon) and number at most its pods."""
+    from kube_arbitrator_tpu_torch.api import resource as res
+    from kube_arbitrator_tpu_torch.cache.live import node_to_info, pod_resreq
+
+    nodes = {n["metadata"]["name"]: node_to_info(n) for n in api.list("nodes")[0]}
+    used = {name: res.zeros() for name in nodes}
+    count = dict.fromkeys(nodes, 0)
+    placed = 0
+    for p in pods:
+        node = p["spec"].get("nodeName")
+        if not node or p["status"].get("phase") in ("Succeeded", "Failed"):
+            continue
+        expect(node in nodes, f"pod {p['metadata']['name']} on unknown node {node}")
+        used[node] += pod_resreq(p)
+        count[node] += 1
+        placed += 1
+    for name, n in nodes.items():
+        expect(bool(np.all(used[name][:3] < n.allocatable[:3] + res.EPSILON[:3])),
+               f"node {name} over-committed in the apiserver: {used[name]} of {n.allocatable}")
+        expect(count[name] <= n.max_tasks, f"node {name} holds {count[name]} pods")
+    return dict(placed_pods=placed)
+
+
+LIVE_CYCLES = 3
+# Cycle 1 of phase 11's worlds (a) and (b), as the JAX package's
+# Scheduler over its LiveCache decides them on the same apiserver objects
+# (tests/test_torch_live_scheduler.py's slow test).  They equal phase 10's
+# SCHED_A_42 / SCHED_B_42: list order keeps generate_cluster's order of
+# nodes, jobs and tasks, so the live pack decides as the sim's does.
+LIVE_A_42 = dict(binds=99_989, evicts=0, evicts_by_phase=[0, 0, 0, 0], digest="dc30e64370254104")
+LIVE_B_42 = dict(binds=24_851, evicts=723, evicts_by_phase=[0, 0, 0, 723], digest="4f54be0880803e8d")
+# legs (c) and (d): the commit fence on a small world, the REST shim at
+# 1k nodes x 100 jobs x 20 tasks
+LIVE_C = dict(num_nodes=64, num_jobs=16, tasks_per_job=8, num_queues=4, seed=42)
+LIVE_D = dict(num_nodes=1_000, num_jobs=100, tasks_per_job=20, num_queues=8, seed=42)
+# a lease long enough for a full-width cycle's host work on a real clock
+LIVE_LEASE = dict(lease_duration_s=600.0, renew_deadline_s=480.0, retry_period_s=2.0)
+
+
+def live_world(dev, smi, name, world, actions, cycles, churn, want, need, lock_dir,
+               burst_after=None) -> tuple:
+    """Phase 11 (a) / (b): ``generate_cluster(**world)`` written to a
+    FakeApiServer as apiserver objects (cluster_objects) and scheduled by
+    the port's ``Scheduler(LiveCache(api), decider=TorchDecider(dev),
+    arena=True, elector=LeaderElector(<lock_dir>/<name>.lock))`` through
+    ``run(max_cycles=1)`` a cycle under ``actions``, live_kubelet_step
+    (and after cycle ``burst_after`` live_burst) written to the apiserver
+    between cycles.  Before each cycle the cache drains the watch
+    (``sync``, timed).  Every cycle passes check_cycle (the arena
+    verified at the commit point, so each delta epoch that live ingest
+    fed is held to a fresh build of the live model; ``want``: the JAX
+    package's cycle 1, None: not checked), and besides: the lease is
+    held; every bind shows in the apiserver (spec.nodeName, phase
+    Running) and no node is over-committed there (api_invariants); each
+    job whose PodGroup status changed got one status PUT, and the PUTs
+    are the cycle's job statuses; each evicted pod is gone from the
+    apiserver with a DELETED event, and the next drain drops it from the
+    model; each later cycle follows a drain that applied events.  On the
+    CPU (the tests' small worlds) the launch checks are left out: the
+    wrappers run their plain versions there.  Returns the kernels'
+    launches over the cycles (every count set to 0 just before each
+    cycle, the drain included) and the rows printed."""
+    from kube_arbitrator_tpu_torch.cache import FakeApiServer, LiveCache
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import LeaderElector, SchedulerConfig, TorchDecider
+    from kube_arbitrator_tpu_torch.ops import kernels
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS
+    from kube_arbitrator_tpu_torch.options import options
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    set_sticky_buckets(True)
+    ours = options().scheduler_name
+    t0 = time.perf_counter()
+    objects = cluster_objects(generate_cluster(**world), ours)
+    api = FakeApiServer()
+    load_objects(api, objects)
+    n_pods = sum(1 for r, _ in objects if r == "pods")
+    print(f"live world ({name}): generate_cluster({world}) as {len(objects)} apiserver objects "
+          f"({n_pods} pods) in {time.perf_counter() - t0:.2f} s; "
+          f"{smi[0] if smi else 'nvidia-smi: no output'}", flush=True)
+    live = LiveCache(api)
+    elector = LeaderElector(f"{lock_dir}/{name}.lock", identity=f"live-{name}", **LIVE_LEASE)
+    sched = recording_scheduler(live, config=SchedulerConfig(actions=tuple(actions),
+                                                            tiers=DEFAULT_TIERS),
+                               decider=TorchDecider(dev), arena=True, elector=elector)
+    verified: list = []
+    sched.phase_hook = verify_at_commit(sched, verified)
+    counts = dict.fromkeys(kernels.counts(), 0)
+    rows_out = []
+    evicted_before: list = []
+    prev = None
+    evicts = 0
+    for c in range(1, cycles + 1):
+        since = api_rv(api)
+        statuses = {pg["metadata"]["name"]: pg.get("status") for pg in api.list("podgroups")[0]}
+        if on_card:
+            torch.cuda.synchronize()
+        kernels.reset_counts()
+        s0 = time.perf_counter()
+        drained = live.sync()
+        sync_ms = (time.perf_counter() - s0) * 1e3
+        for uid in evicted_before:
+            expect(uid not in live._task_by_uid,
+                   f"world ({name}) cycle {c}: evicted pod {uid} still in the model after the drain")
+        n_hist = len(sched.history)
+        sched.run(max_cycles=1)
+        if on_card:
+            torch.cuda.synchronize()
+        launched = kernels.counts()
+        add_launches(counts, launched)
+        expect(len(sched.history) == n_hist + 1, f"world ({name}) cycle {c} failed")
+        expect(elector.is_leader, f"world ({name}) cycle {c}: the lease was lost")
+        result = sched.last
+        if c > 1:
+            expect(drained > 0, f"world ({name}) cycle {c}: the watch drain applied nothing")
+        prev, rec, row = check_cycle(sched, result, name, c, launched, prev, verified, want,
+                                     burst_after, on_card)
+        evicts += rec["evicts"]
+        # the apiserver's view
+        a0 = time.perf_counter()
+        pods = api.list("pods")[0]
+        by_uid = {p["metadata"]["uid"]: p for p in pods}
+        failed = set(result.failed_actuations)
+        expect(not failed, f"world ({name}) cycle {c}: {len(failed)} actuations failed")
+        for uid, node in zip(result.binds.uids, result.binds.node_names):
+            p = by_uid.get(uid)
+            expect(p is not None and p["spec"].get("nodeName") == node
+                   and p["status"].get("phase") == "Running",
+                   f"world ({name}) cycle {c}: bind {uid} -> {node} not in the apiserver")
+        deleted = {o["metadata"]["uid"] for o in events_since(api, since, "pods", "DELETED")}
+        for uid in result.evicts.uids:
+            expect(uid not in by_uid and uid in deleted,
+                   f"world ({name}) cycle {c}: evict {uid} was not a DELETE")
+        evicted_before = list(result.evicts.uids)
+        puts = events_since(api, since, "podgroups", "MODIFIED")
+        put_jobs = [f"{o['metadata']['namespace']}/{o['metadata']['name']}" for o in puts]
+        expect(len(put_jobs) == len(set(put_jobs)) and set(put_jobs) == set(result.job_status),
+               f"world ({name}) cycle {c}: {len(put_jobs)} status PUTs for "
+               f"{len(result.job_status)} job statuses")
+        for pg in api.list("podgroups")[0]:
+            job = f"default/{pg['metadata']['name']}"
+            if pg.get("status") != statuses.get(pg["metadata"]["name"]):
+                expect(job in set(put_jobs), f"world ({name}) cycle {c}: {job} changed unPUT")
+        checked = api_invariants(api, pods)
+        row.update(sync_ms=round(sync_ms, 3), events_drained=drained,
+                   bind_posts=len(result.binds), evict_deletes=len(result.evicts.uids),
+                   status_puts=len(puts), condition_patches=len(result.task_conditions),
+                   check_ms=round((time.perf_counter() - a0) * 1e3, 1), **checked)
+        if c < cycles:
+            k0 = time.perf_counter()
+            row["kubelet"] = live_kubelet_step(api, since, c, churn)
+            if c == burst_after:
+                row["kubelet"]["burst"] = live_burst(api, world["num_queues"], world["num_nodes"],
+                                                     ours)
+            row["kubelet"]["ms"] = round((time.perf_counter() - k0) * 1e3, 1)
+        rows_out.append(row)
+        print(f"live cycle {json.dumps(row)}; verified, every bind in the apiserver, evicts "
+              "DELETEd, status PUTs match, no over-commit, resident == host pack"
+              + ("; equal to the JAX package's" if c == 1 and want is not None else "")
+              + f"; {smi[0] if smi else ''}",
+              flush=True)
+    print(f"launches on the live path, world ({name}), {cycles} cycles: {counts}", flush=True)
+    if "preempt" in actions:
+        expect(evicts > 0, f"live world ({name}) evicted nothing")
+    expect_launched(counts, need if on_card else (), f"live path ({name})")
+    return counts, rows_out
+
+
+def fence_leg(dev, world: dict, lock_dir: str) -> dict:
+    """Phase 11 (c): the commit fence.  Two schedulers, A and B, over one
+    FakeApiServer holding ``world``, each with its own LiveCache,
+    TorchDecider(dev) and elector on one shared lock, on a fake clock.  A
+    leads; its ``phase_hook("commit")`` (after the decision, before
+    actuation) moves the clock past A's lease and lets B take it: on the
+    lock file (``LeaderElector``) B observes A's record and acquires once
+    the lease has run out on its own clock; on the apiserver's ConfigMap
+    lock (``ApiLeaderElector``) ``usurp_lease`` writes B's record.  A's
+    ``run`` must raise LeaderLost with no apiserver write after the
+    commit point and no pod bound; then B's ``run`` schedules and binds.
+    Returns each form's LeaderLost message and B's binds."""
+    from kube_arbitrator_tpu_torch.cache import FakeApiServer, LiveCache
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import (
+        ApiLeaderElector, LeaderElector, LeaderLost, TorchDecider)
+    from kube_arbitrator_tpu_torch.framework.leader import usurp_lease
+    from kube_arbitrator_tpu_torch.options import options
+
+    out = {}
+    for form in ("file", "api"):
+        set_sticky_buckets(True)
+        api = FakeApiServer()
+        load_objects(api, cluster_objects(generate_cluster(**world), options().scheduler_name))
+        clock = [1000.0]
+
+        def now():
+            return clock[0]
+
+        if form == "file":
+            # a lock of this call's own: a record left by an earlier call
+            # would keep A waiting on the fake clock, which never moves
+            lock = f"{tempfile.mkdtemp(dir=lock_dir)}/fence.lock"
+            ea = LeaderElector(lock, identity="sched-a", now_fn=now)
+            eb = LeaderElector(lock, identity="sched-b", now_fn=now)
+        else:
+            ea = ApiLeaderElector(api, identity="sched-a", now_fn=now)
+            eb = ApiLeaderElector(api, identity="sched-b", now_fn=now)
+        expect(ea.try_acquire(), f"fence ({form}): A could not take a free lease")
+        at_commit = []
+
+        def usurp(phase: str) -> None:
+            if phase != "commit":
+                return
+            clock[0] += 20.0  # the decision outlasted A's 15 s lease
+            if form == "file":
+                expect(not eb.try_acquire(), "B took a lease it had not seen expire")
+                clock[0] += 20.0
+                expect(eb.try_acquire(), "B could not take the expired lease")
+            else:
+                usurp_lease(api, "sched-b", now())
+            at_commit.append(api_rv(api))
+
+        sa = recording_scheduler(LiveCache(api), decider=TorchDecider(dev), arena=True,
+                                elector=ea, phase_hook=usurp)
+        lost = None
+        try:
+            sa.run(max_cycles=1)
+        except LeaderLost as err:
+            lost = str(err)
+        expect(lost is not None and "not actuated" in lost,
+               f"fence ({form}): A's cycle was not discarded: {lost}")
+        expect(api_rv(api) == at_commit[0], f"fence ({form}): the apiserver was written after "
+               f"the commit point (rv {at_commit[0]} -> {api_rv(api)})")
+        bound = [p for p in api.list("pods")[0] if p["spec"].get("nodeName")]
+        expect(not bound and not sa.history and not ea.is_leader,
+               f"fence ({form}): A actuated ({len(bound)} pods bound)")
+        sb = recording_scheduler(LiveCache(api), decider=TorchDecider(dev), arena=True, elector=eb)
+        sb.run(max_cycles=1)
+        expect(len(sb.history) == 1 and eb.is_leader, f"fence ({form}): B did not schedule")
+        binds = len(sb.last.binds)
+        bound = sum(1 for p in api.list("pods")[0] if p["spec"].get("nodeName"))
+        expect(binds > 0 and bound == binds, f"fence ({form}): B bound {binds}, the apiserver "
+               f"holds {bound} bound pods")
+        out[form] = dict(a_lost=lost, b_binds=binds)
+    return out
+
+
+def rest_leg(dev, world: dict, timeout_s: float = 60.0) -> dict:
+    """Phase 11 (d): ``world`` in two FakeApiServers, one served by
+    ``serve_api`` on 127.0.0.1 (a free port) and read through
+    ``LiveCache(HttpApiClient(url))``, the other in the process.  One
+    cycle of the port's Scheduler on each (TorchDecider(dev)) must give
+    the same binds and leave the same pods bound in both; the server must
+    shut down and its thread end."""
+    from kube_arbitrator_tpu_torch.cache import FakeApiServer, HttpApiClient, LiveCache, serve_api
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import Scheduler, TorchDecider
+    from kube_arbitrator_tpu_torch.options import options
+
+    objects = cluster_objects(generate_cluster(**world), options().scheduler_name)
+    served, local = FakeApiServer(), FakeApiServer()
+    load_objects(served, objects)
+    load_objects(local, objects)
+    server, thread, url = serve_api(served, "127.0.0.1", 0)
+    try:
+        set_sticky_buckets(True)
+        t0 = time.perf_counter()
+        remote = Scheduler(LiveCache(HttpApiClient(url, timeout_s=timeout_s)),
+                           decider=TorchDecider(dev), arena=True)
+        r_http = remote.run_once()
+        http_ms = (time.perf_counter() - t0) * 1e3
+        set_sticky_buckets(True)
+        t0 = time.perf_counter()
+        r_mem = Scheduler(LiveCache(local), decider=TorchDecider(dev), arena=True).run_once()
+        mem_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    expect(not thread.is_alive(), "REST: the server thread did not end")
+    pairs = r_http.binds.pairs()
+    expect(len(pairs) > 0 and pairs == r_mem.binds.pairs(),
+           f"REST: {len(pairs)} binds over HTTP, {len(r_mem.binds)} in the process, or they differ")
+
+    def placed(api):
+        return {p["metadata"]["uid"]: p["spec"].get("nodeName")
+                for p in api.list("pods")[0] if p["spec"].get("nodeName")}
+
+    expect(placed(served) == placed(local), "REST: the two apiservers hold different placements")
+    return dict(binds=len(pairs), http_cycle_ms=round(http_ms, 1),
+                in_process_cycle_ms=round(mem_ms, 1),
+                http_stats=dataclasses.asdict(remote.history[-1]))
 
 
 def main(kernels_only: bool = False) -> int:
@@ -4663,11 +5184,40 @@ def main(kernels_only: bool = False) -> int:
     # ---- phase 10: the scheduler loop at full width through the port's own
     # modules: generate_cluster -> Scheduler(arena=True) -> TorchDecider
     t0 = time.perf_counter()
-    sched_a = scheduler_world(dev, smi, "a", SCHED_A, ("allocate", "backfill"), SCHED_A_CYCLES,
-                              SCHED_CHURN, SCHED_A_42, SCHED_A_KERNELS)
-    sched_b = scheduler_world(dev, smi, "b", SCHED_B, EVICT_ACTIONS, SCHED_B_CYCLES, 0.0,
-                              SCHED_B_42, SCHED_B_KERNELS, SCHED_B_BURST_AFTER)
+    sched_a, sched_recs_a = scheduler_world(dev, smi, "a", SCHED_A, ("allocate", "backfill"),
+                                            SCHED_A_CYCLES, SCHED_CHURN, SCHED_A_42,
+                                            SCHED_A_KERNELS)
+    sched_b, sched_recs_b = scheduler_world(dev, smi, "b", SCHED_B, EVICT_ACTIONS, SCHED_B_CYCLES,
+                                            0.0, SCHED_B_42, SCHED_B_KERNELS, SCHED_B_BURST_AFTER)
     print(f"phase 10 (scheduler loop, full width) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 11: the live plane — the same Scheduler over a LiveCache
+    # fed by an apiserver, under a leader lease
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as lock_dir:
+        live_a, live_rows_a = live_world(dev, smi, "a", SCHED_A, ("allocate", "backfill"),
+                                         LIVE_CYCLES, SCHED_CHURN, LIVE_A_42, SCHED_A_KERNELS,
+                                         lock_dir)
+        live_b, live_rows_b = live_world(dev, smi, "b", SCHED_B, EVICT_ACTIONS, LIVE_CYCLES, 0.0,
+                                         LIVE_B_42, SCHED_B_KERNELS, lock_dir, SCHED_B_BURST_AFTER)
+        # the live cycles decide as phase 10's sim cycles do: the same
+        # world, and a kubelet step and burst written to the apiserver
+        # that mirror between_cycles
+        for name, live_rows, recs in (("a", live_rows_a, sched_recs_a),
+                                      ("b", live_rows_b, sched_recs_b)):
+            got = [{k: r[k] for k in recs[0]} for r in live_rows]
+            expect(got == recs[:len(got)], f"live world ({name}) decided {got}, phase 10's "
+                   f"scheduler {recs[:len(got)]}")
+        print("live cycles 1-3 of (a) and (b) equal phase 10's sim cycles", flush=True)
+        t1 = time.perf_counter()
+        fence = fence_leg(dev, LIVE_C, lock_dir)
+    print(f"live commit fence {LIVE_C}: {json.dumps(fence)}; A discarded with no apiserver write, "
+          f"B bound; {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    rest = rest_leg(dev, LIVE_D)
+    print(f"live REST {LIVE_D}: {json.dumps(rest)}; binds equal to the in-process run, server "
+          f"shut down; {time.perf_counter() - t1:.1f} s; {smi[0] if smi else ''}", flush=True)
+    print(f"phase 11 (live plane, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
@@ -4713,7 +5263,7 @@ def main(kernels_only: bool = False) -> int:
     }
     paths = dict(allocate=counts, evictive=evict_counts, pa_evict=pa_counts, binpack=order_counts,
                  q512_evict=opt_counts, serving_5_epochs=serve_counts, priority_mix=mix_counts,
-                 scheduler_a=sched_a, scheduler_b=sched_b)
+                 scheduler_a=sched_a, scheduler_b=sched_b, live_a=live_a, live_b=live_b)
     kline = []
     for k, r in rows.items():
         if k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):

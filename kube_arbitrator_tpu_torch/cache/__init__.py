@@ -1,6 +1,10 @@
-"""Cluster model, snapshot packs, the incremental arena and the
-simulation harness."""
+"""Cluster model, snapshot packs, the incremental arena, the simulation
+harness and the live-cluster plane (the fake apiserver, its REST shim and
+the list/watch cache)."""
 from .arena import ArenaDivergence, PackMeta, SnapshotArena
+from .fakeapi import ApiError, FakeApiServer, GoneError
+from .httpapi import HttpApiClient, serve_api
+from .live import LiveCache
 from .sim import (
     BindFailure,
     BindIntent,
@@ -18,14 +22,19 @@ from .snapshot import (
 from .synth import SynthIndex, build_synthetic_arrays, build_synthetic_snapshot
 
 __all__ = [
+    "ApiError",
     "ArenaDivergence",
     "BindFailure",
     "BindIntent",
     "EvictIntent",
     "FakeBinder",
     "FakeEvictor",
+    "FakeApiServer",
     "FakeVolumeBinder",
+    "GoneError",
     "HostPack",
+    "HttpApiClient",
+    "LiveCache",
     "PackMeta",
     "SimCluster",
     "Snapshot",
@@ -38,5 +47,6 @@ __all__ = [
     "build_synthetic_snapshot",
     "from_numpy",
     "generate_cluster",
+    "serve_api",
     "set_sticky_buckets",
 ]

@@ -4,6 +4,10 @@ decide synthetic worlds with the port.
     python -m kube_arbitrator_tpu_torch --sim-nodes 100 --sim-jobs 20 \
         --sim-tasks-per-job 50 --sim-queues 4 --sim-seed 0 \
         [--scheduler-conf conf.yaml] [--cycles 5] [--device cpu] [--json]
+    python -m kube_arbitrator_tpu_torch --watch-stream stream.jsonl \
+        [--enable-leader-election --lock-object-namespace DIR] \
+        [--enable-namespace-as-queue] [--schedule-period 1] \
+        [--metrics-file metrics.prom] [--cycles 2] [--device cpu] [--json]
 
     python -m kube_arbitrator_tpu_torch --tasks 100000 --nodes 10000 \\
         --queues 8 --tasks-per-job 100 --cycles 3 --seed 42 [--device cpu] [--json]
@@ -25,6 +29,20 @@ With ``--sim-nodes`` (the reference's simulation mode, its cli.py:276),
 nothing).  ``--scheduler-conf`` names a YAML conf (PyYAML is imported
 only then).  Each cycle prints its phase times, binds, evicts and upload
 mode; the last line sums the cycles, binds and evicts.
+
+With ``--watch-stream`` (the reference's cli.py:203, :414-426) the
+recorded apiserver stream (JSONL from ``FakeApiServer.dump_stream`` of
+either package) is loaded into a ``cache/fakeapi.FakeApiServer`` and the
+same Scheduler runs over a ``cache/live.LiveCache`` on it: list and
+watch, binds POSTed and evicts DELETEd into the replayed server,
+PodGroup statuses PUT.  ``--enable-leader-election`` gates the cycles on
+a ``framework/leader.LeaderElector`` lease at
+``{--lock-object-namespace}/{scheduler name}.lock`` (:34-41, :464-470);
+``--enable-namespace-as-queue`` makes namespaces the queues;
+``--metrics-file`` writes the metrics registry in the Prometheus text
+format after the run (:572-576).  These also apply to ``--sim-nodes``.
+``--schedule-period`` sets ``ServerOptions.schedule_period_s`` only: the
+loop runs its cycles back to back, as the reference's does.
 
 Otherwise each cycle decides a fresh world (seed, seed+1, ...) with the default
 tiers (``--node-order`` sets their nodeorder plugin's policy) and the
@@ -61,12 +79,16 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .cache.decode import decode_binds
+from .cache.fakeapi import FakeApiServer
+from .cache.live import LiveCache
 from .cache.sim import generate_cluster
 from .cache.synth import build_synthetic_arrays, epoch_stream
 from .cache.snapshot import from_numpy
 from .device import resolve_device
-from .framework import Scheduler, SchedulerConfig, TorchDecider
+from .framework import LeaderElector, Scheduler, SchedulerConfig, TorchDecider
 from .framework.conf import load_conf_file
+from .options import options, set_options
+from .utils.metrics import metrics
 from .ops.cycle import schedule_cycle
 from .ops.ordering import DEFAULT_ACTIONS, NODE_ORDER_POLICIES, with_node_order
 
@@ -154,23 +176,19 @@ def serve_world(
     return out
 
 
-def serve_sim(
-    nodes: int,
-    jobs: int,
-    tasks_per_job: int,
-    queues: int,
-    seed: int,
+def serve_backend(
+    backend,
     cycles: int = 0,
     config: Optional[SchedulerConfig] = None,
     device=None,
+    elector: Optional[LeaderElector] = None,
 ) -> Tuple[Scheduler, List[Dict]]:
-    """``generate_cluster`` -> the port's ``Scheduler(arena=True)`` on
-    ``device`` -> ``run(max_cycles=cycles)``.  Returns the scheduler and
-    one row per completed cycle: its CycleStats, upload mode and bytes
-    included."""
-    sim = generate_cluster(num_nodes=nodes, num_jobs=jobs, tasks_per_job=tasks_per_job,
-                           num_queues=queues, seed=seed)
-    sched = Scheduler(sim, config=config, decider=TorchDecider(device), arena=True)
+    """The port's ``Scheduler(backend, arena=True)`` on ``device`` (under
+    ``elector`` when given) -> ``run(max_cycles=cycles)``.  Returns the
+    scheduler and one row per completed cycle: its CycleStats, upload
+    mode and bytes included."""
+    sched = Scheduler(backend, config=config, decider=TorchDecider(device), arena=True,
+                      elector=elector)
     sched.run(max_cycles=cycles)
     rows = [dict(cycle=i + 1, **dataclasses.asdict(st)) for i, st in enumerate(sched.history)]
     return sched, rows
@@ -193,7 +211,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--sim-queues", type=int, default=None, help="with --sim-nodes (default 4)")
     ap.add_argument("--sim-seed", type=int, default=None, help="with --sim-nodes (default 0)")
     ap.add_argument("--scheduler-conf", default=None,
-                    help="with --sim-nodes: the YAML action / tier configuration file")
+                    help="with --sim-nodes or --watch-stream: the YAML action / tier "
+                         "configuration file")
+    ap.add_argument("--watch-stream", default=None,
+                    help="schedule against a recorded apiserver watch stream (JSONL from "
+                         "FakeApiServer.dump_stream) through the live-cluster plane")
+    ap.add_argument("--enable-leader-election", action="store_true",
+                    help="with --sim-nodes or --watch-stream: gate scheduling on holding "
+                         "the leader lease")
+    ap.add_argument("--lock-object-namespace", default="",
+                    help="directory of the leader-election lock file")
+    ap.add_argument("--schedule-period", type=float, default=1.0,
+                    help="sets ServerOptions.schedule_period_s; the loop runs its cycles "
+                         "back to back")
+    ap.add_argument("--enable-namespace-as-queue", action="store_true",
+                    help="treat namespaces as queues instead of Queue objects")
+    ap.add_argument("--metrics-file", default="",
+                    help="write Prometheus-text metrics here after the run")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--running-fraction", type=float, default=0.0,
                     help="fraction of jobs pre-placed RUNNING (the evictive actions' victims)")
@@ -214,21 +248,55 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the GPU)")
     ap.add_argument("--json", action="store_true", help="one JSON object per cycle")
     a = ap.parse_args(argv)
-    sim_flags = (a.sim_jobs, a.sim_tasks_per_job, a.sim_queues, a.sim_seed, a.scheduler_conf)
+    sim_flags = (a.sim_jobs, a.sim_tasks_per_job, a.sim_queues, a.sim_seed)
     if a.sim_nodes is None and any(f is not None for f in sim_flags):
-        ap.error("--sim-jobs, --sim-tasks-per-job, --sim-queues, --sim-seed and "
-                 "--scheduler-conf need --sim-nodes")
+        ap.error("--sim-jobs, --sim-tasks-per-job, --sim-queues and --sim-seed need --sim-nodes")
+    if a.sim_nodes is not None and a.watch_stream is not None:
+        ap.error("--sim-nodes and --watch-stream exclude each other")
+    loop = a.sim_nodes is not None or a.watch_stream is not None
+    if not loop and (a.scheduler_conf or a.enable_leader_election
+                     or a.enable_namespace_as_queue or a.metrics_file):
+        ap.error("--scheduler-conf, --enable-leader-election, --enable-namespace-as-queue "
+                 "and --metrics-file need --sim-nodes or --watch-stream")
     actions = tuple(x.strip() for x in a.actions.split(",") if x.strip())
+    if loop:
+        # CheckOptionOrDie before anything touches the device
+        # (server.go:58-66)
+        opts = dataclasses.replace(
+            options(), schedule_period_s=a.schedule_period,
+            namespace_as_queue=a.enable_namespace_as_queue,
+            scheduler_conf=a.scheduler_conf or "",
+            enable_leader_election=a.enable_leader_election,
+            lock_object_namespace=a.lock_object_namespace,
+        )
+        try:
+            opts.check()
+        except ValueError as e:
+            ap.error(str(e))
+        set_options(opts)
     dev = resolve_device(a.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    if a.sim_nodes is not None:
+    if loop:
         config = load_conf_file(a.scheduler_conf) if a.scheduler_conf else None
-        sched, rows = serve_sim(
-            a.sim_nodes, 20 if a.sim_jobs is None else a.sim_jobs,
-            50 if a.sim_tasks_per_job is None else a.sim_tasks_per_job,
-            4 if a.sim_queues is None else a.sim_queues, a.sim_seed or 0,
-            cycles=a.cycles or 0, config=config, device=dev,
-        )
+        elector = None
+        if opts.enable_leader_election:
+            elector = LeaderElector(
+                lock_path=f"{opts.lock_object_namespace}/{opts.scheduler_name}.lock",
+                identity=opts.scheduler_name,
+            )
+        if a.watch_stream is not None:
+            try:
+                api = FakeApiServer.from_stream(FakeApiServer.load_stream(a.watch_stream))
+            except (OSError, ValueError, KeyError) as e:
+                print(f"error: invalid watch stream {a.watch_stream}: {e}", file=sys.stderr)
+                return 1
+            backend = LiveCache(api)
+        else:
+            backend = generate_cluster(
+                num_nodes=a.sim_nodes, num_jobs=20 if a.sim_jobs is None else a.sim_jobs,
+                tasks_per_job=50 if a.sim_tasks_per_job is None else a.sim_tasks_per_job,
+                num_queues=4 if a.sim_queues is None else a.sim_queues, seed=a.sim_seed or 0)
+        sched, rows = serve_backend(backend, a.cycles or 0, config, dev, elector)
         for row in rows:
             if a.json:
                 print(json.dumps(dict(row, device=name)), flush=True)
@@ -242,6 +310,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                       f"{row['cycle_ms']:.1f} ms", flush=True)
         print(json.dumps(dict(cycles=len(rows), binds=sum(r["binds"] for r in rows),
                               evicts=sum(r["evicts"] for r in rows))), flush=True)
+        if a.metrics_file:
+            with open(a.metrics_file, "w") as f:
+                f.write(metrics().render())
         return 0
     if a.cycles is None:
         a.cycles = 3

@@ -234,7 +234,7 @@ def test_session_default_decider_is_the_card(monkeypatch):
         port_framework.Session(sim.cluster).run()
     r = port_framework.Session(sim.cluster, decider=TorchDecider("cpu")).run()
     assert len(r.binds) == 0 and len(r.evicts) == 0  # the default conf evicts nothing here
-    for name in ("elector", "flight", "audit", "timeseries", "capture", "trace_recorder",
+    for name in ("flight", "audit", "timeseries", "capture", "trace_recorder",
                  "profile_dir", "cycle_slo_ms"):
         with pytest.raises(TypeError):
             port_framework.Scheduler(sim, decider=TorchDecider("cpu"), **{name: None})
