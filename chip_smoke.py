@@ -223,11 +223,30 @@ rows):
    ``LiveCache(HttpApiClient(url))`` binds as the in-process run does,
    and the server shuts down.  Prints each cycle's CycleStats phases,
    sync ms, events drained, bind POSTs, evict DELETEs, status PUTs.
+12. the decision pool (``rpc/pool.DecisionPool``) and its batched launch
+   (B15, ``ops/cycle.batched_schedule_cycle``: the tenants' cycles in
+   lockstep on one stream, one host read a step for all of them).  (a)
+   four north-star tenant packs (100k x 10k, 8 queues, allocate +
+   backfill; seeds sharing a shape key) in one ``decide_many`` on one
+   replica: one batch of 4, each tenant's decisions equal to its own
+   unbatched ``TorchDecider`` decide on the card in every CycleDecisions
+   field; the batch's host reads against the four cycles' sum and their
+   longest, the batch's ms against the four cycles' sum.  (b) the same
+   for two tenants of the evictive world (50k x 5k, EVICT_ACTIONS,
+   seeds 42 and 43), then a north-star and an evictive pack submitted
+   together split into two launches.  (c) the pool behind the port's
+   ``Scheduler`` at a small depth (POOL_TENANT worlds): 2 replicas,
+   threaded, ``min_fill=4``, four tenants, 3 cycles, bound maps equal to
+   independent ``Scheduler(arena=True)`` runs and a launch of 2 or more;
+   a replica killed between cycles (inline) costs no decision and
+   re-seeds its tenants in full; a partitioned tenant re-seeds in full
+   when the partition heals; a tenant burning its budget is shed with
+   ``PoolShed`` on a fake clock, then recovers.
 
 Each path's launch counts are taken over its first world (seed 42; the
 priority-mix path's over seed 45; the scheduler loop's and the live
 plane's over every cycle of each world, the counts set to 0 before each
-cycle), with every count
+cycle; the pool's over each batch of phase 12 (a) and (b)), with every count
 set to 0 just before it; K1's, K9's and K19's are also taken by variant (phases 3-5 require
 K19's counting segment order on the allocate path and its tiled sort on
 the evictive paths).  The kernels line counts K19's launches over the
@@ -377,6 +396,20 @@ SCHED_K18 = {("a", 2): ((), ("task_status",)), ("a", 3): (("task_status",), ()),
 # tests/test_torch_scheduler.py's slow test (its digest is decision_digest's)
 SCHED_A_42 = dict(binds=99_989, evicts=0, evicts_by_phase=[0, 0, 0, 0], digest="dc30e64370254104")
 SCHED_B_42 = dict(binds=24_851, evicts=723, evicts_by_phase=[0, 0, 0, 723], digest="4f54be0880803e8d")
+# phase 12: the decision pool.  (a) four north-star tenants: the first
+# four seeds from POOL_SEEDS whose packs share a shape key; (b) the
+# evictive world's seeds 42 and 43; (c) small worlds behind the port's
+# Scheduler (generate_cluster, seeds 100-103), 3 cycles
+POOL_SEEDS = tuple(range(42, 50))
+POOL_NORTH_STAR = dict(FULL, running_fraction=0.0, fit_fraction=1.2)
+POOL_EVICT_SEEDS = (42, 43)
+POOL_TENANT = dict(num_nodes=500, num_jobs=50, tasks_per_job=20, num_queues=4)
+POOL_CYCLES = 3
+POOL_A_KERNELS = ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum", "stable_compact",
+                  "queue_order", "stable_sort")
+POOL_B_KERNELS = POOL_A_KERNELS + ("seg_scan", "claim_nodes", "canon_pick", "canon_commit")
+# the host-read seam's module: every host read of a cycle is made there
+SEAM_FILE = "kube_arbitrator_tpu_torch/ops/steps.py"
 # phase 2's world of the reference's sequential-vs-batched soak shape at
 # q = 64 (few tasks per job, more jobs than queues, oversubscribed)
 SOAK_Q64 = dict(tasks=4_000, nodes=400, queues=64, tasks_per_job=20, seed=1,
@@ -4574,6 +4607,284 @@ def rest_leg(dev, world: dict, timeout_s: float = 60.0) -> dict:
                 http_stats=dataclasses.asdict(remote.history[-1]))
 
 
+# ---------------------------------------------------------------- phase 12
+# The decision pool (rpc/pool.py) and its batched launch, B15
+# (ops/cycle.batched_schedule_cycle).
+
+
+def pool_arrays(w: dict, seed: int) -> dict:
+    """The host pack (numpy arrays by field) of synthetic world ``w``."""
+    from kube_arbitrator_tpu_torch.cache.synth import build_synthetic_arrays
+
+    arrays, _ = build_synthetic_arrays(w["tasks"], w["nodes"], w["queues"], w["tasks_per_job"],
+                                       seed, running_fraction=w["running_fraction"],
+                                       fit_fraction=w["fit_fraction"])
+    return arrays
+
+
+def pool_tenants(conf, n: int = 4) -> list:
+    """The first ``n`` north-star packs of POOL_SEEDS that share a shape
+    key, as (seed, arrays)."""
+    from kube_arbitrator_tpu_torch.rpc.pool import conf_fingerprint, pack_shape_key
+
+    fp, groups = conf_fingerprint(conf), {}
+    for seed in POOL_SEEDS:
+        arrays = pool_arrays(POOL_NORTH_STAR, seed)
+        group = groups.setdefault(pack_shape_key(arrays, fp, conf.actions), [])
+        group.append((seed, arrays))
+        if len(group) == n:
+            return group
+    raise SmokeFailure(f"no {n} north-star seeds of {POOL_SEEDS} share a shape key: "
+                       f"{[[s for s, _ in g] for g in groups.values()]}")
+
+
+def pool_batch(dev, smi, name: str, tenants: list, conf, need) -> tuple:
+    """Phase 12 (a) / (b) on one group of tenant packs, in two rounds:
+    each tenant's unbatched ``TorchDecider`` decide on the card (its host
+    reads through the seam and its cycle ms), then all of them in one
+    ``decide_many`` on a one-replica pool: one batch, each tenant's
+    decisions equal to its unbatched decide's in every CycleDecisions
+    field, as many host reads as its longest tenant.  Round 1's batched
+    cycles (``rpc.pool._run_batched``) run under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising CUDA
+    call in them must be one of the seam's reads.  Round 2 is the timed
+    one.  Returns (round 2's batch launches, every count
+    set to 0 just before it; the unbatched decisions by seed; the row)."""
+    import warnings
+
+    from kube_arbitrator_tpu_torch.framework import TorchDecider
+    from kube_arbitrator_tpu_torch.ops import kernels, steps
+    from kube_arbitrator_tpu_torch.rpc import DecisionPool, np_equal_decisions
+    from kube_arbitrator_tpu_torch.rpc import pool as pool_mod
+
+    run_batched, caught = pool_mod._run_batched, []
+
+    def audited(*a, **kw):  # the batched cycles alone, every sync recorded
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return run_batched(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                caught.extend(got)
+
+    rounds = []
+    for rnd in (1, 2):
+        alone = []
+        for seed, arrays in tenants:
+            decider = TorchDecider(dev)
+            torch.cuda.synchronize()
+            r0 = steps.host_reads[0]
+            dec, decide_ms = decider.decide(arrays, conf)
+            alone.append(dict(seed=seed, dec=dec, reads=steps.host_reads[0] - r0,
+                              cycle_ms=decider.last_cycle_ms, decide_ms=decide_ms))
+        pool = DecisionPool(replicas=1, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        r0 = steps.host_reads[0]
+        t0 = time.perf_counter()
+        pool_mod._run_batched = audited if rnd == 1 else run_batched
+        try:
+            reqs = pool.decide_many([(f"{name}-{seed}", arrays, conf, None)
+                                     for seed, arrays in tenants])
+        finally:
+            pool_mod._run_batched = run_batched
+        torch.cuda.synchronize()
+        many_ms = (time.perf_counter() - t0) * 1e3
+        launched = kernels.counts()
+        reads = steps.host_reads[0] - r0
+        for r in reqs:
+            if r.error is not None:
+                raise r.error
+        expect({r.batch for r in reqs} == {len(tenants)} and len({r.batch_id for r in reqs}) == 1,
+               f"pool ({name}): {len(tenants)} packs of one shape key launched as "
+               f"{[(r.batch, r.batch_id) for r in reqs]}")
+        for r, a in zip(reqs, alone):
+            expect(np_equal_decisions(r.decisions, a["dec"]),
+                   f"pool ({name}) tenant {r.tenant}: batched decisions differ from its unbatched "
+                   "decide")
+        longest = max(a["reads"] for a in alone)
+        expect(reads == longest, f"pool ({name}): {reads} host reads for the batch, its longest "
+               f"tenant read {longest}")
+        expect_launched(launched, need, f"pool path ({name})")
+        row = dict(world=name, round=rnd, seeds=[a["seed"] for a in alone], batch=len(reqs),
+                   host_reads=reads, host_reads_alone=[a["reads"] for a in alone],
+                   host_reads_sum=sum(a["reads"] for a in alone),
+                   batch_ms=round(reqs[0].kernel_ms, 1),
+                   cycle_ms_alone=[round(a["cycle_ms"], 1) for a in alone],
+                   cycle_ms_sum=round(sum(a["cycle_ms"] for a in alone), 1),
+                   decide_many_ms=round(many_ms, 1),
+                   decide_ms_sum=round(sum(a["decide_ms"] for a in alone), 1),
+                   binds=[int(a["dec"].bind_count) for a in alone],
+                   evicts=[int(a["dec"].evict_count) for a in alone])
+        if rnd == 1:
+            syncs = [f"{w.filename}:{w.lineno}" for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            row["syncs"] = len(syncs)
+            expect(len(syncs) == reads and all(f.split(":")[0].endswith(SEAM_FILE) for f in syncs),
+                   f"pool ({name}): {len(syncs)} synchronising calls in the batched cycles, "
+                   f"{reads} seam reads: {sorted(set(syncs))}")
+            rows_1 = row
+        rounds.append(row)
+        print(f"pool ({name}) {json.dumps(row)}; every tenant's decisions equal its unbatched "
+              f"decide's; {smi[0] if smi else ''}", flush=True)
+    print(f"launches on the pool path ({name}), one batch: {launched}", flush=True)
+    return launched, {a["seed"]: a["dec"] for a in alone}, dict(round1=rows_1, round2=rounds[-1])
+
+
+def pool_split(dev, ns, ev, ns_conf, ev_conf, want: dict) -> None:
+    """A north-star and an evictive pack submitted together: two shape
+    keys, two launches, each tenant's decisions its unbatched decide's."""
+    from kube_arbitrator_tpu_torch.rpc import DecisionPool, np_equal_decisions
+
+    pool = DecisionPool(replicas=1, device=dev)
+    reqs = pool.decide_many([("ns", ns[1], ns_conf, None), ("ev", ev[1], ev_conf, None)])
+    for r in reqs:
+        if r.error is not None:
+            raise r.error
+    expect([r.batch for r in reqs] == [1, 1] and reqs[0].batch_id != reqs[1].batch_id,
+           f"pool split: {[(r.tenant, r.batch, r.batch_id) for r in reqs]}")
+    for r, key in zip(reqs, ("ns", "ev")):
+        expect(np_equal_decisions(r.decisions, want[key]),
+               f"pool split: tenant {r.tenant} decided otherwise than alone")
+    print(f"pool split: a north-star (seed {ns[0]}) and an evictive (seed {ev[0]}) pack -> "
+          f"{[(r.tenant, r.batch, r.batch_id) for r in reqs]}, decisions equal", flush=True)
+
+
+def pool_scheduler_legs(dev, smi) -> dict:
+    """Phase 12 (c): the pool behind the port's Scheduler at POOL_TENANT
+    (generate_cluster, seeds 100-103).  Returns each leg's row."""
+    import threading
+
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import Scheduler, SchedulerConfig, TorchDecider
+    from kube_arbitrator_tpu_torch.rpc import DecisionPool, PoolClient, PoolShed, TenantAdmission
+    from kube_arbitrator_tpu_torch.utils.metrics import MetricsRegistry
+
+    set_sticky_buckets(True)
+
+    def world(i, running=0.0):
+        return generate_cluster(seed=100 + i, running_fraction=running, **POOL_TENANT)
+
+    def bound(sim):
+        return {t.uid: t.node_name for j in sim.cluster.jobs.values() for t in j.tasks.values()}
+
+    def independent(n, cycles, running=0.0):
+        refs = [world(i, running) for i in range(n)]
+        for r in refs:
+            Scheduler(r, decider=TorchDecider(dev), arena=True).run(max_cycles=cycles,
+                                                                    until_idle=False)
+        return [bound(r) for r in refs]
+
+    rows = {}
+    # threaded: 2 replicas, 4 tenants on threads, min_fill forcing stacks
+    t0 = time.perf_counter()
+    pool = DecisionPool(replicas=2, threaded=True, min_fill=4, batch_delay_s=0.25, max_batch=8,
+                        device=dev)
+    sims = [world(i) for i in range(4)]
+    scheds = [Scheduler(s, decider=PoolClient(pool, f"t{i}"), arena=True)
+              for i, s in enumerate(sims)]
+    errors = []
+
+    def run(sched):
+        try:
+            sched.run(max_cycles=POOL_CYCLES, until_idle=False)
+        except BaseException as err:  # reported below: a thread must not swallow it
+            errors.append(repr(err))
+
+    threads = [threading.Thread(target=run, args=(s,)) for s in scheds]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    pool.close()
+    expect(not errors, f"pool (c) threaded: tenant loops raised {errors}")
+    expect(all(len(s.history) == POOL_CYCLES for s in scheds),
+           f"pool (c) threaded: cycles {[len(s.history) for s in scheds]}")
+    expect([bound(s) for s in sims] == independent(4, POOL_CYCLES),
+           "pool (c) threaded: a pooled tenant's binds differ from its independent run's")
+    sizes = [e["batch"] for e in pool.decision_log if e["outcome"] in ("served", "resent")]
+    expect(max(sizes) >= 2, f"pool (c) threaded: no launch stacked 2 or more: {sizes}")
+    binds = sum(st.binds for s in scheds for st in s.history)
+    expect(binds > 0, "pool (c) threaded: nothing bound")
+    rows["threaded"] = dict(tenants=4, cycles=POOL_CYCLES, batch_sizes=sizes, binds=binds,
+                            modes=[st.upload_mode for st in scheds[0].history],
+                            ms=round((time.perf_counter() - t0) * 1e3, 1))
+    # a replica killed between cycles (inline): no decision lost, r0
+    # re-seeded in full once a tenant
+    t0 = time.perf_counter()
+    reg = MetricsRegistry()
+    pool = DecisionPool(replicas=2, registry=reg, device=dev)
+    sims = [world(i, 0.2) for i in range(2)]
+    scheds = [Scheduler(s, decider=PoolClient(pool, f"k{i}"), arena=True)
+              for i, s in enumerate(sims)]
+    for cycle in range(4):
+        if cycle == 2:
+            pool.kill_replica(0)
+        for s in scheds:
+            s.run(max_cycles=1, until_idle=False)
+    expect([bound(s) for s in sims] == independent(2, 4, 0.2),
+           "pool (c) kill: a tenant's binds differ from its independent run's")
+    log = [e for e in pool.decision_log if e["outcome"] in ("served", "resent")]
+    expect(len(log) == 8 and all(e["epoch"] == e["resident"] for e in log),
+           f"pool (c) kill: {len(log)} served cycles of 8, or one decided another epoch: {log}")
+    reseeds = {r.id: reg.counter_value("pool_pack_reseeds_total", labels={"replica": r.id})
+               for r in pool.replicas}
+    expect(reseeds == {"r0": 2.0, "r1": 0.0},
+           f"pool (c) kill: re-seeds by replica {reseeds}, not r0 once a tenant")
+    rows["kill"] = dict(outcomes=[(e["tenant"], e["replica"], e["outcome"]) for e in log],
+                        reseeds=reseeds, ms=round((time.perf_counter() - t0) * 1e3, 1))
+    # a partition healed: the stale replica re-seeds in full
+    t0 = time.perf_counter()
+    pool = DecisionPool(replicas=2, device=dev)
+    sched = Scheduler(world(0), decider=PoolClient(pool, "tp"), arena=True)
+    sched.run(max_cycles=1, until_idle=False)
+    pool.begin_cycle(1)
+    pool.partition(1, "tp", cycles=1)
+    sched.run(max_cycles=1, until_idle=False)
+    expect(pool.log_for("tp")[-1]["replica"] == "r0", "pool (c) partition: served by r1")
+    pool.begin_cycle(3)
+    expect(not pool.is_partitioned(1, "tp"), "pool (c) partition: not healed")
+    pool.partition(0, "tp", cycles=1)
+    sched.run(max_cycles=1, until_idle=False)
+    last = pool.log_for("tp")[-1]
+    expect(last["replica"] == "r1" and last["outcome"] == "resent"
+           and last["epoch"] == last["resident"] and sched.decider.last_mode == "full",
+           f"pool (c) partition: the healed replica served {last} ({sched.decider.last_mode})")
+    rows["partition"] = dict(last=last, ms=round((time.perf_counter() - t0) * 1e3, 1))
+    # shedding on a fake clock, then recovery
+    t0 = time.perf_counter()
+    clock = [0.0]
+    adm = TenantAdmission(slo_ms=100.0, budget=0.5, windows=((20.0, 5.0, 1.0),), min_samples=4,
+                          now_fn=lambda: clock[0])
+    pool = DecisionPool(replicas=1, admission=adm, now_fn=lambda: clock[0], device=dev)
+    from kube_arbitrator_tpu_torch.cache.snapshot import build_snapshot
+
+    st = build_snapshot(world(0).cluster).tensors
+    conf = SchedulerConfig.default()
+    for _ in range(6):
+        clock[0] += 1.0
+        adm.observe("hot", 500.0)
+    try:
+        pool.decide("hot", st, conf)
+        shed = None
+    except PoolShed as err:
+        shed = err
+    expect(shed is not None and pool.log_for("hot")[-1]["outcome"] == "shed",
+           "pool (c) shed: a tenant burning its budget was served")
+    dec, _ = pool.decide("cold", st, conf)
+    clock[0] += 60.0
+    again, _ = pool.decide("hot", st, conf)
+    expect(pool.log_for("hot")[-1]["outcome"] == "served" and int(again.bind_count) > 0,
+           "pool (c) shed: the tenant did not recover once its burn aged out")
+    rows["shed"] = dict(shed=str(shed), recovered=pool.log_for("hot")[-1]["outcome"],
+                        ms=round((time.perf_counter() - t0) * 1e3, 1))
+    print(f"pool (c) {POOL_TENANT}: {json.dumps(rows)}; {smi[0] if smi else ''}", flush=True)
+    return rows
+
+
 def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5219,6 +5530,32 @@ def main(kernels_only: bool = False) -> int:
           f"shut down; {time.perf_counter() - t1:.1f} s; {smi[0] if smi else ''}", flush=True)
     print(f"phase 11 (live plane, full width) {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 12: the decision pool and its batched launch (B15)
+    t0 = time.perf_counter()
+    from kube_arbitrator_tpu_torch.framework import SchedulerConfig
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_ACTIONS, DEFAULT_TIERS
+
+    ns_conf = SchedulerConfig(actions=DEFAULT_ACTIONS, tiers=DEFAULT_TIERS)
+    ev_conf = SchedulerConfig(actions=EVICT_ACTIONS, tiers=DEFAULT_TIERS)
+    ns_tenants = pool_tenants(ns_conf)
+    pool_a, ns_alone, pool_row_a = pool_batch(dev, smi, "north-star", ns_tenants, ns_conf,
+                                              POOL_A_KERNELS)
+    ev_tenants = [(seed, pool_arrays(EVICT_FULL, seed)) for seed in POOL_EVICT_SEEDS]
+    pool_b, ev_alone, pool_row_b = pool_batch(dev, smi, "evictive", ev_tenants, ev_conf,
+                                              POOL_B_KERNELS)
+    dec = ev_alone[42]
+    phases = np.bincount(dec.evict_phase[dec.evict_mask], minlength=4).tolist()
+    got = dict(binds=int(dec.bind_mask.sum()), evicts_by_phase=phases,
+               digest=decision_digest(dec.bind_mask, dec.evict_mask))
+    expect(got == EVICT_WORLD_42, f"pool (evictive) seed 42 differs from the JAX package: {got}")
+    pool_split(dev, ns_tenants[0], ev_tenants[0], ns_conf, ev_conf,
+               dict(ns=ns_alone[ns_tenants[0][0]], ev=ev_alone[ev_tenants[0][0]]))
+    del ns_tenants, ev_tenants, ns_alone, ev_alone
+    t1 = time.perf_counter()
+    pool_scheduler_legs(dev, smi)
+    print(f"pool (c) {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"phase 12 (decision pool, B15) {time.perf_counter() - t0:.1f} s", flush=True)
+
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
                         "kube_arbitrator_tpu/ops/allocate.py:793"),
@@ -5263,7 +5600,8 @@ def main(kernels_only: bool = False) -> int:
     }
     paths = dict(allocate=counts, evictive=evict_counts, pa_evict=pa_counts, binpack=order_counts,
                  q512_evict=opt_counts, serving_5_epochs=serve_counts, priority_mix=mix_counts,
-                 scheduler_a=sched_a, scheduler_b=sched_b, live_a=live_a, live_b=live_b)
+                 scheduler_a=sched_a, scheduler_b=sched_b, live_a=live_a, live_b=live_b,
+                 pool_north_star=pool_a, pool_evictive=pool_b)
     kline = []
     for k, r in rows.items():
         if k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):

@@ -7,14 +7,15 @@ pack and its :class:`~..cache.arena.PackMeta` (epoch key, base key,
 changed fields), as it does a remote decider.  The decider keeps the pack resident on its
 device across epochs: when the epoch's base is the resident's key it
 diffs only the changed fields against a host shadow of the last pack and
-writes the changed rows in place (K18); otherwise it uploads every field.
+writes the changed rows in place (K18); otherwise it uploads every field
+(:class:`ResidentPack`, which the decision pool's replicas hold too).
 It then runs the port's ``schedule_cycle`` and returns host numpy
 decisions with the reference's field names.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,41 +43,27 @@ def host_fields(st) -> Dict[str, np.ndarray]:
     return {name: np.asarray(a) for name, a in raw.items()}
 
 
-class TorchDecider:
-    """Decide a scheduler's cycles on ``device`` (the card unless the
-    caller passes ``"cpu"``; without CUDA and without ``"cpu"`` the
-    constructor raises).  ``decide`` returns (CycleDecisions of host
-    numpy arrays, ms), ms the synchronised wall time of the whole call;
-    ``last_mode``, ``last_upload_bytes``, ``last_upload_ms`` and
-    ``last_cycle_ms`` describe the last call.  One decide at a time."""
+class ResidentPack:
+    """One pack resident on a device across epochs: its
+    :class:`DeviceResident` and the host shadow of the last pack as
+    uploaded (the diff base).  ``upload`` diffs an epoch whose base is the
+    resident's key field by field against the shadow (only the fields its
+    PackMeta names) and writes the changed rows in place (K18); any other
+    epoch is uploaded whole.  ``pack`` is the resident SnapshotTensors
+    after the last upload.  A :class:`TorchDecider` holds one; a pool
+    replica (rpc/pool.PoolReplica) holds one a tenant."""
 
-    # the session hands over the host pack and its PackMeta
-    wants_device_pack = False
-    # PackMeta.decode_caps are honoured
-    supports_decode_caps = True
-
-    def __init__(self, device: DeviceLike = None):
-        self.device = resolve_device(device)
+    def __init__(self):
         self.resident = DeviceResident()
-        # the last pack's array fields as uploaded (the diff base)
+        self.pack: Optional[SnapshotTensors] = None
         self._shadow: Dict[str, np.ndarray] = {}
         self._unkeyed = 0
-        # per-stage times and rounds: empty, as the reference's are with
-        # observability off
-        self.last_action_ms: Dict[str, float] = {}
-        self.last_action_rounds: Dict[str, int] = {}
-        self.last_upload_ms = 0.0
-        self.last_cycle_ms = 0.0
 
     @property
-    def last_mode(self) -> str:
-        return self.resident.last_mode
+    def key(self) -> Optional[str]:
+        return self.resident.key
 
-    @property
-    def last_upload_bytes(self) -> int:
-        return self.resident.last_upload_bytes
-
-    def upload(self, st, pack_meta=None) -> SnapshotTensors:
+    def upload(self, st, pack_meta, device: torch.device) -> SnapshotTensors:
         """The resident pack after this epoch.  ``st`` holds the pack's
         fields by name (the reference's SnapshotTensors, or a mapping of
         numpy arrays); ``pack_meta`` its epoch (None: a pack of its own,
@@ -97,13 +84,54 @@ class TorchDecider:
                         changed[name] = rows
         else:
             base = None
-        t0 = time.perf_counter()
-        out = self.resident.update(host, statics, key, base, changed, self.device)
-        self.last_upload_ms = (time.perf_counter() - t0) * 1e3
+        self.pack = self.resident.update(host, statics, key, base, changed, device)
         if self.resident.last_mode == "full":
             self._shadow = {name: np.array(a) for name, a in host.items()}
         elif self.resident.last_mode == "delta":
             self._shadow.update({name: np.array(host[name]) for name in changed})
+        return self.pack
+
+
+class TorchDecider:
+    """Decide a scheduler's cycles on ``device`` (the card unless the
+    caller passes ``"cpu"``; without CUDA and without ``"cpu"`` the
+    constructor raises).  ``decide`` returns (CycleDecisions of host
+    numpy arrays, ms), ms the synchronised wall time of the whole call;
+    ``last_mode``, ``last_upload_bytes``, ``last_upload_ms`` and
+    ``last_cycle_ms`` describe the last call.  One decide at a time."""
+
+    # the session hands over the host pack and its PackMeta
+    wants_device_pack = False
+    # PackMeta.decode_caps are honoured
+    supports_decode_caps = True
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.pack = ResidentPack()
+        # per-stage times and rounds: empty, as the reference's are with
+        # observability off
+        self.last_action_ms: Dict[str, float] = {}
+        self.last_action_rounds: Dict[str, int] = {}
+        self.last_upload_ms = 0.0
+        self.last_cycle_ms = 0.0
+
+    @property
+    def resident(self) -> DeviceResident:
+        return self.pack.resident
+
+    @property
+    def last_mode(self) -> str:
+        return self.resident.last_mode
+
+    @property
+    def last_upload_bytes(self) -> int:
+        return self.resident.last_upload_bytes
+
+    def upload(self, st, pack_meta=None) -> SnapshotTensors:
+        """The resident pack after this epoch (:meth:`ResidentPack.upload`)."""
+        t0 = time.perf_counter()
+        out = self.pack.upload(st, pack_meta, self.device)
+        self.last_upload_ms = (time.perf_counter() - t0) * 1e3
         return out
 
     def decide(self, st, config, pack_meta=None) -> Tuple[CycleDecisions, float]:

@@ -13,7 +13,8 @@ in queue order.  Two paths, chosen as the reference chooses them
   task placements once per action (gated on the device).  With pruning,
   K16 evaluates the feasibility cells and compacts each class's nodes
   into the panel once per action.  Host reads: ``trip`` and ``progress`` once per
-  round each, and the panel's widest class once per action.
+  round each, and the panel's widest class once per action, each through
+  the seam (ops/steps.py).
 * immediate (binpack / spread node order, pod affinity, larger packs,
   or ``turn_batch=False``, the reference's parity path): one turn per
   active queue, each deciding its tasks at once — selection (one K2
@@ -43,9 +44,10 @@ from .kernels.lex_argmin import TurnPickPlan
 from .kernels.queue_order import QueueOrderPlan, queue_order
 from .kernels.stable_compact import FeasCells, stable_compact
 from .kernels.turn_caps import TurnCapsPlan
-from .kernels.turn_fill import TurnFillPlan
+from .kernels.turn_fill import TurnFillPlan, build_group_index
 from .ordering import Tiers, node_order_policy
 from .podaffinity import PaFitPlan, PaShapePlan
+from .steps import read, stepped
 
 # Eviction-phase codes carried by AllocState.evict_phase (the reference's
 # ops/allocate.py:69-72; stable wire values of the audit records)
@@ -89,11 +91,6 @@ class AllocState:
     #                                batched / optimistic fast paths
     claim_conflicts: int = 0       # the optimistic reclaim engine's discarded claims
     windows: int = 0               # the optimistic reclaim engine's speculation windows
-
-
-def _host(*xs) -> list:
-    """One host read of several device scalars."""
-    return torch.stack([x.reshape(()).to(torch.int64) for x in xs]).tolist()
 
 
 def _copy(state: AllocState) -> AllocState:
@@ -404,32 +401,41 @@ def _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, tr
 def _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order, pick):
     """One round over the ACTIVE queues in queue order (inactive ones
     sort last and are not visited); ``order`` is the action's K17 plan,
-    ``pick`` its K2 plan."""
+    ``pick`` its K2 plan.  A generator of its one host read (the trip)."""
     grp_live = group_live_mask(st, sess, state.group_placed, state.group_unfit, best_effort_pass)
     q_active = st.queue_valid & queue_has_live_job(st, grp_live)
     if not best_effort_pass:
         q_active = q_active & ~overused(state.queue_alloc, sess.deserved)
     nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved, st.queue_uid_rank,
                           order)
-    trip = max(int(nq), 1)
+    (nq_h,) = yield from read(nq)
+    trip = max(nq_h, 1)
     gn = _round_batched(st, sess, state, tiers, s_max, best_effort_pass, gn, perm, trip, admit,
                         pick)
     state.rounds += 1
     return gn
 
 
+@stepped
 def _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on):
     """(K9's plan over ``state``'s node arrays, K11's plan or None, K12's
     plan or None, K10's plan): the immediate turn's kernels, bound once
     for a run of turns on one state (K10 updates those node arrays and
     the task state in place).  K12's plan reads K11's plan-owned fit and
     shapes K9's plan-owned rows in place; K10's plan reads those rows
-    after it."""
+    after it.  On the card K10's group index is checked with one host
+    read, through the seam."""
     caps = TurnCapsPlan(st, state.node_idle, state.node_releasing, state.node_ports,
                         state.node_num_tasks, s_max, best_effort_pass, preds_on, policy)
+    index = None
+    if st.device.type == "cuda":
+        gstart, gidx, bad = build_group_index(st)
+        (n_bad,) = yield from read(bad.reshape(()))
+        index = (gstart, gidx, n_bad == 0)
     fill = TurnFillPlan(st, caps.k, caps.nperm, state.group_placed, state.node_idle,
                         state.node_releasing, state.node_ports, state.node_num_tasks,
-                        state.task_status, state.task_node, s_max, best_effort_pass, preds_on)
+                        state.task_status, state.task_node, s_max, best_effort_pass, preds_on,
+                        index=index)
     if not pa_on:
         return caps, None, None, fill
     fit = PaFitPlan(st)
@@ -480,13 +486,15 @@ def _process_queue(q, st, sess, state, tiers, s_max, best_effort_pass, policy, p
 
 def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pass):
     """The immediate path's round loop: each round's active queues in
-    queue order, one turn each; one host read per round."""
+    queue order, one turn each; one host read per round (a generator of
+    them)."""
     policy = node_order_policy(tiers)
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     pa_on = preds_on and pa_enabled(st)
     # K9's, K11's, K12's, K10's, K17's and K2's launches over this action: checked and
     # bound once
-    plans = _turn_plans(st, state, s_max, best_effort_pass, policy, preds_on, pa_on)
+    plans = yield from _turn_plans.steps(st, state, s_max, best_effort_pass, policy, preds_on,
+                                         pa_on)
     order = QueueOrderPlan(tiers, sess.deserved, st.queue_uid_rank)
     pick = TurnPickPlan(st, tiers)
     while True:
@@ -497,7 +505,7 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
             q_active = q_active & ~overused(state.queue_alloc, sess.deserved)
         nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved,
                               st.queue_uid_rank, order)
-        go, trip = _host(state.progress, nq)
+        go, trip = yield from read(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             return state
         state.progress = torch.zeros_like(state.progress)
@@ -507,6 +515,7 @@ def _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pas
         state.rounds += 1
 
 
+@stepped
 def allocate_action(
     st: SnapshotTensors,
     sess: SessionCtx,
@@ -550,14 +559,15 @@ def allocate_action(
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
     state.group_unfit = torch.zeros_like(state.group_unfit)
     if not defer:
-        return _rounds_immediate(st, sess, state, tiers, s_max, max_rounds, best_effort_pass)
+        return (yield from _rounds_immediate(st, sess, state, tiers, s_max, max_rounds,
+                                             best_effort_pass))
 
     prune_idx = None
     if prune:
         # one compaction at N // 4: when every class fits N // 8, its
         # first N // 8 columns are the N // 8 compaction
         panel, counts = _compact_rows(_prune_cells(st, state, tiers, best_effort_pass), N // 4)
-        cmax = int(counts.max())
+        (cmax,) = yield from read(counts.max())
         if cmax <= N // 8:
             prune_idx = panel[:, :N // 8].contiguous()
         elif cmax <= N // 4:
@@ -579,13 +589,18 @@ def allocate_action(
     # own (cloned) status / node; gated on the device by any_a / any_p
     decode = DecodePlan(gn_a, gn_p, st.task_group, st.task_group_rank, st.task_valid,
                         entry_placed, state.task_status, state.task_node)
-    while state.rounds < max_rounds and bool(state.progress):
+    while state.rounds < max_rounds:
+        (go,) = yield from read(state.progress)
+        if not go:
+            break
         state.progress = torch.zeros((), dtype=torch.bool, device=dev)
-        gn = _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order, pick)
+        gn = yield from _round(st, sess, state, tiers, s_max, best_effort_pass, gn, admit, order,
+                               pick)
     decode(gn[2], gn[3])
     return state
 
 
+@stepped
 def backfill_action(
     st: SnapshotTensors,
     sess: SessionCtx,
@@ -596,6 +611,6 @@ def backfill_action(
 ) -> AllocState:
     """backfill.go:40-71: place BestEffort (empty-resreq) pending tasks on
     any node passing the non-resource predicates."""
-    return allocate_action(
+    return (yield from allocate_action.steps(
         st, sess, state, tiers, s_max=s_max, max_rounds=max_rounds, best_effort_pass=True,
-    )
+    ))

@@ -4,6 +4,11 @@ kube_arbitrator_tpu/ops/cycle.py:103-430).
 
 Decisions are committed by masking: a job's new allocations produce bind
 intents only if the job ends the cycle gang-ready.
+
+The cycle is a generator of its host reads (:func:`cycle_steps`, the
+seam of ops/steps.py): :func:`schedule_cycle` drives one alone, and
+:func:`batched_schedule_cycle` (B15) drives several tenants' cycles in
+lockstep, one host read a step for all of them.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from .fairness import drf_equilibrium_levels_per_job, drf_shares, proportion_des
 from .kernels.stable_compact import stable_compact, stable_compact_pair
 from .kernels.stable_sort import segment_order
 from .ordering import DEFAULT_ACTIONS, DEFAULT_TIERS, Tiers
+from .steps import drive, drive_many, stepped
 from .preempt import (
     preempt_action,
     reclaim_action,
@@ -32,6 +38,7 @@ from .preempt import (
 )
 
 
+@stepped
 def _reclaim_optimistic_action(st, sess, state, tiers, s_max: int = 4096,
                                max_rounds: int = 100_000) -> AllocState:
     """Reclaim with the opt-in optimistic engine (the reference's
@@ -41,8 +48,9 @@ def _reclaim_optimistic_action(st, sess, state, tiers, s_max: int = 4096,
     (node, queue) key past int32) takes the default dispatch instead of
     raising; :func:`schedule_cycle_staged` says so once per reason."""
     legal = reclaim_engine_fallback_reason(st, tiers) is None
-    return reclaim_action(st, sess, state, tiers, s_max=s_max, max_rounds=max_rounds,
-                          turn_batch="optimistic" if legal else None)
+    return (yield from reclaim_action.steps(st, sess, state, tiers, s_max=s_max,
+                                            max_rounds=max_rounds,
+                                            turn_batch="optimistic" if legal else None))
 
 
 ACTION_KERNELS = {
@@ -125,6 +133,7 @@ def _compact_indices(mask: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.
     return idx[0], count[0]
 
 
+@stepped
 def open_session(st: SnapshotTensors, tiers: Tiers) -> Tuple[SessionCtx, AllocState]:
     """OnSessionOpen equivalents: totals, water-fill, validity, initial
     aggregates.  Every sum goes through K4 in slot order."""
@@ -166,7 +175,8 @@ def open_session(st: SnapshotTensors, tiers: Tiers) -> Tuple[SessionCtx, AllocSt
     min_avail = st.job_min_available if gang_ready_on else torch.zeros(J, dtype=torch.int32, device=dev)
 
     if _plugin_enabled(tiers, "proportion"):
-        deserved = proportion_deserved(st.queue_weight, queue_req, prop_total, st.queue_valid)
+        deserved = yield from proportion_deserved.steps(st.queue_weight, queue_req, prop_total,
+                                                        st.queue_valid)
     else:
         deserved = torch.full((Q, st.task_resreq.shape[1]), 3.0e38, dtype=torch.float32, device=dev)
 
@@ -209,39 +219,49 @@ def open_session(st: SnapshotTensors, tiers: Tiers) -> Tuple[SessionCtx, AllocSt
     return sess, state
 
 
-def _run_cycle(st, tiers, actions, s_max, max_rounds, decode_caps,
-               on_stage: Optional[Callable[[str, float, float, Optional[AllocState]], None]]):
-    """open_session -> each action -> commit.  With ``on_stage``, the
-    device is synchronised at each stage boundary and ``on_stage(stage,
-    wall_ts, ms, state)`` is called after each stage (``state`` the
-    action's result, None for open_session and commit)."""
+def _no_reads(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` as a generator that reads nothing."""
+    return fn(*args, **kwargs)
+    yield  # a generator, for ``yield from``
+
+
+def cycle_steps(st: SnapshotTensors, tiers: Tiers = DEFAULT_TIERS,
+                actions: Tuple[str, ...] = DEFAULT_ACTIONS, s_max: int = 4096,
+                max_rounds: int = 100_000, decode_caps: Optional[Tuple[int, int]] = None,
+                on_stage: Optional[Callable[[str, float, float, Optional[AllocState]],
+                                            None]] = None):
+    """open_session -> each action -> commit, as a generator of its host
+    reads (ops/steps.py) that returns the CycleDecisions.  With
+    ``on_stage``, the device is synchronised at each stage boundary and
+    ``on_stage(stage, wall_ts, ms, state)`` is called after each stage
+    (``state`` the action's result, None for open_session and commit)."""
     dev = st.device
 
-    def stage(name, fn, *args, state_of=None, **kw):
+    def stage(name, gen, state_of=None):
         if on_stage is None:
-            return fn(*args, **kw)
+            return (yield from gen)
         ts = time.time()
         t0 = time.perf_counter()
-        out = fn(*args, **kw)
+        out = yield from gen
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         on_stage(name, ts, (time.perf_counter() - t0) * 1e3, state_of(out) if state_of else None)
         return out
 
-    sess, state = stage("open_session", open_session, st, tiers)
+    sess, state = yield from stage("open_session", open_session.steps(st, tiers))
     for action in actions:
         if action not in ACTION_KERNELS:
             raise ValueError(f"unknown action: {action}")
-        state = stage(action, _run_stage, st, sess, state, action, tiers, s_max, max_rounds,
-                      state_of=lambda s: s)
+        kernel = ACTION_KERNELS[action]
+        args = (st, sess, state, tiers)
+        kw = dict(s_max=s_max, max_rounds=max_rounds)
+        # an action registered from outside (framework/registry.py) may read nothing
+        gen = kernel.steps(*args, **kw) if hasattr(kernel, "steps") else _no_reads(kernel, *args,
+                                                                                   **kw)
+        state = yield from stage(action, gen, state_of=lambda s: s)
     bind_cap, evict_cap = decode_caps if decode_caps is not None else (None, None)
-    return stage("commit", commit_cycle, st, sess, state, bind_cap=bind_cap, evict_cap=evict_cap)
-
-
-def _run_stage(st, sess, state, action: str, tiers: Tiers, s_max: int,
-               max_rounds: int) -> AllocState:
-    """One action of the cycle (the reference's staged ``_run_stage``)."""
-    return ACTION_KERNELS[action](st, sess, state, tiers, s_max=s_max, max_rounds=max_rounds)
+    return (yield from stage("commit", _no_reads(commit_cycle, st, sess, state,
+                                                 bind_cap=bind_cap, evict_cap=evict_cap)))
 
 
 def schedule_cycle(
@@ -270,8 +290,33 @@ def schedule_cycle(
                 stats[f"claim_conflicts.{stage}"] = state.claim_conflicts
         stats[f"ms.{stage}"] = ms
 
-    return _run_cycle(st, tiers, tuple(actions), s_max, max_rounds, decode_caps,
-                      None if stats is None else record)
+    return drive(cycle_steps(st, tiers, tuple(actions), s_max, max_rounds, decode_caps,
+                             None if stats is None else record))
+
+
+def batched_schedule_cycle(
+    packs,
+    tiers: Tiers = DEFAULT_TIERS,
+    actions: Tuple[str, ...] = DEFAULT_ACTIONS,
+    decode_caps: Optional[Tuple[int, int]] = None,
+    s_max: int = 4096,
+    max_rounds: int = 100_000,
+) -> Tuple[CycleDecisions, ...]:
+    """B15 (the reference's rpc/pool.py ``_run_batched``): the cycles of
+    K tenants' packs on one device, in lockstep on one stream.  Each
+    tenant's cycle is its own ``schedule_cycle`` with its own plans and
+    its own K1-K20 launches; each step of all of them is served by one
+    host read (ops/steps.drive_many), so the batch reads as often as its
+    longest cycle.  Nothing is padded.  Its plain version is the K cycles
+    one after another through :func:`schedule_cycle`; each tenant's
+    decisions equal that, field for field."""
+    packs = tuple(packs)
+    devices = {p.device for p in packs}
+    if len(devices) > 1:
+        raise ValueError(f"batched_schedule_cycle: packs on {sorted(map(str, devices))}")
+    return tuple(drive_many([
+        cycle_steps(p, tiers, tuple(actions), s_max, max_rounds, decode_caps) for p in packs
+    ]))
 
 
 def schedule_cycle_staged(
@@ -298,7 +343,7 @@ def schedule_cycle_staged(
         timings.append((stage, ts, ms) + counters)
 
     _record_fallback_reasons(st, tiers, actions)
-    dec = _run_cycle(st, tiers, tuple(actions), s_max, max_rounds, decode_caps, record)
+    dec = drive(cycle_steps(st, tiers, tuple(actions), s_max, max_rounds, decode_caps, record))
     return dec, timings
 
 

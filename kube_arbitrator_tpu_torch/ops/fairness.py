@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from .common import BIG, EPS, dominant_share, fair, is_empty_res, ordered_sum, segment_sum
+from .steps import read, stepped
 
 
 def drf_shares(job_alloc: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
@@ -18,6 +19,7 @@ def drf_shares(job_alloc: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     return dominant_share(job_alloc, total[None, :])
 
 
+@stepped
 def proportion_deserved(
     queue_weight: torch.Tensor,   # f32[Q]
     queue_request: torch.Tensor,  # f32[Q, R] allocated + pending demand
@@ -27,7 +29,8 @@ def proportion_deserved(
     """Water-filled deserved[Q, R]: at most Q+1 iterations, each capping
     >= 1 queue at its request or consuming the remainder.  The fit-only
     trailing axes get BIG deserved.  The loop condition is read on the
-    host once per iteration."""
+    host through the seam (ops/steps.py): the total weight's sign, then
+    whether the remainder is empty, each iteration."""
     R_full = queue_request.shape[1]
     request = fair(queue_request)
     remaining = fair(total).clone()
@@ -38,7 +41,13 @@ def proportion_deserved(
     while True:
         active_w = torch.where(met, 0.0, queue_weight)
         total_w = ordered_sum(active_w)
-        if not (i < Q + 1 and bool(total_w > 0) and not bool(is_empty_res(remaining))):
+        if i >= Q + 1:
+            break
+        (weighted,) = yield from read(total_w > 0)
+        if not weighted:
+            break
+        (empty,) = yield from read(is_empty_res(remaining))
+        if empty:
             break
         frac = torch.where(total_w > 0, active_w / total_w.clamp(min=1e-30), 0.0)
         new_deserved = deserved + frac[:, None] * remaining[None, :]

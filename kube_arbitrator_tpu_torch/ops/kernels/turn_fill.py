@@ -119,6 +119,29 @@ def turn_fill_plain(st, k, nperm, g, req, budget, group_placed, node_idle, node_
     return placed_total, use_rel.reshape(1)
 
 
+def build_group_index(st) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gstart i32[G + 1], gidx i32[T], bad i32[1]): the group -> task
+    index of the card pack ``st`` in rank order, built in one launch;
+    ``bad`` counts the ranks that fail its check (the by_group route is
+    legal when it is 0).  Nothing is read on the host."""
+    dev = st.task_group.device
+    T, G = st.task_group.shape[0], st.group_ports.shape[0]
+    for name, t, dt in (("task_group", st.task_group, torch.int32),
+                        ("task_group_rank", st.task_group_rank, torch.int32),
+                        ("task_valid", st.task_valid, torch.bool)):
+        build.require(t, dt, f"turn_fill.{name}", dev)
+    gstart = torch.empty(G + 1, dtype=torch.int32, device=dev)
+    gidx = torch.empty(max(T, 1), dtype=torch.int32, device=dev)
+    hits = torch.empty(max(T, 1), dtype=torch.int32, device=dev)
+    bad = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = build.bind("turn_fill", "kat_turn_fill_index", SIGNATURES)
+    p = build.ptr
+    build.check(fn(p(st.task_group), p(st.task_group_rank), p(st.task_valid), T, G,
+                   p(gstart), p(gidx), p(hits), p(bad), build.stream()), "turn_fill_index")
+    turn_fill.variants["index"] += 1
+    return gstart, gidx, bad
+
+
 class TurnFillPlan:
     """K10's launches over one immediate action.
 
@@ -138,12 +161,15 @@ class TurnFillPlan:
     The route (``variant``, default: ``by_group`` when the pack's group
     ranks pass the index check, else ``walk``) is chosen here, at one
     host read of the check; ``variant="walk"`` forces the walk and builds
-    no index.  CPU tensors take :func:`turn_fill_plain` in either route,
-    into the same owned outputs."""
+    no index.  ``index`` = (gstart, gidx, ok) is an index the caller built
+    with :func:`build_group_index` and whose check it read itself (the
+    cycle reads it through its host-read seam, ops/steps.py); the plan
+    then reads nothing.  CPU tensors take :func:`turn_fill_plain` in
+    either route, into the same owned outputs."""
 
     def __init__(self, st, k, nperm, group_placed, node_idle, node_releasing, node_ports,
                  node_num_tasks, task_status, task_node, s_max: int, best_effort: bool,
-                 preds_on: bool, variant: Optional[str] = None):
+                 preds_on: bool, variant: Optional[str] = None, index=None):
         if variant is not None and variant not in VARIANTS:
             raise ValueError(f"turn_fill: variant {variant!r}")
         dev = k.device
@@ -168,8 +194,10 @@ class TurnFillPlan:
             if dev.type == "cpu":  # the route's name only: the CPU decodes the plain way
                 ok = group_index_plain(st.task_group, st.task_group_rank, st.task_valid, G)[2]
             else:
-                ok = self._build_index(st, T, G)
-                turn_fill.variants["index"] += 1
+                if index is None:
+                    gstart, gidx, bad = build_group_index(st)
+                    index = (gstart, gidx, int(bad) == 0)  # the plan's one host read
+                self.gstart, self.gidx, ok = index
         if variant == "by_group" and not ok:
             raise ValueError("turn_fill: the pack's group ranks fail the index check")
         self.variant = variant or ("by_group" if ok else "walk")
@@ -202,23 +230,6 @@ class TurnFillPlan:
         self.static_ptr = ctypes.addressof(self.static)
         self.fn = build.bind("turn_fill", "kat_turn_fill", SIGNATURES)
         self.stream = build.stream()
-
-    def _build_index(self, st, T: int, G: int) -> bool:
-        """The group -> task index on the card, and its check read once."""
-        for name, t, dt in (("task_group", st.task_group, torch.int32),
-                            ("task_group_rank", st.task_group_rank, torch.int32),
-                            ("task_valid", st.task_valid, torch.bool)):
-            build.require(t, dt, f"turn_fill.{name}", self.dev)
-        self.gstart = torch.empty(G + 1, dtype=torch.int32, device=self.dev)
-        self.gidx = torch.empty(max(T, 1), dtype=torch.int32, device=self.dev)
-        hits = torch.empty(max(T, 1), dtype=torch.int32, device=self.dev)
-        bad = torch.empty(1, dtype=torch.int32, device=self.dev)
-        fn = build.bind("turn_fill", "kat_turn_fill_index", SIGNATURES)
-        p = build.ptr
-        build.check(fn(p(st.task_group), p(st.task_group_rank), p(st.task_valid), T, G,
-                       p(self.gstart), p(self.gidx), p(hits), p(bad), build.stream()),
-                    "turn_fill_index")
-        return int(bad) == 0  # the plan's one host read
 
     def __call__(self, g: torch.Tensor, req: torch.Tensor, budget: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

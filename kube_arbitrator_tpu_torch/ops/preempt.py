@@ -37,7 +37,11 @@ slot order.  Host reads: one per round (the progress flag and the
 active-queue count together), one per preempt action for the
 victim-panel tier and one for the gated-round count; the optimistic
 engine reads once per speculation window instead of per round.  A turn
-reads nothing on the host.
+reads nothing on the host.  Every read goes through the seam
+(ops/steps.py): the round loops and engines are generators of their
+reads, and the entry points (``preempt_action``, ``reclaim_action``,
+``_reclaim_canon``) drive theirs alone when called (``.steps``: the
+generator).
 """
 from __future__ import annotations
 
@@ -56,7 +60,6 @@ from .allocate import (
     AllocState,
     SessionCtx,
     _copy,
-    _host,
     _scatter_any,
     _scatter_count,
     _selection_shared,
@@ -86,6 +89,7 @@ from .kernels.window_gate import (
 )
 from .ordering import Tiers
 from .podaffinity import PaFitPlan, PaShapePlan
+from .steps import read, stepped
 
 RUNNING = int(TaskStatus.RUNNING)
 RELEASING = int(TaskStatus.RELEASING)
@@ -120,8 +124,9 @@ class SortLayout:
         jointly; lexsort order, the last the primary)."""
         segs = segment if isinstance(segment, tuple) else (segment,)
         order = lexsort((uid_rank, priority) + tuple(extra_keys) + segs)
-        seg_start = torch.zeros(order.shape[0], dtype=torch.bool, device=order.device)
-        seg_start[0] = True
+        # position 0 starts a segment (a device comparison: writing the
+        # True from the host would copy it there and wait for the card)
+        seg_start = torch.arange(order.shape[0], device=order.device) == 0
         for s in segs:
             s_s = s[order]
             seg_start[1:] |= s_s[1:] != s_s[:-1]
@@ -419,7 +424,7 @@ def _rounds(st, sess, state, tiers, s_max, max_rounds, mode, view) -> AllocState
     while True:
         q_active = _round_gate(st, sess, state, mode, view)
         nq, perm = _queue_perm(st, sess, state, tiers, q_active, order)
-        go, trip = _host(state.progress, nq)
+        go, trip = yield from read(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             return state
         state.progress = torch.zeros_like(state.progress)
@@ -485,7 +490,7 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
         vic_valid = vic_valid & ~committed
         q_active = _round_gate(st, sess, state, mode, view)
         nq, perm = _queue_perm(st, sess, state, tiers, q_active, order)
-        go, trip = _host(state.progress, nq)
+        go, trip = yield from read(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             break
         state.progress = torch.zeros_like(state.progress)
@@ -535,7 +540,8 @@ def _rounds_batched(st, sess, state, tiers, s_max, max_rounds, mode, view, round
         have, placed_prev = True, placed_entry
         j_c, g_c, has_c, req_c = j_sel, g_sel, has_grp, req_all
         vic_c, nr_c, ncum_c = victims_all, node_rank, node_cum
-    state.rounds_gated += int(gated_rounds)
+    (gated_h,) = yield from read(gated_rounds)
+    state.rounds_gated += gated_h
     return state
 
 
@@ -572,6 +578,7 @@ def turn_batch_fallback_reason(st: SnapshotTensors, tiers: Tiers):
     return None
 
 
+@stepped
 def preempt_action(
     st: SnapshotTensors,
     sess: SessionCtx,
@@ -606,15 +613,16 @@ def preempt_action(
         view = _build_view(st, state, running0, T)
     else:
         qualify = _entry_qualify(st, sess, state, running0)
-        count = int(qualify.sum())
+        (count,) = yield from read(qualify.sum())
         if count <= P:
             view = _build_view(st, state, qualify, P)
         elif count <= T // 4:
             view = _build_view(st, state, qualify, T // 4)
         else:
             view = _build_view(st, state, running0, T)
-    state = rounds_fn(st, sess, state, tiers, s_max, max_rounds, "preempt", view)
-    return rounds_fn(st, sess, state, tiers, s_max, max_rounds, "preempt_intra", view)
+    state = yield from rounds_fn(st, sess, state, tiers, s_max, max_rounds, "preempt", view)
+    return (yield from rounds_fn(st, sess, state, tiers, s_max, max_rounds, "preempt_intra",
+                                 view))
 
 
 # ---------------------------------------------------------------- reclaim
@@ -819,6 +827,7 @@ def _pick_plan(st, sess, state, ctx, carry, use_gang, use_prop, preds_on) -> Can
                          state.node_num_tasks, use_gang, use_prop, preds_on)
 
 
+@stepped
 def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     """Cross-queue reclaim over the canon layout, pop for pop: per turn
     the queue's job / group pop (K2), the eligibility + per-node sums +
@@ -834,7 +843,7 @@ def _reclaim_canon(st, sess, state, tiers, max_rounds) -> AllocState:
     pops = _pick_pops(st, sess, tiers)  # K2
     while True:
         nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
-        go, nq_h = _host(state.progress, nq)
+        go, nq_h = yield from read(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             break
         state.progress = torch.zeros((), dtype=torch.bool, device=st.device)
@@ -921,7 +930,7 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
     gated_rounds = torch.zeros((), dtype=i32, device=dev)
     while True:
         nq, perm = _canon_round_order(st, sess, tiers, state, carry, order)
-        go, nq_h = _host(state.progress, nq)
+        go, nq_h = yield from read(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             break
         state.progress = torch.zeros((), dtype=torch.bool, device=dev)
@@ -950,7 +959,7 @@ def _reclaim_canon_batched(st, sess, state, tiers, max_rounds) -> AllocState:
         state.rounds += 1
         if trip <= RP:
             gated_rounds += (~claimed_any).to(i32)[0]
-    state.rounds_gated = int(gated_rounds)
+    (state.rounds_gated,) = yield from read(gated_rounds)
     return _canon_writeback(st, state, carry)
 
 
@@ -1016,7 +1025,7 @@ def _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds) -> AllocState:
         state.rounds = rounds
         commit(sel_i[3:4], sel_i[0:1], sel_i[1:2], sel_i[2:3], sel_b[0:1], sel_b[1:2],
                sel_b[2:3], sel_req, active=sel_b[3:4], progress_out=ctl_progress)
-        vals = ctl.tolist()
+        (vals,) = yield from read(ctl)
         start, progress = vals[START], bool(vals[PROGRESS])
         rounds += vals[ROUND_DONE]
         windows += 1
@@ -1113,7 +1122,7 @@ def _reclaim_fast(st, sess, state, tiers, max_rounds) -> AllocState:
         )
         nq, perm = queue_perm(tiers, q_active, state.queue_alloc, sess.deserved,
                               st.queue_uid_rank, order)
-        go, nq_h = _host(state.progress, nq)
+        go, nq_h = yield from read(state.progress, nq)
         if not (go and state.rounds < max_rounds):
             break
         state.progress = torch.zeros_like(state.progress)
@@ -1259,6 +1268,7 @@ def reclaim_engine_fallback_reason(st: SnapshotTensors, tiers: Tiers):
     return None
 
 
+@stepped
 def reclaim_action(
     st: SnapshotTensors,
     sess: SessionCtx,
@@ -1287,9 +1297,11 @@ def reclaim_action(
     state = _copy(state)
     state.windows = 0
     if turn_batch == "optimistic":
-        return _reclaim_canon_optimistic(st, sess, state, tiers, max_rounds)
-    if turn_batch:
-        return _reclaim_canon_batched(st, sess, state, tiers, max_rounds)
-    if reclaim_batch_fallback_reason(st, tiers) is None:
-        return _reclaim_canon(st, sess, state, tiers, max_rounds)
-    return _reclaim_fast(st, sess, state, tiers, max_rounds)
+        engine = _reclaim_canon_optimistic
+    elif turn_batch:
+        engine = _reclaim_canon_batched
+    elif reclaim_batch_fallback_reason(st, tiers) is None:
+        engine = _reclaim_canon.steps
+    else:
+        engine = _reclaim_fast
+    return (yield from engine(st, sess, state, tiers, max_rounds))

@@ -14,10 +14,12 @@ method takes the one registry lock, and only dict/float ops run under it.
 
 ``METRIC_HELP`` is the single table of ``# HELP`` text for every metric
 family the port emits (the reference's table less the families of the
-planes the port has not ported: the pool, the sidecar, the pipeline,
-chaos, the flight recorder, the audit and capture planes, the sharded
-plane); registries seed their help text from it so call sites never
-re-describe a family per cycle.  Each entry's text is the reference's.
+planes the port has not ported: the sidecar, the pipeline, chaos, the
+fleet plane, the flight recorder, the audit and capture planes, the
+sharded plane); registries seed their help text from it so call sites
+never re-describe a family per cycle.  Each entry's text is the
+reference's, except the pool's batch families, whose values describe
+what the port launches (no padding, no per-batch-size compile).
 """
 from __future__ import annotations
 
@@ -53,6 +55,20 @@ METRIC_HELP: Dict[str, str] = {
     "leader_fence_revalidations_total": "Actuation-fence storage re-validations of a stale-looking lease (outcome label: renewed/lost).",
     "leader_transitions_total": "Leadership transitions observed by this elector (to label).",
     "leader_is_leader": "1 when this elector currently holds the lease.",
+    # SLO burn monitor (utils/timeseries.py)
+    "slo_burn_rate": "Cycle-SLO error-budget burn rate per long window (window label; 1.0 = burning exactly the budget).",
+    "slo_burn_alerts_total": "Multi-window SLO burn alerts fired (window label; one per episode).",
+    # decision pool (rpc/pool.py).  The port launches a batch's cycles
+    # unpadded, in lockstep on one stream, and compiles nothing per batch
+    # size: occupancy is always 1.0, padding always 0, and "compile" marks
+    # a shape key's first launch in the process (its kernels' first use).
+    "pool_requests_total": "Tenant decide requests through the decision pool (tenant + outcome label: served / resent [served after a full pack re-seed] / shed [admission dropped] / error).",
+    "pool_batch_size": "Same-shape snapshot packs served by one batched launch of the pool (their cycles run in lockstep, one host read a step).",
+    "pool_replica_inflight": "Requests currently in flight on a pool replica (replica label; the least-loaded routing input).",
+    "pool_pack_reseeds_total": "Per-replica full pack re-seeds after a lost delta base (replica restart/join/healed partition — the generalized FAILED_PRECONDITION path).",
+    "pool_batch_occupancy": "Fill fraction of the last batched launch per bucket (bucket label = batch size; always 1.0: the port pads nothing).",
+    "pool_batch_padding_total": "Padded launch slots per bucket (bucket label; always 0: the port pads nothing).",
+    "pool_batch_launches_total": "Batched launches by bucket and first-vs-later use (bucket + compile label; compile = the shape key's first launch in the process, reuse after it).",
 }
 
 
