@@ -242,11 +242,36 @@ rows):
    re-seeds its tenants in full; a partitioned tenant re-seeds in full
    when the partition heals; a tenant burning its budget is shed with
    ``PoolShed`` on a fake clock, then recovers.
+13. the pipelined executor and the Scheduler's observability planes.
+   (a) phase 10's world (a) twice, default conf, no churn: 3 cycles of
+   ``Scheduler(arena=True).run`` on one and ``.run_pipelined`` on the
+   other commit the same binds and evicts cycle for cycle with nothing
+   discarded, the sequential cycle 1 equals SCHED_A_42; prints each
+   cycle's ms, the pipelined commit-to-commit period and the stages'
+   occupancy.  (b) phase 10's world (b) in a FakeApiServer under a
+   LiveCache, 2 pipelined steps whose ``ingest_fn`` deletes pods, cordons
+   a node and shrinks a node's pod capacity inside each speculation
+   window (aimed at the window's binds): task_gone, node_unsched and
+   capacity_shrunk are counted, and after every commit no node is over
+   capacity in the apiserver, no pod is bound twice, none to a cordoned
+   node; backpressure fires at an ingest cap of 1.  (c) one evictive
+   cycle (world (b)) with the tracer at sample rate 1, the kernel
+   profiler, a flight recorder with a 1 ms cycle SLO and ``serve_obs`` on
+   127.0.0.1: the chrome export holds the cycle, session, arena and
+   ``kernel.<stage>`` spans, ``/debug/kernels`` every stage measured with
+   its profiled device ms and launches and ``preempt:phase_a``,
+   ``/metrics`` the pipeline families, ``/readyz`` 200, one flight dump
+   with the cycle's ``action_ms``, the staged rounds equal the unstaged
+   cycle's, and every synchronising CUDA call of the staged cycle is a
+   seam read.  (d) one pipelined step of a 1k x 100 x 20 world under
+   ``profile_dir``: its trace holds K1's device events.
 
 Each path's launch counts are taken over its first world (seed 42; the
 priority-mix path's over seed 45; the scheduler loop's and the live
 plane's over every cycle of each world, the counts set to 0 before each
-cycle; the pool's over each batch of phase 12 (a) and (b)), with every count
+cycle; the pool's over each batch of phase 12 (a) and (b); phase 13's
+over the pipelined run of (a), the churned run of (b) and the cycle of
+(c)), with every count
 set to 0 just before it; K1's, K9's and K19's are also taken by variant (phases 3-5 require
 K19's counting segment order on the allocate path and its tiled sort on
 the evictive paths).  The kernels line counts K19's launches over the
@@ -267,6 +292,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -4885,6 +4911,551 @@ def pool_scheduler_legs(dev, smi) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- phase 13
+# The pipelined executor (pipeline/executor.py, Scheduler.run_pipelined)
+# and the Scheduler's observability planes (utils/tracing, flightrec,
+# timeseries, profiling; obs.py) on the card.
+
+PIPE_CYCLES = 3
+# leg (b): the evictive world over a LiveCache; each window's churn
+PIPE_B_STEPS = 2
+PIPE_CHURN_JOBS = 4
+# leg (d): a world small enough for a whole-step trace
+PIPE_D = dict(num_nodes=1_000, num_jobs=100, tasks_per_job=20, num_queues=8, seed=42)
+# the discard reasons leg (b)'s churn causes: pods deleted, a node
+# cordoned, a node's pod capacity shrunk to the pods it holds
+PIPE_B_REASONS = ("task_gone", "node_unsched", "capacity_shrunk")
+# leg (a)'s quiescent cycles 2-3 write no field's rows in place (cycle 2
+# places task_status whole, cycle 3 changes nothing), so K18 need not
+# launch; leg (b) runs no priority burst, so preempt need not claim (K6)
+PIPE_A_KERNELS = tuple(k for k in SCHED_A_KERNELS if k != "row_scatter")
+PIPE_B_KERNELS = tuple(k for k in SCHED_B_KERNELS if k not in ("claim_nodes", "row_scatter"))
+
+
+def recorded_actuation(sim) -> list:
+    """Wrap ``sim``'s columnar actuation so that each call appends
+    (sorted (uid, node) binds, sorted evict uids) to the returned list
+    (one entry a commit; a sequential cycle and a pipelined step commit
+    once)."""
+    log: list = []
+    apply_b, apply_e = sim.apply_binds_columnar, sim.apply_evicts_columnar
+
+    def binds(col):
+        log.append([sorted(zip(col.uids, col.node_names)), None])
+        return apply_b(col)
+
+    def evicts(col):
+        log[-1][1] = sorted(col.uids)
+        return apply_e(col)
+
+    sim.apply_binds_columnar, sim.apply_evicts_columnar = binds, evicts
+    return log
+
+
+def pipeline_equivalence(dev, smi, world, cycles: int, want) -> tuple:
+    """Phase 13 (a): ``generate_cluster(**world)`` twice, default conf;
+    ``Scheduler(arena=True).run(max_cycles=cycles)`` on one and
+    ``.run_pipelined(max_cycles=cycles)`` on the other, nothing between
+    the cycles (a quiescent stream).  Every cycle commits the same binds
+    and evicts in both, nothing is discarded, the sequential cycle 1
+    equals the JAX package's (``want``), and the pipelined run launches
+    the scheduler path's kernels (the counts set to 0 just before it).
+    Returns (the launches, the row printed)."""
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import Scheduler, SchedulerConfig, TorchDecider
+    from kube_arbitrator_tpu_torch.ops import kernels
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_ACTIONS, DEFAULT_TIERS
+
+    conf = SchedulerConfig(actions=DEFAULT_ACTIONS, tiers=DEFAULT_TIERS)
+    out = {}
+    for mode in ("sequential", "pipelined"):
+        set_sticky_buckets(True)
+        g0 = time.perf_counter()
+        sim = generate_cluster(**world)
+        gen_s = time.perf_counter() - g0
+        log = recorded_actuation(sim)
+        sched = recording_scheduler(sim, config=conf, decider=TorchDecider(dev), arena=True)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        if mode == "sequential":
+            recs = []
+            run_once = sched.run_once
+
+            def recorded():
+                r = run_once()
+                recs.append(cycle_record(r))
+                return r
+
+            sched.run_once = recorded
+            n = sched.run(max_cycles=cycles, until_idle=False)
+        else:
+            n = sched.run_pipelined(max_cycles=cycles, until_idle=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launched = kernels.counts()
+        expect(n == cycles and len(log) == cycles,
+               f"pipeline (a) {mode}: {n} cycles, {len(log)} commits of {cycles}")
+        out[mode] = dict(log=log, hist=list(sched.history), launched=launched, sched=sched,
+                         gen_s=gen_s, wall_s=wall_s, recs=recs if mode == "sequential" else None)
+    seq, pipe = out["sequential"], out["pipelined"]
+    for c in range(cycles):
+        expect(seq["log"][c] == pipe["log"][c],
+               f"pipeline (a) cycle {c + 1}: the pipelined commit differs from the sequential "
+               f"cycle's ({len(pipe['log'][c][0])} / {len(seq['log'][c][0])} binds)")
+    expect(seq["recs"][0] == want, f"pipeline (a) cycle 1 differs from the JAX package's "
+           f"Scheduler: {seq['recs'][0]} vs {want}")
+    ex = pipe["sched"].executor
+    expect(ex is not None and not ex.discard_totals,
+           f"pipeline (a): a quiescent stream discarded {ex.discard_totals if ex else None}")
+    expect_launched(pipe["launched"], PIPE_A_KERNELS, "pipelined path (a)")
+    row = dict(world=world, cycles=cycles,
+               binds=[len(b) for b, _ in pipe["log"]], evicts=[len(e or ()) for _, e in pipe["log"]],
+               sequential_cycle_ms=[round(s.cycle_ms, 1) for s in seq["hist"]],
+               pipelined_period_ms=[round(s.cycle_ms, 1) for s in pipe["hist"]],
+               pipelined_kernel_ms=[round(s.kernel_ms, 1) for s in pipe["hist"]],
+               sequential_wall_s=round(seq["wall_s"], 2), pipelined_wall_s=round(pipe["wall_s"], 2),
+               occupancy={k: round(v, 4) for k, v in ex.occupancy().items()},
+               stage_ms_total={k: round(v, 1) for k, v in ex.stage_totals.items()},
+               last_stage_ms={k: round(v, 1) for k, v in ex.last_stage_ms.items()},
+               generate_s=[round(seq["gen_s"], 2), round(pipe["gen_s"], 2)],
+               launches={k: v for k, v in pipe["launched"].items() if v})
+    print(f"pipeline (a) {json.dumps(row)}; every cycle's commit equal, cycle 1 equal to the JAX "
+          f"package's, nothing discarded; {smi[0] if smi else ''}", flush=True)
+    return pipe["launched"], row
+
+
+class PipeChurn:
+    """Leg (b)'s ``ingest_fn`` over a LiveCache on a FakeApiServer.  The
+    first call of each speculation window waits for the in-flight
+    decisions, then writes churn aimed at them to the apiserver: the
+    pending pods of ``PIPE_CHURN_JOBS`` jobs the window binds are
+    DELETEd, the node with the most binds is cordoned
+    (spec.unschedulable) and the next one's pod capacity shrunk to the
+    pods it holds; then the watch is drained into the cache (the arena's
+    dirty sets and the executor's journal).  Later calls drain the watch.
+    Returns the events drained.
+
+    The executor pumps ingest only while the decide is unfinished, and a
+    step's decide starts before the previous commit's write-back: on a
+    fast card it can finish first, and its window would see no churn.  So
+    :meth:`gate` holds each committed window's worker, its result made,
+    until this window's churn is written; the epoch after the last
+    committed one (``> limit``), which ``close`` discards, is not held."""
+
+    HOLD_S = 600.0
+
+    def __init__(self, api, live):
+        self.api, self.live = api, live
+        self.sched = None  # the Scheduler whose run_pipelined calls it
+        self.limit = 0  # the last epoch seq whose window is churned
+        self.windows: set = set()
+        self.cordoned: set = set()
+        self.deleted: set = set()
+        self.shrunk: dict = {}
+        self._held: dict = {}  # seq -> (the worker's result, its release)
+        self._cv = threading.Condition()
+
+    def gate(self, decide_worker):
+        """Wrap ``PipelinedExecutor._decide_worker``: an epoch up to
+        ``limit`` of this run posts its result and waits for its churn."""
+        def held(ex, ep, st, pack_meta):
+            try:
+                out = decide_worker(ex, ep, st, pack_meta)
+            except BaseException:
+                with self._cv:  # the ingest side surfaces the error
+                    self._held[ep.seq] = (None, None)
+                    self._cv.notify_all()
+                raise
+            if ex._ingest_fn is self and ep.seq <= self.limit:
+                release = threading.Event()
+                with self._cv:
+                    self._held[ep.seq] = (out, release)
+                    self._cv.notify_all()
+                release.wait(self.HOLD_S)
+            return out
+        return held
+
+    def __call__(self) -> int:
+        ep = self.sched.executor._inflight
+        if ep is not None and ep.seq not in self.windows:
+            self.windows.add(ep.seq)
+            if ep.seq <= self.limit:
+                with self._cv:
+                    self._cv.wait_for(lambda: ep.seq in self._held, self.HOLD_S)
+                out, release = self._held.get(ep.seq, (None, None))
+                if out is None:
+                    ep.future.result()  # surfaces the decide's error
+                    raise RuntimeError(f"pipeline (b): epoch {ep.seq}'s decide posted "
+                                       f"nothing in {self.HOLD_S} s")
+                try:
+                    self.churn(out[1])
+                finally:
+                    release.set()
+            else:
+                self.churn(ep.future.result()[1])
+        return self.live.sync()
+
+    def churn(self, binds) -> None:
+        by_node: dict = {}
+        for node in binds.node_names:
+            by_node[node] = by_node.get(node, 0) + 1
+        nodes = sorted(by_node, key=lambda n: (-by_node[n], n))
+        pods = self.api.list("pods")[0]
+        bound = set(binds.uids)
+        pending = [p for p in pods if not p["spec"].get("nodeName")
+                   and p["metadata"]["uid"] in bound]
+        group = lambda p: p["metadata"]["annotations"]["scheduling.k8s.io/group-name"]  # noqa: E731
+        jobs = sorted({group(p) for p in pending})[:PIPE_CHURN_JOBS]
+        for p in (p for p in pending if group(p) in jobs):
+            self.api.delete("pods", "default", p["metadata"]["name"])
+            self.deleted.add(p["metadata"]["uid"])
+        cordon, shrink = nodes[0], nodes[1]
+        for n in self.api.list("nodes")[0]:
+            name = n["metadata"]["name"]
+            if name == cordon:
+                n.setdefault("spec", {})["unschedulable"] = True
+                self.api.update("nodes", n)
+                self.cordoned.add(name)
+            elif name == shrink:
+                held = sum(1 for p in pods if p["spec"].get("nodeName") == name
+                           and p["status"].get("phase") not in ("Succeeded", "Failed"))
+                n["status"]["allocatable"]["pods"] = held
+                self.api.update("nodes", n)
+                self.shrunk[name] = held
+
+
+def pipeline_churn(dev, smi, world, steps: int) -> tuple:
+    """Phase 13 (b): ``generate_cluster(**world)`` (the evictive world)
+    as apiserver objects in a FakeApiServer, scheduled by
+    ``Scheduler(LiveCache(api), arena=True)`` through
+    ``run_pipelined(max_cycles=steps, ingest_fn=PipeChurn)`` under the
+    evictive conf.  Every bind POST of the run is recorded with the
+    cordoned nodes at its time.  After each commit the apiserver shows no
+    node over capacity (api_invariants), no pod bound twice and no bind
+    to a node cordoned before it; the run counts each of
+    ``PIPE_B_REASONS`` among its discards and no deleted pod is bound.
+    Then backpressure: two steps with ``max_ingest_per_wait=1`` and an
+    ``ingest_fn`` that always reports events must block at the cap.
+    Returns (the launches of the churned run, the row printed)."""
+    from kube_arbitrator_tpu_torch.cache import FakeApiServer, LiveCache
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import SchedulerConfig, TorchDecider
+    from kube_arbitrator_tpu_torch.ops import kernels
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS
+    from kube_arbitrator_tpu_torch.options import options
+    from kube_arbitrator_tpu_torch.pipeline import DISCARD_REASONS, PipelinedExecutor
+    from kube_arbitrator_tpu_torch.utils.metrics import metrics
+
+    set_sticky_buckets(True)
+    t0 = time.perf_counter()
+    api = FakeApiServer()
+    load_objects(api, cluster_objects(generate_cluster(**world), options().scheduler_name))
+    live = LiveCache(api)
+    live.sync()
+    load_s = time.perf_counter() - t0
+    churn = PipeChurn(api, live)
+    posts: list = []
+    bind_pod = api.bind_pod
+
+    def recorded_bind(namespace, name, node_name):
+        posts.append((name, node_name, node_name in churn.cordoned))
+        return bind_pod(namespace, name, node_name)
+
+    api.bind_pod = recorded_bind
+    sched = recording_scheduler(live, config=SchedulerConfig(actions=EVICT_ACTIONS,
+                                                             tiers=DEFAULT_TIERS),
+                                decider=TorchDecider(dev), arena=True)
+    checks = []
+    write_back = sched._write_back
+
+    def checked_write_back(result, **kw):  # after each commit's actuation
+        write_back(result, **kw)
+        checks.append(api_invariants(api, api.list("pods")[0]))
+
+    sched._write_back = checked_write_back
+    churn.sched = sched
+    churn.limit = sched._cycle_seq + steps
+    discards0 = {r: metrics().counter_value("pipeline_discards_total", labels={"reason": r})
+                 for r in DISCARD_REASONS}
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    decide_worker = PipelinedExecutor._decide_worker
+    PipelinedExecutor._decide_worker = churn.gate(decide_worker)
+    s0 = time.perf_counter()
+    try:
+        n = sched.run_pipelined(max_cycles=steps, until_idle=False, ingest_fn=churn)
+    finally:
+        PipelinedExecutor._decide_worker = decide_worker
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - s0
+    launched = kernels.counts()
+    ex = sched.executor
+    occupancy = {k: round(v, 4) for k, v in ex.occupancy().items()}
+    periods = [round(s.cycle_ms, 1) for s in sched.history]
+    expect(n == steps and len(checks) == steps, f"pipeline (b): {n} steps, {len(checks)} commits")
+    counted = {r: metrics().counter_value("pipeline_discards_total", labels={"reason": r})
+               - discards0[r] for r in DISCARD_REASONS}
+    for r in PIPE_B_REASONS:
+        expect(ex.discard_totals.get(r, 0) > 0 and counted[r] == ex.discard_totals[r],
+               f"pipeline (b): discard reason {r} counted {counted[r]}, executor "
+               f"{ex.discard_totals}")
+    names = [p[0] for p in posts]
+    expect(len(names) == len(set(names)), "pipeline (b): a pod was bound twice")
+    expect(not any(c for _, _, c in posts), "pipeline (b): a bind POST went to a cordoned node")
+    expect(not set(names) & churn.deleted, "pipeline (b): a deleted pod was bound")
+    expect(len(churn.windows) == steps, f"pipeline (b): churn in {len(churn.windows)} windows")
+    expect_launched(launched, PIPE_B_KERNELS, "pipelined live path (b)")
+
+    # backpressure: ingest that always reports events, capped at 1 pump
+    b0 = metrics().counter_total("pipeline_backpressure_total")
+    bp = PipelinedExecutor(sched, max_ingest_per_wait=1, wait_poll_s=0.001,
+                           ingest_fn=lambda: live.sync() or 1)
+    try:
+        bp.step()
+        bp.step()
+    finally:
+        bp.close()
+    fired = metrics().counter_total("pipeline_backpressure_total") - b0
+    expect(bp.backpressure_events >= 1 and fired == bp.backpressure_events,
+           f"pipeline (b): backpressure at cap 1 fired {bp.backpressure_events} times "
+           f"({fired} counted)")
+    row = dict(world=world, steps=steps, load_s=round(load_s, 2), run_s=round(run_s, 2),
+               discards=dict(ex.discard_totals), bind_posts=len(posts),
+               deleted_pods=len(churn.deleted), cordoned=sorted(churn.cordoned),
+               shrunk=churn.shrunk, period_ms=periods, invariants=checks,
+               backpressure_events=bp.backpressure_events, occupancy=occupancy,
+               launches={k: v for k, v in launched.items() if v})
+    print(f"pipeline (b) {json.dumps(row)}; no over-commit, no double bind, no bind to a "
+          f"cordoned node after every commit; {smi[0] if smi else ''}", flush=True)
+    return launched, row
+
+
+# leg (c): staged runs of the same pack that may take a lost pass again
+PROFILE_RETAKES = 5
+
+
+def obs_planes(dev, smi, world, tmp: str) -> tuple:
+    """Phase 13 (c): one evictive cycle of ``generate_cluster(**world)``
+    through ``Scheduler(arena=True, flight=FlightRecorder(dump_dir),
+    cycle_slo_ms=1.0, timeseries=CycleSampler(...))`` with the tracer on
+    (sample rate 1) and the kernel profiler on, ``serve_obs`` on
+    127.0.0.1.  Its staged cycle runs under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising CUDA
+    call in it must be one of the seam's reads.  Then: the cycle's chrome
+    export holds the ``cycle``, Session, arena and ``kernel.<action>``
+    spans; ``/debug/kernels`` holds every stage measured with a device
+    estimate (device_ms, launches; a pass that lost its records is taken
+    again by up to ``PROFILE_RETAKES`` staged runs of the same pack, each
+    then counted in every stage's measured count) and ``preempt:phase_a`` with
+    ``panel_w``; ``/metrics`` carries the pipeline families (legs (a) and
+    (b) ran in this process) and ``/readyz`` answers 200; the SLO breach
+    wrote one flight dump whose cycle carries ``action_ms``; the
+    decider's ``last_action_rounds`` equal the rounds of the same pack's
+    unstaged ``schedule_cycle``.  Returns (the cycle's launches, the row)."""
+    import urllib.request
+    import warnings
+
+    from kube_arbitrator_tpu_torch import obs
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import from_numpy, set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import SchedulerConfig, TorchDecider
+    from kube_arbitrator_tpu_torch.framework import decider as decider_mod
+    from kube_arbitrator_tpu_torch.ops import kernels
+    from kube_arbitrator_tpu_torch.ops.cycle import schedule_cycle
+    from kube_arbitrator_tpu_torch.ops.ordering import DEFAULT_TIERS
+    from kube_arbitrator_tpu_torch.utils.flightrec import FlightRecorder
+    from kube_arbitrator_tpu_torch.utils.profiling import profiler
+    from kube_arbitrator_tpu_torch.utils.timeseries import CycleSampler
+    from kube_arbitrator_tpu_torch.utils.tracing import tracer
+
+    set_sticky_buckets(True)
+    sim = generate_cluster(**world)
+    flight = FlightRecorder(capacity=8, dump_dir=f"{tmp}/flight")
+    sampler = CycleSampler(slo_ms=1.0, flight=flight)
+    sched = recording_scheduler(sim, config=SchedulerConfig(actions=EVICT_ACTIONS,
+                                                            tiers=DEFAULT_TIERS),
+                                decider=TorchDecider(dev), arena=True, flight=flight,
+                                cycle_slo_ms=1.0, timeseries=sampler)
+    tr, prof = tracer(), profiler()
+    tr.enable()
+    tr.sample_rate = 1.0
+    prof.enable()
+    server, _thread, url = obs.serve_obs(host="127.0.0.1", port=0, flight=flight,
+                                         status_fn=obs.scheduler_status_fn(sched),
+                                         timeseries=sampler)
+    staged, caught = decider_mod.schedule_cycle_staged, []
+
+    def audited(*a, **kw):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return staged(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                caught.extend(got)
+
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        decider_mod.schedule_cycle_staged = audited
+        try:
+            t0 = time.perf_counter()
+            result = sched.run_once()
+            torch.cuda.synchronize()
+            cycle_s = time.perf_counter() - t0
+        finally:
+            decider_mod.schedule_cycle_staged = staged
+        launched = kernels.counts()
+        syncs = [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        expect(syncs and all(f.split(":")[0].endswith(SEAM_FILE) for f in syncs),
+               f"obs (c): synchronising calls outside the seam in the staged cycle: "
+               f"{sorted(set(syncs))}")
+        corr = flight.last()
+        expect(corr is not None and corr.corr_id, "obs (c): the cycle left no traced record")
+        corr = corr.corr_id
+        trace = tr.export_chrome(corr)
+        names = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+        need = {"cycle", "resync", "snapshot", "upload", "decide", "decode", "close", "actuate",
+                "arena.rebuild", "arena.diff"} | {f"kernel.{a}" for a in EVICT_ACTIONS} | {
+            "kernel.open_session", "kernel.commit"}
+        expect(need <= names, f"obs (c): the chrome export lacks {sorted(need - names)}")
+
+        def get(path):
+            with urllib.request.urlopen(url + path, timeout=60) as r:
+                return r.status, r.read()
+
+        # a profiled pass that lost its records is taken again at the
+        # stage's next staged run at the shape: the same pack's staged
+        # cycle, at most PROFILE_RETAKES times, until every stage has one
+        pack = result.snapshot.tensors
+        pack_fields = {f.name: getattr(pack, f.name) for f in dataclasses.fields(pack)}
+        stage_names = ("open_session", *EVICT_ACTIONS, "commit")
+        retakes = 0
+        while retakes < PROFILE_RETAKES and any(
+                "launches" not in e for stages in prof.table()["shapes"].values()
+                for s, e in stages.items() if s in stage_names):
+            staged(from_numpy(pack_fields, dev), DEFAULT_TIERS, EVICT_ACTIONS)
+            torch.cuda.synchronize()
+            retakes += 1
+        code, body = get("/debug/kernels")
+        shapes = json.loads(body)["shapes"]
+        expect(code == 200 and len(shapes) == 1, f"obs (c): /debug/kernels {code}: {list(shapes)}")
+        (key, stages), = shapes.items()
+        for s in stage_names:
+            e = stages.get(s, {})
+            expect(e.get("measured", {}).get("count") == 1 + retakes and e.get("launches", 0) > 0
+                   and e.get("device_ms", 0) > 0,
+                   f"obs (c): /debug/kernels stage {s} after {retakes} retakes: {e}")
+        lost = {s: e["lost_passes"] for s, e in stages.items() if "lost_passes" in e}
+        split = stages.get("preempt:phase_a", {}).get("estimate", {})
+        expect({"panel_w", "phase_a_full_ms", "phase_a_gated_ms"} <= set(split),
+               f"obs (c): /debug/kernels preempt:phase_a {split}")
+        code, body = get("/metrics")
+        text = body.decode()
+        for family in ("pipeline_cycle_period_seconds", "pipeline_stage_busy_seconds",
+                       "pipeline_stage_occupancy", "pipeline_discards_total",
+                       "pipeline_backpressure_total", "kernel_action_duration_seconds",
+                       "flight_anomalies_total"):
+            expect(f"kube_arbitrator_tpu_{family}" in text, f"obs (c): /metrics lacks {family}")
+        code_ready, _ = get("/readyz")
+        expect(code_ready == 200, f"obs (c): /readyz {code_ready}")
+        import os
+
+        dumps = sorted(os.listdir(f"{tmp}/flight"))
+        expect(len(dumps) == 1 and dumps[0].endswith("slo_breach.json"),
+               f"obs (c): flight dumps {dumps}")
+        with open(f"{tmp}/flight/{dumps[0]}") as f:
+            dumped = json.load(f)["cycles"][-1]
+        expect(set(dumped["digests"]["action_ms"]) == {"open_session", *EVICT_ACTIONS, "commit"},
+               f"obs (c): the dump's action_ms {dumped['digests']['action_ms']}")
+        # the unstaged cycle of the same pack
+        decider = sched.decider
+        stats: dict = {}
+        schedule_cycle(from_numpy(pack_fields, dev), tiers=DEFAULT_TIERS, actions=EVICT_ACTIONS,
+                       stats=stats)
+        want = {}
+        for a in EVICT_ACTIONS:
+            want[a] = stats[f"rounds.{a}"]
+            for k, suffix in (("rounds_gated", "gated"), ("claim_conflicts", "conflicts")):
+                if stats.get(f"{k}.{a}"):
+                    want[f"{a}:{suffix}"] = stats[f"{k}.{a}"]
+        expect(decider.last_action_rounds == want,
+               f"obs (c): staged rounds {decider.last_action_rounds}, unstaged {want}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        tr.enable(False)
+        prof.enable(False)
+    row = dict(world=world, cycle_s=round(cycle_s, 2), spans=len(names), seam_syncs=len(syncs),
+               action_ms={k: round(v, 1) for k, v in decider.last_action_ms.items()},
+               action_rounds=decider.last_action_rounds,
+               kernels={s: dict(measured_ms=round(e["measured"]["mean_ms"], 1),
+                                device_ms=round(e["device_ms"], 2), launches=e["launches"],
+                                device_share=e.get("device_share"),
+                                records_lost=e["estimate"].get("records_lost"))
+                        for s, e in stages.items() if "measured" in e},
+               spins=[prof.lead_spins, prof.trail_spins],
+               phase_a=split, shape=key, flight_dump=dumps[0], lost_passes=lost,
+               retakes=retakes)
+    print(f"obs (c) {json.dumps(row)}; spans, /debug/kernels, /metrics, /readyz and the flight "
+          f"dump hold, staged rounds equal the unstaged cycle's, every sync a seam read; "
+          f"{smi[0] if smi else ''}", flush=True)
+    return launched, row
+
+
+def trace_records(path: str) -> tuple:
+    """profiled_records' counts from a written Chrome trace: (device
+    events, host launch records, K1's device events, spin seen)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host = sum(1 for e in events if e.get("ph") == "X" and str(e.get("name", "")).startswith(
+        ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy", "cuMemset", "cuMemcpy")))
+    spin = sum(SPIN in str(e.get("name", "")) for e in dev)
+    k1 = sum("admit" in str(e.get("name", "")) for e in dev)
+    return len(dev) - spin, max(host - spin, 0), k1, spin > 0
+
+
+def profile_dir_leg(dev, smi, world, tmp: str) -> dict:
+    """Phase 13 (d): one pipelined cycle of ``generate_cluster(**world)``
+    under ``Scheduler(arena=True, profile_dir=...)``: the step's trace
+    file is there and its device events include K1's (trace_records, as
+    many as the step launched K1)."""
+    import os
+
+    from kube_arbitrator_tpu_torch.cache.sim import generate_cluster
+    from kube_arbitrator_tpu_torch.cache.snapshot import set_sticky_buckets
+    from kube_arbitrator_tpu_torch.framework import Scheduler, TorchDecider
+    from kube_arbitrator_tpu_torch.ops import kernels
+
+    set_sticky_buckets(True)
+    sched = Scheduler(generate_cluster(**world), decider=TorchDecider(dev), arena=True,
+                      profile_dir=f"{tmp}/profile")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    sched.run_pipelined(max_cycles=1, until_idle=False)
+    step_s = time.perf_counter() - t0
+    k1_launched = kernels.counts()["admit_chunk"]
+    files = sorted(os.listdir(f"{tmp}/profile"))
+    expect(files == ["step-000001.pt.trace.json"], f"profile (d): files {files}")
+    path = f"{tmp}/profile/{files[0]}"
+    n_dev, n_host, k1, spin = trace_records(path)
+    expect(k1_launched > 0 and k1 > 0, f"profile (d): K1 launched {k1_launched}, {k1} K1 events "
+           "in the trace")
+    row = dict(world=world, step_s=round(step_s, 2), trace_mb=round(os.path.getsize(path) / 2**20, 1),
+               device_events=n_dev, host_launch_records=n_host, k1_events=k1,
+               k1_launches=k1_launched, spin_seen=spin)
+    print(f"profile (d) {json.dumps(row)}; {smi[0] if smi else ''}", flush=True)
+    return row
+
+
 def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5556,6 +6127,21 @@ def main(kernels_only: bool = False) -> int:
     print(f"pool (c) {time.perf_counter() - t1:.1f} s", flush=True)
     print(f"phase 12 (decision pool, B15) {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 13: the pipelined executor and the observability planes
+    t0 = time.perf_counter()
+    pipe_a, _ = pipeline_equivalence(dev, smi, SCHED_A, PIPE_CYCLES, SCHED_A_42)
+    t1 = time.perf_counter()
+    pipe_b, _ = pipeline_churn(dev, smi, SCHED_B, PIPE_B_STEPS)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        obs_c, _ = obs_planes(dev, smi, SCHED_B, tmp)
+        t3 = time.perf_counter()
+        profile_dir_leg(dev, smi, PIPE_D, tmp)
+    print(f"phase 13 legs: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, "
+          f"(d) {time.perf_counter() - t3:.1f} s", flush=True)
+    print(f"phase 13 (pipelined executor, observability planes) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     replaces = {
         "admit_chunk": ("kube_arbitrator_tpu_torch/ops/kernels/csrc/admit_chunk.cu",
                         "kube_arbitrator_tpu/ops/allocate.py:793"),
@@ -5601,7 +6187,8 @@ def main(kernels_only: bool = False) -> int:
     paths = dict(allocate=counts, evictive=evict_counts, pa_evict=pa_counts, binpack=order_counts,
                  q512_evict=opt_counts, serving_5_epochs=serve_counts, priority_mix=mix_counts,
                  scheduler_a=sched_a, scheduler_b=sched_b, live_a=live_a, live_b=live_b,
-                 pool_north_star=pool_a, pool_evictive=pool_b)
+                 pool_north_star=pool_a, pool_evictive=pool_b, pipelined_a=pipe_a,
+                 pipelined_live_b=pipe_b, observed_c=obs_c)
     kline = []
     for k, r in rows.items():
         if k in ("admit_chunk", "lex_argmin", "decode_deferred", "segment_sum"):

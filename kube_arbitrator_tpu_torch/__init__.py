@@ -24,7 +24,12 @@ find:
 * ``ops/diagnostics.py`` — the "why not scheduled" messages;
 * ``framework/``        — ``Scheduler`` and ``Session`` (snapshot ->
   ``TorchDecider`` -> decode -> actuation -> status write-back), the
-  conf (YAML) and the registries.
+  conf (YAML) and the registries;
+* ``pipeline/``         — the pipelined executor (``Scheduler.run_pipelined``),
+  its delta journal and the revalidate-or-discard gate;
+* ``utils/``            — metrics, tracing, the flight recorder, the time
+  series, the kernel profiler, the concurrency sanitizer; ``obs.py``
+  serves them.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (:func:`resolve_device`).

@@ -45,11 +45,18 @@ needs; and a moved static is no reason for a full upload, since no
 compiled program is keyed by it here (the rv_* arrays whose shape moved
 with it are placed whole by the field rule above).
 
+The pipeline plane's journal tee is the reference's (its :401-484): with
+``arena.journal`` set (pipeline/journal.DeltaJournal, attached by the
+pipelined executor), every sink call is mirrored into the journal before
+the arena's own bookkeeping, even while the arena is marked structural.
+Each pack is traced as the reference's is (``arena.delta`` /
+``arena.rebuild`` / ``arena.verify`` / ``arena.diff`` spans) and counted
+(``snapshot_full_rebuilds_total{reason}``, ``snapshot_delta_rows``).
+
 Not ported: the arena's own device placement (``device_pack``, the
 decider owns its :class:`DeviceResident`), the sharded resident
-(``_ShardedResident``, ``device_pack_sharded``, ``shard_dirty_rows``),
-the pipeline plane's journal tee, the chaos seams (``corrupt``,
-``pick_clean_node_row``), and the tracer spans and metrics.
+(``_ShardedResident``, ``device_pack_sharded``, ``shard_dirty_rows``)
+and the chaos seams (``corrupt``, ``pick_clean_node_row``).
 """
 from __future__ import annotations
 
@@ -63,6 +70,8 @@ import torch
 from ..api import resource as res
 from ..api.types import TaskStatus
 from ..ops.kernels.row_scatter import RowScatterPlan
+from ..utils.metrics import metrics
+from ..utils.tracing import tracer
 from .snapshot import (
     HOST_SCHEMA,
     SCHEMA,
@@ -248,6 +257,11 @@ class SnapshotArena:
         backend.delta_sink = self
         self.uid = uuid.uuid4().hex[:8]
         self.epoch = 0
+        # speculation-window tee (pipeline plane): when attached, every
+        # sink call below is mirrored into the journal BEFORE the arena's
+        # own guards — the commit gate needs deltas even when the arena
+        # is already marked structural.  None costs one attribute read.
+        self.journal = None
         self.pack_meta: Optional[PackMeta] = None
         self.last_rebuild_reason: Optional[str] = None
         self.last_delta_rows = 0
@@ -293,6 +307,8 @@ class SnapshotArena:
         :meth:`structural` — but the pack-time guards catch a mis-filed
         one and fall back, so a conservative extra call here is always
         safe."""
+        if self.journal is not None:
+            self.journal.task_dirty(uid, node_name)
         if self._structural is None:
             self._dirty_tasks.add(uid)
             if node_name:
@@ -305,11 +321,15 @@ class SnapshotArena:
         like the scalar default.  Dirty-set semantics are identical to
         the equivalent scalar call sequence, so packs cannot tell which
         surface the producer used."""
+        if self.journal is not None:
+            self.journal.task_dirty_rows(uids, node_names)
         if self._structural is None:
             self._dirty_tasks.update(uids)
             self._dirty_nodes.update(n for n in node_names if n)
 
     def node_dirty(self, name: str) -> None:
+        if self.journal is not None:
+            self.journal.node_dirty(name)
         if self._structural is None:
             self._dirty_nodes.add(name)
 
@@ -317,6 +337,8 @@ class SnapshotArena:
         """Set membership or an equivalence-class universe changed; the
         next pack rebuilds from scratch.  First reason wins
         (``last_rebuild_reason``)."""
+        if self.journal is not None:
+            self.journal.structural_event(reason)
         if self._structural is None:
             self._structural = reason
             self._dirty_tasks.clear()
@@ -329,6 +351,8 @@ class SnapshotArena:
         rebuild on any structural doubt.  Returns a :class:`Snapshot`
         whose tensors are a :class:`HostPack` of FRESH arrays (stable
         after later packs)."""
+        tr = tracer()
+        m = metrics()
         reason = self._structural
         check = False
         if reason is None and self.verify_every:
@@ -337,11 +361,15 @@ class SnapshotArena:
                 check, self._packs_since_verify = True, 0
         if reason is None:
             try:
-                index = self._apply_deltas()
+                with tr.span("arena.delta", tasks=len(self._dirty_tasks),
+                             nodes=len(self._dirty_nodes)):
+                    index = self._apply_deltas()
             except _StructuralFallback as fb:
                 reason = fb.reason
         if reason is not None:
-            index = self._rebuild()
+            with tr.span("arena.rebuild", reason=reason):
+                index = self._rebuild()
+            m.counter_add("snapshot_full_rebuilds_total", labels={"reason": reason})
         self.last_rebuild_reason = reason
         # pending deltas are consumed (applied or subsumed by a rebuild):
         # clear BEFORE the epoch check so verify()'s own drain guard sees
@@ -352,19 +380,22 @@ class SnapshotArena:
         if reason is None and check:
             # the epoch check: a from-scratch rebuild must agree with the
             # delta-maintained arenas byte for byte (raises otherwise)
-            self.verify()
+            with tr.span("arena.verify"):
+                self.verify()
+            m.counter_add("snapshot_full_rebuilds_total", labels={"reason": "verify"})
 
-        shipped, changed, delta_rows = self._diff_and_ship()
-        # static fields (rv_window) shape the rv_* arrays' window and CAN
-        # move on a pure delta cycle: they must ride changed_fields too,
-        # or a delta upload would patch the rv arrays while the resident
-        # keeps the stale static
-        if self._shipped_statics is not None:
-            for name, val in self._statics.items():
-                if self._shipped_statics.get(name) != val:
-                    changed[name] = "full"
-                    delta_rows += 1
-        self._shipped_statics = dict(self._statics)
+        with tr.span("arena.diff"):
+            shipped, changed, delta_rows = self._diff_and_ship()
+            # static fields (rv_window) shape the rv_* arrays' window and CAN
+            # move on a pure delta cycle: they must ride changed_fields too,
+            # or a delta upload would patch the rv arrays while the resident
+            # keeps the stale static
+            if self._shipped_statics is not None:
+                for name, val in self._statics.items():
+                    if self._shipped_statics.get(name) != val:
+                        changed[name] = "full"
+                        delta_rows += 1
+            self._shipped_statics = dict(self._statics)
         base_key = f"{self.uid}:{self.epoch}" if self._shipped else None
         if changed or not self._shipped:
             self.epoch += 1
@@ -375,6 +406,7 @@ class SnapshotArena:
         self.pack_meta = PackMeta(
             key=key, base_key=base_key, changed_fields=tuple(sorted(changed)),
         )
+        m.gauge_set("snapshot_delta_rows", float(delta_rows))
         tensors = HostPack(**shipped, **self._statics)
         return Snapshot(tensors=tensors, index=index)
 

@@ -8,6 +8,12 @@ decide synthetic worlds with the port.
         [--enable-leader-election --lock-object-namespace DIR] \
         [--enable-namespace-as-queue] [--schedule-period 1] \
         [--metrics-file metrics.prom] [--cycles 2] [--device cpu] [--json]
+    python -m kube_arbitrator_tpu_torch --sim-nodes 100 --arena \
+        [--pipeline [--pipeline-ingest-cap 64]] [--arena-verify-every 64] \
+        [--obs-port 0 [--obs-host 127.0.0.1]] [--trace-sample-rate 1.0] \
+        [--flight-dump-dir DIR --flight-ring 64 --cycle-slo-ms MS] \
+        [--profile-kernels] [--profile-dir DIR] [--device cpu]
+    python -m kube_arbitrator_tpu_torch --print-version
 
     python -m kube_arbitrator_tpu_torch --tasks 100000 --nodes 10000 \\
         --queues 8 --tasks-per-job 100 --cycles 3 --seed 42 [--device cpu] [--json]
@@ -22,11 +28,15 @@ decide synthetic worlds with the port.
 
 With ``--sim-nodes`` (the reference's simulation mode, its cli.py:276),
 ``cache/sim.generate_cluster`` builds the cluster and the port's own
-``framework.Scheduler`` runs cycles over it with an arena
-(``SnapshotArena``): snapshot, ``TorchDecider`` (the card unless
-``--device cpu``), decode, actuation and status write-back, up to
-``--cycles`` cycles (0 or absent: until a cycle binds and evicts
-nothing).  ``--scheduler-conf`` names a YAML conf (PyYAML is imported
+``framework.Scheduler`` runs cycles over it: snapshot (with ``--arena``
+a ``SnapshotArena``, re-verified every ``--arena-verify-every`` packs;
+without it a full rebuild each cycle, as the reference's default is),
+``TorchDecider`` (the card unless ``--device cpu``), decode, actuation
+and status write-back, up to ``--cycles`` cycles (0 or absent: until a
+cycle binds and evicts nothing).  ``--pipeline`` runs the cycles through
+the pipelined executor (``Scheduler.run_pipelined``; it implies
+``--arena``; ``--pipeline-ingest-cap`` bounds the watch pumps per
+in-flight decide).  ``--scheduler-conf`` names a YAML conf (PyYAML is imported
 only then).  Each cycle prints its phase times, binds, evicts and upload
 mode; the last line sums the cycles, binds and evicts.
 
@@ -43,6 +53,24 @@ a ``framework/leader.LeaderElector`` lease at
 format after the run (:572-576).  These also apply to ``--sim-nodes``.
 ``--schedule-period`` sets ``ServerOptions.schedule_period_s`` only: the
 loop runs its cycles back to back, as the reference's does.
+``--scheduler-name`` names the lock and the scheduler, ``--default-queue``
+is the queue of jobs that name none, ``--sanitize`` runs under the
+concurrency sanitizer (utils/locking.py), ``--print-version`` prints the
+version and exits.
+
+The observability planes (the reference's cli.py:59-190): any of
+``--obs-port``, ``--flight-dump-dir``, ``--cycle-slo-ms``,
+``--profile-kernels`` and ``--starvation-slo-s`` turns on span tracing
+(``--trace-sample-rate`` of the cycles), a flight recorder of
+``--flight-ring`` cycles dumping into ``--flight-dump-dir`` on an
+anomaly (a cycle over ``--cycle-slo-ms`` among them) and the per-cycle
+time series with its SLO burn monitor; traced cycles decide through the
+staged runner.  ``--profile-kernels`` turns on the kernel profiler
+(``/debug/kernels``), ``--profile-dir`` writes a torch.profiler trace of
+each cycle, and ``--obs-port`` serves the planes (obs.py) on
+``--obs-host``.  ``--starvation-slo-s`` is accepted for the reference's
+flag set, but its check belongs to the decision audit plane, which the
+port has not ported: it only turns the planes on.
 
 Otherwise each cycle decides a fresh world (seed, seed+1, ...) with the default
 tiers (``--node-order`` sets their nodeorder plugin's policy) and the
@@ -78,6 +106,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .cache.arena import SnapshotArena
 from .cache.decode import decode_binds
 from .cache.fakeapi import FakeApiServer
 from .cache.live import LiveCache
@@ -88,11 +117,17 @@ from .device import resolve_device
 from .framework import LeaderElector, Scheduler, SchedulerConfig, TorchDecider
 from .framework.conf import load_conf_file
 from .options import options, set_options
+from .utils import locking
+from .utils.flightrec import FlightRecorder
 from .utils.metrics import metrics
+from .utils.profiling import profiler
+from .utils.timeseries import CycleSampler
+from .utils.tracing import tracer
 from .ops.cycle import schedule_cycle
 from .ops.ordering import DEFAULT_ACTIONS, NODE_ORDER_POLICIES, with_node_order
 
 CHURN = 0.04  # the reference bench's BENCH_PIPE_CHURN default (bench.py:866)
+__version__ = "0.1.0"  # the reference package's version
 
 
 def _sync(device: torch.device) -> None:
@@ -182,14 +217,27 @@ def serve_backend(
     config: Optional[SchedulerConfig] = None,
     device=None,
     elector: Optional[LeaderElector] = None,
+    arena=True,
+    pipeline: bool = False,
+    ingest_cap: int = 64,
+    on_start=None,
+    **planes,
 ) -> Tuple[Scheduler, List[Dict]]:
-    """The port's ``Scheduler(backend, arena=True)`` on ``device`` (under
-    ``elector`` when given) -> ``run(max_cycles=cycles)``.  Returns the
-    scheduler and one row per completed cycle: its CycleStats, upload
-    mode and bytes included."""
-    sched = Scheduler(backend, config=config, decider=TorchDecider(device), arena=True,
-                      elector=elector)
-    sched.run(max_cycles=cycles)
+    """The port's ``Scheduler(backend, arena=arena, **planes)`` on
+    ``device`` (under ``elector`` when given) -> ``run(max_cycles=cycles)``,
+    or ``run_pipelined`` with ``pipeline``.  ``planes`` are the
+    Scheduler's observability arguments (``flight``, ``cycle_slo_ms``,
+    ``timeseries``, ``profile_dir``); ``on_start`` is called with the
+    scheduler before its first cycle.  Returns the scheduler and one row
+    per completed cycle: its CycleStats, upload mode and bytes included."""
+    sched = Scheduler(backend, config=config, decider=TorchDecider(device), arena=arena,
+                      elector=elector, **planes)
+    if on_start is not None:
+        on_start(sched)
+    if pipeline:
+        sched.run_pipelined(max_cycles=cycles, max_ingest_per_wait=ingest_cap)
+    else:
+        sched.run(max_cycles=cycles)
     rows = [dict(cycle=i + 1, **dataclasses.asdict(st)) for i, st in enumerate(sched.history)]
     return sched, rows
 
@@ -228,6 +276,49 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="treat namespaces as queues instead of Queue objects")
     ap.add_argument("--metrics-file", default="",
                     help="write Prometheus-text metrics here after the run")
+    ap.add_argument("--scheduler-name", default="kube-batch", help="scheduler identity")
+    ap.add_argument("--default-queue", default="default", help="queue for jobs that name none")
+    ap.add_argument("--print-version", action="store_true")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run under the concurrency sanitizer shim (witnessed locks, "
+                         "guarded-state checks; same as KAT_SANITIZE=1)")
+    # the incremental snapshot plane and the pipelined executor
+    ap.add_argument("--arena", action="store_true",
+                    help="with --sim-nodes or --watch-stream: maintain the pack incrementally "
+                         "(SnapshotArena) instead of a full rebuild per cycle")
+    ap.add_argument("--arena-verify-every", type=int, default=64, metavar="N",
+                    help="with --arena: every N-th pack rebuilt from scratch and compared "
+                         "(0 = never)")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="run cycles through the pipelined executor: one epoch decides on a "
+                         "worker thread while the next ingests, with commit-time "
+                         "revalidation (implies --arena)")
+    ap.add_argument("--pipeline-ingest-cap", type=int, default=64, metavar="N",
+                    help="with --pipeline: watch pumps per in-flight decide before ingest "
+                         "blocks (backpressure; default 64)")
+    # the observability planes
+    ap.add_argument("--profile-dir", default="",
+                    help="write a torch.profiler trace of each cycle into this directory")
+    ap.add_argument("--profile-kernels", action="store_true",
+                    help="kernel cost attribution: staged cycles, measured stage times and "
+                         "profiled device time per stage and shape at /debug/kernels")
+    ap.add_argument("--trace-sample-rate", type=float, default=1.0, metavar="RATE",
+                    help="fraction of cycles span-traced (deterministic stride; default 1.0)")
+    ap.add_argument("--flight-dump-dir", default="",
+                    help="flight recorder: dump the last --flight-ring cycles' digests here "
+                         "as JSON whenever an anomaly fires")
+    ap.add_argument("--flight-ring", type=int, default=64,
+                    help="flight-recorder ring capacity in cycles (default 64)")
+    ap.add_argument("--cycle-slo-ms", type=float, default=0.0,
+                    help="cycle-latency SLO in ms: a slower cycle dumps the flight ring, and "
+                         "the time series burns its error budget over it (0 = off)")
+    ap.add_argument("--starvation-slo-s", type=float, default=0.0,
+                    help="accepted for the reference's flag set; its check waits for the "
+                         "decision audit plane (it turns the observability planes on)")
+    ap.add_argument("--obs-port", type=int, default=None, metavar="PORT",
+                    help="serve the observability plane on this port (0 = ephemeral)")
+    ap.add_argument("--obs-host", default="127.0.0.1",
+                    help="bind address for --obs-port (default 127.0.0.1)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--running-fraction", type=float, default=0.0,
                     help="fraction of jobs pre-placed RUNNING (the evictive actions' victims)")
@@ -248,22 +339,33 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: the GPU)")
     ap.add_argument("--json", action="store_true", help="one JSON object per cycle")
     a = ap.parse_args(argv)
+    if a.print_version:
+        print(f"kube-arbitrator-tpu {__version__}")
+        return 0
+    if a.sanitize:
+        # before any plane constructs its locks
+        locking.force_sanitize(True)
     sim_flags = (a.sim_jobs, a.sim_tasks_per_job, a.sim_queues, a.sim_seed)
     if a.sim_nodes is None and any(f is not None for f in sim_flags):
         ap.error("--sim-jobs, --sim-tasks-per-job, --sim-queues and --sim-seed need --sim-nodes")
     if a.sim_nodes is not None and a.watch_stream is not None:
         ap.error("--sim-nodes and --watch-stream exclude each other")
     loop = a.sim_nodes is not None or a.watch_stream is not None
+    obs_enabled = bool(a.obs_port is not None or a.flight_dump_dir or a.cycle_slo_ms
+                       or a.profile_kernels or a.starvation_slo_s)
     if not loop and (a.scheduler_conf or a.enable_leader_election
-                     or a.enable_namespace_as_queue or a.metrics_file):
-        ap.error("--scheduler-conf, --enable-leader-election, --enable-namespace-as-queue "
-                 "and --metrics-file need --sim-nodes or --watch-stream")
+                     or a.enable_namespace_as_queue or a.metrics_file or a.arena
+                     or a.pipeline or a.profile_dir or obs_enabled):
+        ap.error("--scheduler-conf, --enable-leader-election, --enable-namespace-as-queue, "
+                 "--metrics-file, --arena, --pipeline, --profile-dir and the observability "
+                 "flags need --sim-nodes or --watch-stream")
     actions = tuple(x.strip() for x in a.actions.split(",") if x.strip())
     if loop:
         # CheckOptionOrDie before anything touches the device
         # (server.go:58-66)
         opts = dataclasses.replace(
-            options(), schedule_period_s=a.schedule_period,
+            options(), scheduler_name=a.scheduler_name, default_queue=a.default_queue,
+            schedule_period_s=a.schedule_period,
             namespace_as_queue=a.enable_namespace_as_queue,
             scheduler_conf=a.scheduler_conf or "",
             enable_leader_election=a.enable_leader_election,
@@ -296,7 +398,36 @@ def main(argv: Optional[List[str]] = None) -> int:
                 num_nodes=a.sim_nodes, num_jobs=20 if a.sim_jobs is None else a.sim_jobs,
                 tasks_per_job=50 if a.sim_tasks_per_job is None else a.sim_tasks_per_job,
                 num_queues=4 if a.sim_queues is None else a.sim_queues, seed=a.sim_seed or 0)
-        sched, rows = serve_backend(backend, a.cycles or 0, config, dev, elector)
+        planes = dict(profile_dir=a.profile_dir or None)
+        if obs_enabled:
+            tracer().enable()
+            tracer().sample_rate = a.trace_sample_rate
+            flight = FlightRecorder(capacity=a.flight_ring, dump_dir=a.flight_dump_dir or None)
+            planes.update(flight=flight, cycle_slo_ms=a.cycle_slo_ms or None,
+                          timeseries=CycleSampler(slo_ms=a.cycle_slo_ms or None, flight=flight))
+        if a.profile_kernels:
+            profiler().enable()
+        servers, on_start = [], None
+        if a.obs_port is not None:
+            def on_start(sched):
+                from .obs import scheduler_status_fn, serve_obs
+
+                server, _thread, url = serve_obs(
+                    host=a.obs_host, port=a.obs_port, flight=planes.get("flight"),
+                    status_fn=scheduler_status_fn(sched), timeseries=planes.get("timeseries"))
+                servers.append(server)
+                print(f"observability plane on {url}", file=sys.stderr, flush=True)
+
+        arena = (SnapshotArena(backend, verify_every=a.arena_verify_every)
+                 if a.arena or a.pipeline else None)
+        try:
+            sched, rows = serve_backend(backend, a.cycles or 0, config, dev, elector, arena=arena,
+                                        pipeline=a.pipeline, ingest_cap=a.pipeline_ingest_cap,
+                                        on_start=on_start, **planes)
+        finally:
+            for server in servers:
+                server.shutdown()
+                server.server_close()
         for row in rows:
             if a.json:
                 print(json.dumps(dict(row, device=name)), flush=True)

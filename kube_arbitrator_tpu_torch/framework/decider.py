@@ -11,6 +11,17 @@ writes the changed rows in place (K18); otherwise it uploads every field
 (:class:`ResidentPack`, which the decision pool's replicas hold too).
 It then runs the port's ``schedule_cycle`` and returns host numpy
 decisions with the reference's field names.
+
+When the tracer samples the cycle (utils/tracing.py) or the kernel
+profiler is on (utils/profiling.py), the cycle runs through the staged
+runner (``ops/cycle.schedule_cycle_staged``) instead, as the reference's
+``LocalDecider`` does (its framework/decider.py:66-100): each stage
+becomes a ``kernel.<stage>`` span, its wall ms lands in
+``last_action_ms`` and each action's rounds in ``last_action_rounds``
+(with ``<action>:gated`` and ``<action>:conflicts`` entries where they
+are not zero), each dict published in one assignment.  Otherwise both
+are left empty.  Its device work comes from one thread
+(ops/kernels/build.check_launch_thread).
 """
 from __future__ import annotations
 
@@ -23,7 +34,11 @@ import torch
 from ..cache.arena import ARRAY_FIELDS, DeviceResident, changed_rows
 from ..cache.snapshot import SnapshotTensors
 from ..device import DeviceLike, resolve_device
-from ..ops.cycle import CycleDecisions, decisions_to_host, schedule_cycle
+from ..ops.cycle import CycleDecisions, decisions_to_host, schedule_cycle, schedule_cycle_staged
+from ..ops.kernels.build import check_launch_thread
+from ..utils.metrics import metrics
+from ..utils.profiling import profiler
+from ..utils.tracing import tracer
 from .conf import from_config
 
 
@@ -108,8 +123,8 @@ class TorchDecider:
     def __init__(self, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.pack = ResidentPack()
-        # per-stage times and rounds: empty, as the reference's are with
-        # observability off
+        # per-stage times and rounds of the last staged decide (empty
+        # otherwise, as the reference's are with observability off)
         self.last_action_ms: Dict[str, float] = {}
         self.last_action_rounds: Dict[str, int] = {}
         self.last_upload_ms = 0.0
@@ -129,20 +144,47 @@ class TorchDecider:
 
     def upload(self, st, pack_meta=None) -> SnapshotTensors:
         """The resident pack after this epoch (:meth:`ResidentPack.upload`)."""
+        check_launch_thread("TorchDecider.upload")
         t0 = time.perf_counter()
         out = self.pack.upload(st, pack_meta, self.device)
         self.last_upload_ms = (time.perf_counter() - t0) * 1e3
+        if self.last_mode != "reuse":
+            metrics().counter_add("device_upload_bytes_total", self.last_upload_bytes,
+                                  labels={"mode": self.last_mode})
         return out
 
     def decide(self, st, config, pack_meta=None) -> Tuple[CycleDecisions, float]:
         """One cycle of ``config`` (the port's SchedulerConfig or any
         object with ``.actions`` and ``.tiers``) on the pack ``st``."""
         conf = from_config(config)
+        check_launch_thread("TorchDecider.decide")
+        caps = getattr(pack_meta, "decode_caps", None)
+        tr = tracer()
         t0 = time.perf_counter()
         pack = self.upload(st, pack_meta)
         t1 = time.perf_counter()
-        dec = schedule_cycle(pack, tiers=conf.tiers, actions=conf.actions,
-                             decode_caps=getattr(pack_meta, "decode_caps", None))
+        if (tr.enabled and tr.current_corr_id() is not None) or profiler().enabled:
+            dec, stages = schedule_cycle_staged(pack, tiers=conf.tiers, actions=conf.actions,
+                                                decode_caps=caps)
+            # built locally, published in one assignment each: a reader on
+            # another thread sees the previous dict or this one, whole
+            action_ms: Dict[str, float] = {}
+            action_rounds: Dict[str, int] = {}
+            for stage, ts, ms, rounds, rounds_gated, conflicts in stages:
+                action_ms[stage] = ms
+                if rounds is not None:
+                    action_rounds[stage] = rounds
+                    if rounds_gated:
+                        action_rounds[f"{stage}:gated"] = rounds_gated
+                    if conflicts:
+                        action_rounds[f"{stage}:conflicts"] = conflicts
+                tr.record_span(f"kernel.{stage}", ts, ms / 1000)
+            self.last_action_ms = action_ms
+            self.last_action_rounds = action_rounds
+        else:
+            self.last_action_ms = {}
+            self.last_action_rounds = {}
+            dec = schedule_cycle(pack, tiers=conf.tiers, actions=conf.actions, decode_caps=caps)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_cycle_ms = (time.perf_counter() - t1) * 1e3

@@ -15,6 +15,11 @@ device itself, so the session hands it the host pack in every case; the
 reference's device-pack and mesh branches of ``upload_phase`` are not
 ported.  The decider's own upload time is reported as ``upload_ms`` and
 its cycle time as ``kernel_ms``.
+
+Each phase is its own tracer span (``snapshot`` / ``upload`` / ``decide``
+/ ``decode`` / ``close``, utils/tracing.py), so the pipelined executor,
+which runs snapshot and upload on its ingest thread and the rest on its
+decide worker, traces the same tree as a sequential cycle.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ from ..cache.sim import BindIntent, EvictIntent
 from ..cache.snapshot import Snapshot, build_snapshot
 from ..ops.cycle import CycleDecisions
 from ..ops.diagnostics import HostView, _fit_messages
+from ..utils.metrics import metrics
+from ..utils.tracing import tracer
 from .conf import SchedulerConfig
 
 # Cap on per-cycle FitError explanations: the first N unready gangs get the
@@ -226,11 +233,12 @@ class Session:
     # phase hook inside, timing by caller.
 
     def snapshot_phase(self) -> Snapshot:
-        snap = (
-            self.arena.snapshot()
-            if self.arena is not None
-            else build_snapshot(self.cluster)
-        )
+        with tracer().span("snapshot"):
+            snap = (
+                self.arena.snapshot()
+                if self.arena is not None
+                else build_snapshot(self.cluster)
+            )
         if self.phase_hook is not None:
             self.phase_hook("snapshot")
         return snap
@@ -243,7 +251,8 @@ class Session:
         None (the decider uploads the pack whole)."""
         st, pack_meta = snap.tensors, None
         if self.arena is not None:
-            pack_meta = self.arena.pack_meta
+            with tracer().span("upload"):
+                pack_meta = self.arena.pack_meta
             if self.phase_hook is not None:
                 self.phase_hook("upload")
         return st, pack_meta
@@ -256,10 +265,11 @@ class Session:
         and 0); transport is the decide wall minus both."""
         decider = self._decider()
         t0 = time.perf_counter()
-        if pack_meta is not None:
-            dec, call_ms = decider.decide(st, self.config, pack_meta=pack_meta)
-        else:
-            dec, call_ms = decider.decide(st, self.config)
+        with tracer().span("decide", tasks=len(snap.tensors.task_valid)):
+            if pack_meta is not None:
+                dec, call_ms = decider.decide(st, self.config, pack_meta=pack_meta)
+            else:
+                dec, call_ms = decider.decide(st, self.config)
         wall_ms = (time.perf_counter() - t0) * 1000
         kernel_ms = float(getattr(decider, "last_cycle_ms", call_ms))
         upload_ms = float(getattr(decider, "last_upload_ms", 0.0))
@@ -282,37 +292,44 @@ class Session:
         no intent objects are built here — batched actuation consumes the
         ordinals.  ``last_decode_path`` records which path decoded:
         "compact", "dense" (no lists) or "overflowed" (the lists were
-        present but a count passed its cap)."""
-        batch = decode_batch_compact(snap, dec)
-        if batch is not None:
-            binds, evicts = batch.binds, batch.evicts
-            self.last_decode_path = "compact"
-            if _decode_parity_armed():
+        present but a count passed its cap).  Counted in
+        ``decode_path_total{path}`` and ``decode_overflow_total``."""
+        with tracer().span("decode"):
+            batch = decode_batch_compact(snap, dec)
+            if batch is not None:
+                binds, evicts = batch.binds, batch.evicts
+                self.last_decode_path = "compact"
+                metrics().counter_add("decode_path_total", labels={"path": "compact"})
+                if _decode_parity_armed():
+                    ref = decode_batch(snap, dec)
+                    if not (
+                        np.array_equal(binds.rows, ref.binds.rows)
+                        and np.array_equal(binds.node_ords, ref.binds.node_ords)
+                        and np.array_equal(evicts.rows, ref.evicts.rows)
+                    ):
+                        raise AssertionError(
+                            "decode contract violation: compact ints-out "
+                            "columns diverged from the dense-mask oracle "
+                            f"({len(binds)}/{len(ref.binds)} binds, "
+                            f"{len(evicts)}/{len(ref.evicts)} evicts)"
+                        )
+            else:
+                # lists fully present but a count exceeded its cap: the
+                # bounded-list contract overflowed this cycle (a PARTIAL set
+                # is absence, not overflow)
+                self.last_decode_path = "overflowed" if decode_lists_present(dec) else "dense"
+                if self.last_decode_path == "overflowed":
+                    metrics().counter_add("decode_overflow_total")
+                metrics().counter_add("decode_path_total", labels={"path": "dense"})
                 ref = decode_batch(snap, dec)
-                if not (
-                    np.array_equal(binds.rows, ref.binds.rows)
-                    and np.array_equal(binds.node_ords, ref.binds.node_ords)
-                    and np.array_equal(evicts.rows, ref.evicts.rows)
-                ):
-                    raise AssertionError(
-                        "decode contract violation: compact ints-out "
-                        "columns diverged from the dense-mask oracle "
-                        f"({len(binds)}/{len(ref.binds)} binds, "
-                        f"{len(evicts)}/{len(ref.evicts)} evicts)"
-                    )
-        else:
-            # lists fully present but a count exceeded its cap: the
-            # bounded-list contract overflowed this cycle (a PARTIAL set
-            # is absence, not overflow)
-            self.last_decode_path = "overflowed" if decode_lists_present(dec) else "dense"
-            ref = decode_batch(snap, dec)
-            binds, evicts = ref.binds, ref.evicts
+                binds, evicts = ref.binds, ref.evicts
         if self.phase_hook is not None:
             self.phase_hook("decode")
         return binds, evicts
 
     def close_phase(self, snap: Snapshot, dec: CycleDecisions) -> Dict[str, PodGroupStatus]:
-        return self._close(snap, dec)
+        with tracer().span("close"):
+            return self._close(snap, dec)
 
     def run(self) -> CycleResult:
         t0 = time.perf_counter()

@@ -30,12 +30,16 @@ from .kernels.stable_sort import segment_order
 from .ordering import DEFAULT_ACTIONS, DEFAULT_TIERS, Tiers
 from .steps import drive, drive_many, stepped
 from .preempt import (
+    phase_a_probe,
     preempt_action,
+    preempt_panel_width,
     reclaim_action,
     reclaim_batch_fallback_reason,
     reclaim_engine_fallback_reason,
     turn_batch_fallback_reason,
 )
+from ..utils import profiling
+from ..utils.metrics import metrics
 
 
 @stepped
@@ -234,24 +238,35 @@ def cycle_steps(st: SnapshotTensors, tiers: Tiers = DEFAULT_TIERS,
     reads (ops/steps.py) that returns the CycleDecisions.  With
     ``on_stage``, the device is synchronised at each stage boundary and
     ``on_stage(stage, wall_ts, ms, state)`` is called after each stage
-    (``state`` the action's result, None for open_session and commit)."""
+    (``state`` the action's result, None for open_session and commit);
+    with the kernel profiler on (utils/profiling.py), each stage also
+    runs in its stage scope, the first run of a (shape, stage) under its
+    profiled pass, and the state preempt enters with is probed once per
+    shape for the phase-A split (:func:`_measure_phase_split`)."""
     dev = st.device
+    prof = profiling.profiler()
+    key = profiling.shape_key(st) if on_stage is not None and prof.enabled else None
 
     def stage(name, gen, state_of=None):
         if on_stage is None:
             return (yield from gen)
-        ts = time.time()
-        t0 = time.perf_counter()
-        out = yield from gen
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        on_stage(name, ts, (time.perf_counter() - t0) * 1e3, state_of(out) if state_of else None)
+        with prof.stage_scope(name), prof.estimate_scope(key, name, dev):
+            ts = time.time()
+            t0 = time.perf_counter()
+            out = yield from gen
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        on_stage(name, ts, ms, state_of(out) if state_of else None)
         return out
 
     sess, state = yield from stage("open_session", open_session.steps(st, tiers))
     for action in actions:
         if action not in ACTION_KERNELS:
             raise ValueError(f"unknown action: {action}")
+        if action == "preempt" and key is not None:
+            prof.ensure_phase_split(key, lambda state=state: _measure_phase_split(
+                st, sess, state, tiers, s_max))
         kernel = ACTION_KERNELS[action]
         args = (st, sess, state, tiers)
         kw = dict(s_max=s_max, max_rounds=max_rounds)
@@ -333,8 +348,12 @@ def schedule_cycle_staged(
     ``open_session``, each action and ``commit``; the three counters are
     the action's ``AllocState`` counters after the stage (None for the
     other stages).  Before the cycle, an evictive action whose fast
-    engine this pack cannot take is named once per (action, reason) on
-    stderr."""
+    engine this pack cannot take is counted in
+    ``turn_batch_fallback_total{action, reason}`` and named once per
+    (action, reason) on stderr.  With the kernel profiler on
+    (utils/profiling.py), the cycle's stage times land in its table under
+    the pack's shape key, with the per-shape profiled pass and phase-A
+    split :func:`cycle_steps` takes."""
     timings: List[tuple] = []
 
     def record(stage, ts, ms, state):
@@ -344,6 +363,9 @@ def schedule_cycle_staged(
 
     _record_fallback_reasons(st, tiers, actions)
     dec = drive(cycle_steps(st, tiers, tuple(actions), s_max, max_rounds, decode_caps, record))
+    prof = profiling.profiler()
+    if prof.enabled:
+        prof.record_cycle(profiling.shape_key(st), timings)
     return dec, timings
 
 
@@ -352,10 +374,10 @@ _FALLBACKS_SEEN: set = set()
 
 
 def _record_fallback_reasons(st, tiers, actions) -> None:
-    """Print, once per (action, reason) and process, that an evictive
-    action's fast engine is disabled for this pack and what runs
-    instead (the reference's text; its metrics counter waits for the
-    port's metrics registry)."""
+    """Count ``turn_batch_fallback_total{action, reason}`` each staged
+    cycle whose evictive action's fast engine is disabled for this pack,
+    and print once per (action, reason) and process what runs instead
+    (the reference's counter and text)."""
     for action, reason_fn, fell_to in (
         ("preempt", turn_batch_fallback_reason, "sequential turn loop"),
         ("reclaim", reclaim_batch_fallback_reason, "sorted-space _reclaim_fast kernel"),
@@ -365,11 +387,37 @@ def _record_fallback_reasons(st, tiers, actions) -> None:
         if action not in actions:
             continue
         reason = reason_fn(st, tiers)
-        if reason is None or (action, reason) in _FALLBACKS_SEEN:
+        if reason is None:
+            continue
+        metrics().counter_add("turn_batch_fallback_total",
+                              labels={"action": action, "reason": reason})
+        if (action, reason) in _FALLBACKS_SEEN:
             continue
         _FALLBACKS_SEEN.add((action, reason))
         print(f"# kat: {action} fast-path engine disabled for this pack shape "
               f"(reason={reason}); running the {fell_to}", file=sys.stderr)
+
+
+def _measure_phase_split(st, sess, state, tiers, s_max: int) -> Dict[str, float]:
+    """One preempt round's phase A at this pack shape, full and gated
+    (ops/preempt.phase_a_probe), host-timed: the best of three after a
+    warm run, each run ending in its read through the seam.  The panel is
+    the tier ``preempt_action`` selects for this state
+    (``preempt_panel_width``).  Served at /debug/kernels as
+    ``preempt:phase_a``: tail ~= the preempt stage's mean -
+    rounds_full * full_ms - rounds_gated * gated_ms."""
+    panel_w = preempt_panel_width(st, sess, state)
+    out: Dict[str, float] = {"panel_w": panel_w}
+    for name, gated in (("phase_a_full_ms", False), ("phase_a_gated_ms", True)):
+        kw = dict(s_max=s_max, gated=gated, panel_w=panel_w)
+        phase_a_probe(st, sess, state, tiers, **kw)  # warm: plans bound, kernels built
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            phase_a_probe(st, sess, state, tiers, **kw)
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        out[name] = round(best, 3)
+    return out
 
 
 def commit_cycle(

@@ -270,7 +270,7 @@ class AdmitPlan:
         build.check(self.fn(self.static_ptr, ns, g_sel.data_ptr(), req_s.data_ptr(),
                             budget_s.data_ptr(), ports_s.data_ptr(), has_ports_s.data_ptr(),
                             self.stream), "admit_chunk")
-        admit_chunk.launches += 1
+        build.launched(admit_chunk)
         admit_chunk.variants[self.variant] += 1
         return self.placed_v, self.use_rel_v
 

@@ -9,6 +9,15 @@ never loaded.  :func:`build_all` starts one nvcc per source, all at once.
 Flags: ``-fmad=false`` keeps ``idle - p*req`` from contracting into an FMA
 (the plain versions round the product and the difference separately);
 there is no ``--use_fast_math``, so divisions are IEEE.
+
+Each wrapper counts its launches through :func:`launched`, which also
+holds them to one thread: the plans' outputs are overwritten by their
+next launch and K16's count words are shared by every caller of a
+device, so a caller that moves a cycle's device work onto a thread of
+its own (the pipelined executor's decide worker) pins that thread with
+:func:`pin_launch_thread`, and a launch from any other thread raises,
+naming both.  Functions in :data:`ON_BUILD` are called with (name,
+seconds) after each build (the kernel profiler's build counter).
 """
 from __future__ import annotations
 
@@ -17,9 +26,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -41,6 +51,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _BOUND: Dict[tuple, object] = {}
 # name -> (seconds, ptxas report) of builds this process ran
 BUILD_LOG: Dict[str, tuple] = {}
+# called with (name, seconds) after each successful build
+ON_BUILD: List[Callable[[str, float], None]] = []
 
 
 def _nvcc() -> str:
@@ -82,6 +94,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{err}")
             continue
         os.replace(tmp, target)
+        for fn in ON_BUILD:
+            fn(name, BUILD_LOG[name][0])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {n: BUILD_LOG[n][0] for n in todo}
@@ -110,6 +124,36 @@ def bind(source: str, fn_name: str, signatures: Dict[str, tuple]):
 
 
 # ---- launch helpers shared by the wrappers ----
+
+# the thread every launch must come from (None: any thread)
+_LAUNCH_THREAD: List[Optional[threading.Thread]] = [None]
+
+
+def pin_launch_thread(thread: Optional[threading.Thread]) -> None:
+    """Hold every later launch to ``thread`` (None lifts the pin)."""
+    _LAUNCH_THREAD[0] = thread
+
+
+def launch_thread() -> Optional[threading.Thread]:
+    """The pinned launching thread (None: any thread may launch)."""
+    return _LAUNCH_THREAD[0]
+
+
+def check_launch_thread(what: str) -> None:
+    """Raise unless the calling thread may launch device work."""
+    owner = _LAUNCH_THREAD[0]
+    here = threading.current_thread()
+    if owner is not None and owner is not here:
+        raise RuntimeError(f"{what} launched from thread {here.name!r}; the device work of "
+                           f"this process is pinned to thread {owner.name!r}")
+
+
+def launched(fn, n: int = 1) -> None:
+    """Count ``n`` launches of wrapper (or plan class) ``fn``, from the
+    pinned thread only."""
+    check_launch_thread(fn.__name__)
+    fn.launches += n
+
 
 P = ctypes.c_void_p
 I = ctypes.c_int

@@ -281,7 +281,7 @@ class CanonCommitPlan:
         t.progress_out = build.ptr(progress_out)
         t.progress, t.rounds = progress.data_ptr(), state.rounds
         build.check(self.fn(self.static_ptr, self.turn_ptr, self.stream), "canon_commit")
-        canon_commit.launches += 1
+        build.launched(canon_commit)
 
 
 def canon_commit(st, ctx, state, carry, pick, q, j, g, has_grp, pop, burn_now, req,

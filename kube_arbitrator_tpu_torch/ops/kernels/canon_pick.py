@@ -213,7 +213,7 @@ class CanonPickPlan:
         t.pop, t.req, t.parity = pop.data_ptr(), req.data_ptr(), parity
         build.check(self.fn(self.static_ptr, self.turn_ptr, self.stream), "canon_pick")
         self.launched += 1
-        canon_pick.launches += 1
+        build.launched(canon_pick)
         return self.words[parity]
 
     @property

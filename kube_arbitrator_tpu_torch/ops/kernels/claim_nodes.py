@@ -311,7 +311,7 @@ class ClaimNodesPlan:
         c.phase = phase
         c.seq = c.seq % 0xFFFFFFFF + 1  # 1, 2, ..., never 0 (the zeroed words' number)
         build.check(self.fn(self.static_ptr, self.call_ptr, self.stream), "claim_nodes")
-        ClaimNodesPlan.launches += 1
+        build.launched(ClaimNodesPlan)
 
     def _check_turn(self, victims, node_rank, node_cum, node_ports, node_num_tasks, g, req,
                     budget, has_grp, was_ready, need) -> None:

@@ -209,4 +209,4 @@ class DecodePlan:
             raise ValueError("decode_deferred: any_a and any_p must be one bool each on the card")
         self.call.any_a, self.call.any_p = any_a.data_ptr(), any_p.data_ptr()
         build.check(self.fn(self.static_ptr, self.call_ptr, self.stream), "decode_deferred")
-        DecodePlan.launches += 1
+        build.launched(DecodePlan)

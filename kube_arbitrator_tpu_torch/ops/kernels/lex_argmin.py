@@ -214,7 +214,7 @@ class TurnPickPlan:
         c.job_share = job_share.data_ptr() if "share" in self.needs else 0
         c.grp_elig, c.q_wide = grp_elig.data_ptr(), int(q.dtype == torch.int64)
         build.check(self.fn(self.static_ptr, out["call_ptr"], self.stream), "turn_pick")
-        TurnPickPlan.launches += 1
+        build.launched(TurnPickPlan)
 
     def _check(self, out, q, ok, q_entry, queue_alloc, job_has_pending, job_ready, job_share,
                grp_elig):

@@ -176,7 +176,7 @@ class OrderedScanPlan:
         c.seq = c.seq % 0xFFFFFFFF + 1  # 1, 2, ..., never 0 (the zeroed words' number)
         build.check(self.fn(self.static_ptr, self.call_ptr, self.stream), "ordered_scan")
         c.base = (c.base + self.shape["ctas"]) & 0xFFFFFFFF
-        ordered_scan.launches += 1
+        build.launched(ordered_scan)
         return self.out
 
 

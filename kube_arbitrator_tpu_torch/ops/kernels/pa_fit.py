@@ -233,7 +233,7 @@ class PaFitPlan:
             self.first = False
         build.check(self.fn(self.static_ptr, g.data_ptr(), int(g.dtype == torch.int64),
                             task_status.data_ptr(), task_node.data_ptr(), self.stream), "pa_fit")
-        pa_fit.launches += 1
+        build.launched(pa_fit)
         return self.fit
 
 

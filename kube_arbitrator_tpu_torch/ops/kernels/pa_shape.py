@@ -167,7 +167,7 @@ class PaShapePlan:
                                  f"want ({self.st.num_nodes},)")
             self.first = False
         build.check(self.fn(self.static_ptr, build.ptr(row), 1, self.stream), "pa_shape")
-        pa_shape.launches += 1
+        build.launched(pa_shape)
         return k
 
 

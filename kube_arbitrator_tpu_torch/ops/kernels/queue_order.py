@@ -141,7 +141,7 @@ class QueueOrderPlan:
             self.first = False
         build.check(self.fn(self.static_ptr, q_active.data_ptr(), queue_alloc.data_ptr(),
                             self.stream), "queue_order")
-        queue_order.launches += 1
+        build.launched(queue_order)
         return self.perm, self.nq
 
 

@@ -145,7 +145,7 @@ class RoundProductsPlan:
         if dirty is not None and (dirty.dtype != torch.bool or dirty.device != self.dev):
             raise ValueError("round_products: dirty must be bool[1] on the plan's device")
         build.check(self.fn(self.static_ptr, build.ptr(dirty), self.stream), "round_products")
-        round_products.launches += 1
+        build.launched(round_products)
         return self.out
 
 

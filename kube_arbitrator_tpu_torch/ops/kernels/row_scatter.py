@@ -194,5 +194,5 @@ class RowScatterPlan:
         if rc == INDEX_ERROR:
             raise IndexError("row_scatter: an index outside its field's rows")
         build.check(rc, "row_scatter")
-        RowScatterPlan.launches += 1
+        build.launched(RowScatterPlan)
         return sent

@@ -201,7 +201,7 @@ class SegScanPlan:
 
 
 def _count(variant: str) -> None:
-    seg_scan.launches += 1
+    build.launched(seg_scan)
     seg_scan.variants[variant] += 1
 
 

@@ -165,7 +165,7 @@ def _launch_ordered(v, perm, seg_start, n, num_segments, out, dst):
     build.check(build.bind("segment_sum", f"kat_segment_sum_{_T[v.dtype]}", SIGNATURES)(
         v.data_ptr(), build.ptr(perm), build.ptr(seg_start), n, num_segments, v.shape[1],
         int(out is not None), dst.data_ptr(), build.stream()), "segment_sum")
-    segment_sum.launches += 1
+    build.launched(segment_sum)
 
 
 def segment_sum(val: torch.Tensor, idx: torch.Tensor, num_segments: int,
@@ -197,7 +197,7 @@ def segment_sum(val: torch.Tensor, idx: torch.Tensor, num_segments: int,
             build.check(fn(v.data_ptr(), idx.contiguous().data_ptr(), n, num_segments, C,
                            int(out is not None), dst.data_ptr(), ws.data_ptr(), words,
                            build.stream()), "segment_sum")
-            segment_sum.launches += 1
+            build.launched(segment_sum)
         else:
             perm, seg_start = segment_order(idx, num_segments) if order is None else order
             if perm.dtype != torch.int32 or seg_start.dtype != torch.int32:

@@ -206,7 +206,7 @@ class StableCompactPlan:
         w.seq = w.seq % 0xFFFFFFFF + 1  # 1, 2, ..., never 0 (the zeroed words' number)
         c.seq = w.seq
         build.check(self.fn(self.static_ptr, self.call_ptr, w.stream), "stable_compact")
-        stable_compact.launches += 1
+        build.launched(stable_compact)
 
 
 def plan_for(index: int, K: int, L: int) -> StableCompactPlan:

@@ -101,7 +101,7 @@ def workspace_words(n: int, npass: int, bins: int) -> int:
 
 
 def _count(variant: str) -> None:
-    stable_sort.launches += 1
+    build.launched(stable_sort)
     stable_sort.variants[variant] += 1
 
 

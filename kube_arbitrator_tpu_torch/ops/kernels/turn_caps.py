@@ -246,7 +246,7 @@ class TurnCapsPlan:
         build.check(self.fn(self.static_ptr, g.data_ptr(), int(g.dtype == torch.int64),
                             req.data_ptr(), 0 if pa_ok is None else pa_ok.data_ptr(),
                             self.stream), "turn_caps")
-        turn_caps.launches += self.per_call
+        build.launched(turn_caps, self.per_call)
         turn_caps.variants[self.variant] += 1
         return self.k, self.nperm
 

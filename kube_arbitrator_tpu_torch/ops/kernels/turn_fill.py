@@ -254,7 +254,7 @@ class TurnFillPlan:
                 self.first = False
             build.check(self.fn(self.static_ptr, g.data_ptr(), int(g.dtype == torch.int64),
                                 req.data_ptr(), budget.data_ptr(), self.stream), "turn_fill")
-            turn_fill.launches += 1
+            build.launched(turn_fill)
             turn_fill.variants[self.variant] += 1
         return self.placed, self.use_rel
 

@@ -198,7 +198,7 @@ class UnionFitPlan:
         c.q, c.g, c.has_grp = q.data_ptr(), g.data_ptr(), has_grp.data_ptr()
         c.pop, c.req, c.ctl = pop.data_ptr(), req.data_ptr(), build.ptr(ctl)
         build.check(self.fn(self.static_ptr, self.call_ptr, self.stream), "union_fit")
-        union_fit.launches += 1
+        build.launched(union_fit)
         return self.pick
 
     def _check(self, q, g, has_grp, pop, req, ctl):

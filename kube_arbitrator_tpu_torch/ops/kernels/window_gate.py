@@ -184,7 +184,7 @@ class WindowGatePlan:
             self.first = False
         c.q_panel, c.reqp, c.progress = q_panel.data_ptr(), reqp.data_ptr(), progress.data_ptr()
         build.check(self.fn(self.static_ptr, self.call_ptr, self.stream), "window_gate")
-        window_gate.launches += 1
+        build.launched(window_gate)
         return self.sel
 
 

@@ -597,7 +597,6 @@ def preempt_action(
     width.  ``turn_batch`` None picks the batched engine unless
     :func:`turn_batch_fallback_reason` says otherwise; ``round_gate``
     None turns the incremental round gate on.  Returns a new state."""
-    T = st.num_tasks
     preds_on = plugin_on(tiers, "predicates", "predicate_disabled")
     if turn_batch is None:
         turn_batch = turn_batch_fallback_reason(st, tiers) is None
@@ -607,22 +606,100 @@ def preempt_action(
         if turn_batch else _rounds
     state = _copy(state)
     state.rounds, state.rounds_gated, state.claim_conflicts = 0, 0, 0
-    running0 = (state.task_status == RUNNING) & st.task_valid & (state.task_node >= 0)
-    P = T // 8
-    if P < panel_floor:
-        view = _build_view(st, state, running0, T)
-    else:
-        qualify = _entry_qualify(st, sess, state, running0)
-        (count,) = yield from read(qualify.sum())
-        if count <= P:
-            view = _build_view(st, state, qualify, P)
-        elif count <= T // 4:
-            view = _build_view(st, state, qualify, T // 4)
-        else:
-            view = _build_view(st, state, running0, T)
+    panel_w, members = yield from _panel(st, sess, state, panel_floor)
+    view = _build_view(st, state, members, panel_w)
     state = yield from rounds_fn(st, sess, state, tiers, s_max, max_rounds, "preempt", view)
     return (yield from rounds_fn(st, sess, state, tiers, s_max, max_rounds, "preempt_intra",
                                  view))
+
+
+def _panel(st, sess, state, panel_floor: int = 1024, panel_w: Optional[int] = None):
+    """(width, members) of the victim panel a preempt action builds at
+    entry: T//8 or T//4 slots of the qualifying victims when they fit (one
+    host read of their count), else all T slots over the running tasks;
+    packs with T//8 < ``panel_floor`` take the full width.  A given
+    ``panel_w`` is taken as it is, with no read."""
+    T = st.num_tasks
+    running0 = (state.task_status == RUNNING) & st.task_valid & (state.task_node >= 0)
+    if panel_w is None:
+        P = T // 8
+        if P < panel_floor:
+            panel_w = T
+        else:
+            qualify = _entry_qualify(st, sess, state, running0)
+            (count,) = yield from read(qualify.sum())
+            panel_w = P if count <= P else T // 4 if count <= T // 4 else T
+            return panel_w, (qualify if panel_w < T else running0)
+    return panel_w, (_entry_qualify(st, sess, state, running0) if panel_w < T else running0)
+
+
+@stepped
+def preempt_panel_width(st: SnapshotTensors, sess: SessionCtx, state: AllocState,
+                        panel_floor: int = 1024) -> int:
+    """The victim-panel width ``preempt_action`` would select for this
+    state (the reference's ops/preempt.py:1432): the same T//8 / T//4 /
+    full tier switch, with its one host read through the seam, so the
+    phase-A probe measures the tier the action runs."""
+    return (yield from _panel(st, sess, state, panel_floor))[0]
+
+
+@stepped
+def phase_a_probe(st: SnapshotTensors, sess: SessionCtx, state: AllocState, tiers: Tiers,
+                  s_max: int = 4096, gated: bool = False, panel_w: Optional[int] = None):
+    """ONE preempt round's phase A as the batched engine (``_rounds_batched``)
+    runs it, standalone, for the profiler's per-round cost attribution
+    (the reference's ops/preempt.py:1456; /debug/kernels' phase split):
+    the victim panel at ``panel_w`` slots (K16, with K19's orders), the
+    round gate, the queue order (K17), the panel queues' selection (K2),
+    the union verdicts and (node, queue) scans (K5), and the first panel
+    queue's node half of a claim (K6; K11 and K12 around it under pod
+    affinity).  Nothing of ``state`` is written.  ``gated`` runs the round
+    as a gated round with no changed selection does: the verdicts and
+    scans go over an empty scope (the port recomputes the round gate's
+    victim-pool half in every round, so that is all a gated round saves).
+    ``panel_w`` None takes the T//8-or-full width without a read.  Ends
+    with one host read through the seam; returns the round's trip count,
+    victims and the claim's placed count."""
+    T, Q = st.num_tasks, st.num_queues
+    if panel_w is None:
+        panel_w = T // 8 if T // 8 >= 1024 else T
+    _, members = yield from _panel(st, sess, state, panel_w=panel_w)
+    view = _build_view(st, state, members, panel_w)
+    mode, dev, i64 = "preempt", st.device, torch.int64
+    QA = min(Q, TURN_PANEL)
+    q_active = _round_gate(st, sess, state, mode, view)
+    nq, perm = _queue_perm(st, sess, state, tiers, q_active, _order_plan(st, sess, tiers))
+    shared = _selection_shared(st, sess, state, tiers, None)
+    grp_remaining, job_ready = shared[0], shared[3]
+    q_panel = perm[:QA]
+    jp, gp, hgp, reqp, budp = select_turns(st, sess, state, tiers, s_max, mode, shared, q_panel,
+                                           q_active[q_panel], TurnPickPlan(st, tiers))
+    wrp = job_ready[jp]
+    needp = (sess.min_avail[jp] - state.job_ready_cnt[jp]).clamp(min=0)
+    budp = _phase_budget(mode, budp, wrp, needp, hgp, grp_remaining[gp], s_max)
+    j_sel = torch.zeros(Q, dtype=i64, device=dev)
+    g_sel = torch.zeros(Q, dtype=i64, device=dev)
+    has_grp = torch.zeros(Q, dtype=torch.bool, device=dev)
+    req_all = torch.zeros((Q, st.task_resreq.shape[1]), dtype=torch.float32, device=dev)
+    j_sel[q_panel], g_sel[q_panel], has_grp[q_panel], req_all[q_panel] = jp, gp, hgp, reqp
+    changed = torch.zeros(Q, dtype=torch.bool, device=dev)
+    if not gated:
+        changed[q_panel] = q_active[q_panel]
+    qp_s = view.queue.clamp(max=Q - 1).to(i64)
+    cl = j_sel[qp_s]
+    slot_on = view.valid & q_active[qp_s] & has_grp[qp_s] & changed[qp_s]
+    scope = view.running(state.task_status) & (view.job != cl) & slot_on
+    victims = _victim_verdict(st, state, sess, tiers, scope, cl, req_all[qp_s], view)
+    node_rank, node_cum = view.layouts.by_node_queue.rank_and_cum(victims)
+    claim = _claim_plan(st, tiers, view, s_max, mode)
+    q = q_panel[:1]
+    if claim.pa is not None:
+        claim.pa[0](g_sel[q], state.task_status, state.task_node)  # K11: the fit K6 reads
+    placed = claim(victims & (view.queue == q), node_rank, node_cum, state.node_ports,
+                   state.node_num_tasks, g_sel[q], req_all[q][0], budp[:1], has_grp[q],
+                   wrp[:1], needp[:1])[2]
+    trip, n_victims, n_placed = yield from read(nq, victims.sum(), placed[0])
+    return dict(trip=trip, victims=n_victims, placed=n_placed)
 
 
 # ---------------------------------------------------------------- reclaim

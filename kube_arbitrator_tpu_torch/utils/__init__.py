@@ -1,4 +1,5 @@
-"""Utilities: the metrics registry and the concurrency sanitizer shim."""
+"""Utilities: the metrics registry, tracing, the flight recorder, the time
+series, the kernel profiler and the concurrency sanitizer shim."""
 from .metrics import Histogram, MetricsRegistry, metrics
 
 __all__ = ["Histogram", "MetricsRegistry", "metrics"]

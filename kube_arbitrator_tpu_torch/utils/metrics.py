@@ -14,12 +14,15 @@ method takes the one registry lock, and only dict/float ops run under it.
 
 ``METRIC_HELP`` is the single table of ``# HELP`` text for every metric
 family the port emits (the reference's table less the families of the
-planes the port has not ported: the sidecar, the pipeline, chaos, the
-fleet plane, the flight recorder, the audit and capture planes, the
-sharded plane); registries seed their help text from it so call sites
-never re-describe a family per cycle.  Each entry's text is the
-reference's, except the pool's batch families, whose values describe
-what the port launches (no padding, no per-batch-size compile).
+planes the port has not ported: the sidecar, chaos, the fleet plane, the
+audit and capture planes, the sharded plane); registries seed their help
+text from it so call sites never re-describe a family per cycle.  Each
+entry's text is the reference's, except the pool's batch families, whose
+values describe what the port launches (no padding, no per-batch-size
+compile), and ``kernel_build_*``, the port's counterpart of the
+reference's ``xla_retraces_total`` / ``xla_compile_seconds``: the port
+compiles nothing at run time but builds each CUDA source once, at its
+first use (ops/kernels/build.py).
 """
 from __future__ import annotations
 
@@ -38,13 +41,34 @@ METRIC_HELP: Dict[str, str] = {
     "cycle_phase_duration_seconds": "Per-phase cycle latency (snapshot/upload/kernel/decode/close/actuate/transport).",
     "kernel_action_duration_seconds": "Per-action decision-kernel wall time (staged runner; action label).",
     "kernel_rounds_total": "Rounds executed per action kernel (staged runner; evictive round-loop attribution; variant=gated counts rounds served by the incremental fast paths).",
-    "pipeline_discards_total": "Speculative decisions dropped by commit-time revalidation (reason label).",
+    "turn_batch_fallback_total": "Staged cycles whose auto turn_batch gate fell back to a sequential engine (action + reason; silent de-optimization visibility).",
     "binds_total": "Committed bind intents.",
     "evicts_total": "Committed evict intents.",
     "pending_tasks": "Pending tasks observed at cycle start.",
     "cycles_total": "Scheduling cycles completed.",
     "cycle_errors_total": "Cycles that died with an error (class label: retryable/fatal).",
     "pending_reason_total": "Unschedulable pending pods by dominant FitError reason at cycle close (reason label).",
+    "decode_overflow_total": "Cycles whose compact ints-out decode lists overflowed their caps (host fell back to the dense mask decode).",
+    "decode_path_total": "Host actuation decodes by path (path label: compact / dense [overflow or lists absent]).",
+    # incremental snapshot plane (cache/arena.py; the upload is the decider's)
+    "snapshot_delta_rows": "Rows the last arena pack refreshed (changed vs the previously shipped pack).",
+    "snapshot_full_rebuilds_total": "Arena full rebuilds (reason label: seed/verify/structural triggers).",
+    "device_upload_bytes_total": "Bytes shipped to the decision device (mode label: full/delta/shard_delta).",
+    # pipelined cycle plane (kube_arbitrator_tpu_torch/pipeline)
+    "pipeline_cycle_period_seconds": "Commit-to-commit effective cycle period of the pipelined executor.",
+    "pipeline_stage_busy_seconds": "Per-step busy time of each pipeline stage (stage label: ingest/freeze/decide/revalidate/actuate/close).",
+    "pipeline_stage_occupancy": "Fraction of the last effective cycle period each stage was busy (stage label).",
+    "pipeline_discards_total": "Speculative decisions dropped by commit-time revalidation (reason label).",
+    "pipeline_backpressure_total": "Decide-wait windows where ingest hit its pump cap and blocked (ingest outran decide).",
+    # flight recorder (utils/flightrec.py)
+    "flight_anomalies_total": "Anomalies noted by the flight recorder (kind label).",
+    "flight_dumps_total": "Flight-recorder dump files written.",
+    # profiling plane (utils/profiling.py)
+    "kernel_builds_total": "CUDA kernel sources built at run time (fn label: the kernel stage active when the build ran).",
+    "kernel_build_seconds": "Run-time build durations of the CUDA kernel sources (nvcc at first use).",
+    "kernel_profile_passes_lost_total": "Profiled stage passes that lost device records and are taken again (stage label).",
+    # observability server (obs.py)
+    "obs_requests_total": "Observability-plane HTTP requests served (path label).",
     # live cache
     "cache_watch_events_total": "Apiserver list/watch events applied to the live cache (phase label).",
     "cache_resync_depth": "errTasks resync queue depth at pump time.",
@@ -310,8 +334,8 @@ def record_kernel_rounds(registry: MetricsRegistry, action_rounds) -> None:
         elif action.endswith(":conflicts"):
             # optimistic-reclaim speculative claims discarded at the
             # in-round commit gate: the same revalidate-or-discard
-            # vocabulary as the reference's pipeline plane (its
-            # revalidate.DISCARD_REASONS carries "claim_conflict")
+            # vocabulary as the pipeline plane
+            # (pipeline/revalidate.DISCARD_REASONS carries "claim_conflict")
             registry.counter_add(
                 "pipeline_discards_total", rounds,
                 labels={"reason": "claim_conflict"},

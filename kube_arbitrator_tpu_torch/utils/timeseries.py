@@ -1,5 +1,6 @@
-"""Metric time-series ring + multi-window SLO burn-rate monitoring (the
-port's copy of kube_arbitrator_tpu/utils/timeseries.py:51-240).
+"""Metric time-series ring, multi-window SLO burn-rate monitoring and the
+per-cycle sampler (the port's copy of
+kube_arbitrator_tpu/utils/timeseries.py).
 
 The ring keeps a fixed number of ``{"ts": t, <key>: value}`` sample
 rows; the burn monitor on top of it is the SRE-workbook multi-window
@@ -7,14 +8,17 @@ policy: the burn of a window is ``(fraction of samples breaching) /
 budget``, and a pair fires only when BOTH its long and short windows
 burn at or past the pair's threshold (sustained AND still happening),
 once per episode.  The decision pool's per-tenant admission
-(rpc/pool.TenantAdmission) reads them.
+(rpc/pool.TenantAdmission) reads them, and :class:`CycleSampler` samples
+the scheduler's families into a ring once per committed cycle (the
+``timeseries=`` seam of framework.Scheduler), served at
+``/debug/timeseries`` (obs.py).
 
 Clocks are injectable everywhere (``now_fn``).  Ring appends and reads
 take one lock around deque operations only.
 
-Not ported yet: ``CycleSampler`` (the per-cycle sampler the scheduler
-calls) with its fleet rollup, which wait for the scheduler's time-series
-seam; ``/debug/timeseries`` has no server in the port.
+Not ported: the sampler's fleet rollup (the reference's
+``shard_rollup_values`` columns and its ``skew_monitor``), which waits
+for ``utils/fleet.py``; passing a ``skew_monitor`` raises.
 """
 from __future__ import annotations
 
@@ -222,3 +226,127 @@ class SloBurnMonitor(BurnPairMonitor):
         rates, thresholds, and firing state."""
         return {"slo_ms": self.slo_ms, "budget": self.budget,
                 "pairs": self._pair_status(now)}
+
+
+class CycleSampler:
+    """Samples the key families into the ring once per committed cycle
+    and runs the burn monitor — the scheduler calls :meth:`on_cycle`
+    from ``_record_metrics`` (sequential and pipelined paths both).
+
+    Sampled per cycle:
+
+    * ``cycle_ms`` — the cycle period (pipelined: commit-to-commit),
+      plus binds/evicts/pending and the per-phase ms from CycleStats;
+    * ``kernel_<action>_ms`` / ``rounds_<action>`` — staged-runner
+      attribution when tracing/profiling is on;
+    * counter DELTAS since the previous sample (upload bytes, pipeline
+      discards, backpressure, kernel builds, turn-batch fallbacks,
+      decode overflows) — the ring stores per-cycle increments, not
+      cumulative totals;
+    * ``occ_<stage>`` — the pipeline occupancy gauges as-is.
+    """
+
+    # the reference's keys, less the families of planes the port has not
+    # ported (sharding, capture); ``retraces`` reads the port's build
+    # counter (utils/profiling.py)
+    COUNTER_DELTAS = {
+        "upload_bytes": "device_upload_bytes_total",
+        "discards": "pipeline_discards_total",
+        "backpressure": "pipeline_backpressure_total",
+        "retraces": "kernel_builds_total",
+        "turn_batch_fallbacks": "turn_batch_fallback_total",
+        "decode_overflows": "decode_overflow_total",
+    }
+    OCCUPANCY_GAUGE = "pipeline_stage_occupancy"
+
+    def __init__(
+        self,
+        ring: Optional[TimeSeriesRing] = None,
+        registry: Optional[MetricsRegistry] = None,
+        slo_ms: Optional[float] = None,
+        budget: float = DEFAULT_BUDGET,
+        windows: Tuple[Tuple[float, float, float], ...] = DEFAULT_BURN_WINDOWS,
+        flight=None,
+        now_fn: Optional[Callable[[], float]] = None,
+        skew_monitor=None,
+    ):
+        if skew_monitor is not None:
+            raise NotImplementedError(
+                "CycleSampler(skew_monitor=...): the fleet rollup waits for utils/fleet.py, "
+                "which the port has not ported")
+        # `is not None`, not truthiness: an EMPTY ring is len()==0 falsy
+        self.ring = ring if ring is not None else TimeSeriesRing(now_fn=now_fn)
+        self.registry = registry if registry is not None else metrics()
+        self.flight = flight
+        self.burn = (
+            SloBurnMonitor(self.ring, slo_ms, budget, windows, self.registry)
+            if slo_ms else None
+        )
+        self.skew_monitor = None
+        self._prev_counters: Dict[str, float] = {}
+
+    def set_now_fn(self, now_fn: Callable[[], float]) -> None:
+        self.ring.now = now_fn
+
+    def on_cycle(
+        self,
+        stats,
+        action_ms: Optional[Dict[str, float]] = None,
+        action_rounds: Optional[Dict[str, int]] = None,
+        ts: Optional[float] = None,
+    ) -> List[Dict[str, float]]:
+        """Record one committed cycle; returns the burn pairs that newly
+        fired (after raising their ``slo_burn`` flight anomaly)."""
+        values: Dict[str, float] = {
+            "cycle_ms": stats.cycle_ms,
+            "binds": stats.binds,
+            "evicts": stats.evicts,
+            "pending": stats.pending_before,
+            "snapshot_ms": stats.snapshot_ms,
+            "upload_ms": stats.upload_ms,
+            "kernel_ms": stats.kernel_ms,
+            "decode_ms": stats.decode_ms,
+            "close_ms": stats.close_ms,
+            "actuate_ms": stats.actuate_ms,
+            "transport_ms": stats.transport_ms,
+            "capture_ms": getattr(stats, "capture_ms", 0.0),
+        }
+        for stage, ms in (action_ms or {}).items():
+            values[f"kernel_{stage}_ms"] = ms
+        for action, rounds in (action_rounds or {}).items():
+            # ":gated"-suffixed entries become rounds_<action>_gated rows
+            values[f"rounds_{action.replace(':', '_')}"] = rounds
+        for key, family in self.COUNTER_DELTAS.items():
+            total = self.registry.counter_total(family)
+            prev = self._prev_counters.get(key)
+            self._prev_counters[key] = total
+            # once a family has ever incremented, every row carries its
+            # delta — including 0 — so a window mean over the series sees
+            # the quiet cycles too; never-used families stay out of rows
+            if prev is None:
+                if total:
+                    values[key] = total
+            elif total or prev:
+                values[key] = total - prev
+        for labels, v in self.registry.gauge_values(self.OCCUPANCY_GAUGE).items():
+            stage = dict(labels).get("stage", "")
+            if stage:
+                values[f"occ_{stage}"] = round(v, 4)
+        self.ring.sample(values, ts=ts)
+        if self.burn is None:
+            return []
+        fired = self.burn.check(ts)
+        for pair in fired:
+            if self.flight is not None:
+                self.flight.anomaly(
+                    "slo_burn",
+                    detail=(
+                        f"burn {pair['burn']:.1f}x over {pair['window_s']:g}s "
+                        f"(short {pair['short_burn']:.1f}x / "
+                        f"{pair['short_s']:g}s, threshold "
+                        f"{pair['threshold']:g}x, slo "
+                        f"{self.burn.slo_ms:g} ms, budget "
+                        f"{self.burn.budget:g})"
+                    ),
+                )
+        return fired

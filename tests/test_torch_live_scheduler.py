@@ -213,7 +213,7 @@ def test_cli_watch_stream_matches_reference(tmp_path, capsys):
     metrics_file = tmp_path / "metrics.prom"
     out = subprocess.run(
         [sys.executable, "-c", code, "--watch-stream", path, "--device", "cpu", "--cycles", "2",
-         "--json", "--enable-leader-election", "--lock-object-namespace", str(tmp_path / "lock"),
+         "--json", "--arena", "--enable-leader-election", "--lock-object-namespace", str(tmp_path / "lock"),
          "--metrics-file", str(metrics_file)],
         capture_output=True, text=True, timeout=300, cwd=str(REPO),
         env=dict(os.environ, PYTHONPATH=str(REPO)),

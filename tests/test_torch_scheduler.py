@@ -234,10 +234,11 @@ def test_session_default_decider_is_the_card(monkeypatch):
         port_framework.Session(sim.cluster).run()
     r = port_framework.Session(sim.cluster, decider=TorchDecider("cpu")).run()
     assert len(r.binds) == 0 and len(r.evicts) == 0  # the default conf evicts nothing here
-    for name in ("flight", "audit", "timeseries", "capture", "trace_recorder",
-                 "profile_dir", "cycle_slo_ms"):
+    for name in ("audit", "capture", "trace_recorder"):
         with pytest.raises(TypeError):
             port_framework.Scheduler(sim, decider=TorchDecider("cpu"), **{name: None})
+    for name in ("flight", "timeseries", "profile_dir", "cycle_slo_ms", "conf_path"):
+        port_framework.Scheduler(sim, decider=TorchDecider("cpu"), **{name: None})
 
 
 def test_decision_contract_and_decode_paths(monkeypatch):
@@ -305,7 +306,7 @@ def test_cli_sim_mode_imports_neither_jax_nor_the_reference():
     out = subprocess.run(
         [sys.executable, "-c", code, "--sim-nodes", "30", "--sim-jobs", "8",
          "--sim-tasks-per-job", "10", "--sim-queues", "2", "--cycles", "3", "--device", "cpu",
-         "--json"],
+         "--json", "--arena"],
         capture_output=True, text=True, timeout=300, cwd=str(REPO), env=env,
     )
     assert out.returncode == 0, out.stderr[-3000:]
